@@ -8,7 +8,8 @@ compiles against PyTorch's headers) takes minutes.
 
 The build happens at first use, from the sources in the package only, into
 ``<package>/_build/`` (listed in ``.gitignore``).  The library's file name
-carries a hash of the sources and flags, so an edited source rebuilds, and a
+carries a hash of the sources, the headers they include (``csrc/*.cuh``,
+``csrc/*.h``) and the flags, so an edited source or header rebuilds, and a
 finished library is moved into place atomically: concurrent builders never
 load a half-written file.
 
@@ -59,7 +60,13 @@ def wants_kernel(t: torch.Tensor) -> bool:
 
 
 def sources() -> list:
+    """The ``.cu`` files compiled into the library, one ``nvcc`` each."""
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def headers() -> list:
+    """The headers under ``csrc/`` that the sources may include."""
+    return sorted(p for ext in ("*.cuh", "*.h") for p in glob.glob(os.path.join(CSRC_DIR, ext)))
 
 
 def source_hash(paths, flags) -> str:
@@ -73,7 +80,8 @@ def source_hash(paths, flags) -> str:
 
 
 def library_path() -> str:
-    return os.path.join(BUILD_DIR, f"{_LIB_STEM}-{source_hash(sources(), NVCC_FLAGS)}.so")
+    digest = source_hash(sources() + headers(), NVCC_FLAGS)
+    return os.path.join(BUILD_DIR, f"{_LIB_STEM}-{digest}.so")
 
 
 def find_nvcc() -> str:
@@ -135,7 +143,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nbody_gravity_f32.argtypes = [vp, vp, vp, ci, ci, cf, cf, vp]
     lib.nbody_egnn_messages_f32.argtypes = [vp] * 12 + [ci] * 6 + [vp]
-    for fn in (lib.nbody_gravity_f32, lib.nbody_egnn_messages_f32):
+    lib.nbody_egnn_stream_f32.argtypes = [vp] * 15 + [ci] * 7 + [vp]
+    for fn in (lib.nbody_gravity_f32, lib.nbody_egnn_messages_f32, lib.nbody_egnn_stream_f32):
         fn.restype = ctypes.c_int
 
 

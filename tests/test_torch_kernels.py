@@ -10,6 +10,9 @@ Tolerances: K2 in float32 at rtol 2e-5 (the JAX package's own kernel test,
 Pallas kernel and the plain version sum products and means in another order.
 """
 
+import os
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -139,3 +142,22 @@ def test_wants_kernel_dispatch():
     assert _build.wants_kernel(torch.zeros(1)) is False
     with pytest.raises(ValueError):
         _build.wants_kernel(torch.zeros(1, device="meta"))
+
+
+def test_library_path_follows_every_source_and_header(tmp_path, monkeypatch):
+    """An edited header (``csrc/*.cuh``, ``*.h``) rebuilds the library, as an
+    edited ``.cu`` does: both are in the hash of its file name."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
+    assert all(p.endswith(".cu") for p in _build.sources())
+    assert [os.path.basename(p) for p in _build.headers()] == ["egnn_edge.cuh"]
+    paths = [_build.library_path()]
+    for name in ("egnn_edge.cuh", "egnn_stream.cu"):
+        with open(csrc / name, "a") as f:
+            f.write("\n// edited\n")
+        paths.append(_build.library_path())
+    (csrc / "extra.h").write_text("#pragma once\n")
+    paths.append(_build.library_path())
+    assert len(set(paths)) == 4
+    assert all(os.path.dirname(p) == _build.BUILD_DIR for p in paths)

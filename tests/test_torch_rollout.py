@@ -156,7 +156,8 @@ def test_run_self_feed_on_fresh_ground_truth():
         GravityDatasetOtf(target="nope", device="cpu")
 
 
-@pytest.mark.parametrize("option", [dict(streaming=True), dict(body_ring=True),
+@pytest.mark.parametrize("option", [dict(streaming=True, stream_elem_bf16=True),
+                                    dict(body_ring=True),
                                     dict(fc_fast=True), dict(remat=True),
                                     dict(compute_dtype="bfloat16")])
 def test_options_not_in_this_slice_raise(option):
