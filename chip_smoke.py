@@ -6,24 +6,39 @@
 Builds the port's CUDA kernels (nvcc, one process per source, in parallel)
 and its C++ macro library (g++) from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, then drives the port's
-two paths through ``rollout.self_feed.run_self_feed`` with the committed N=100
-checkpoint of EGNN-MC (6 layers, width 128, fully connected, f32): the bench
+paths through ``rollout.self_feed.run_self_feed`` with the committed N=100
+checkpoint of EGNN-MC (6 layers, width 128, fully connected): the bench
 workload (B=64 sims of N=100 bodies, dense edge stage K1) and the big-N path
-(B=8 sims of N=512 bodies, streaming edge stage K3):
+(B=8 sims of N=512 bodies, streaming edge stage K3), each in f32 and in the
+mixed-bf16 model (``compute_dtype="bfloat16"``: hidden and message stack in
+bf16, coordinates, geometry and integration in f32):
 
-  1. device        card name and power limit, torch / CUDA versions, TF32 off
+  1. device        card name and power limit, torch / CUDA versions, TF32 off,
+                   bf16 products reduced in f32
   2. build         kernels (nvcc -> one .so, ctypes) and macro library (g++)
   3. K2            gravity kernel vs plain at (B,N) = (64,100) and (2,300)
   4. K1            EGNN edge kernel vs plain at the bench shape, FC and k=5 masks
-  5. K3            streaming edge kernel vs plain at (8,512) FC and k=5, (2,300)
+  5. K1-bf16       its bf16 form vs the bf16 plain version, same shapes
+  6. K3            streaming edge kernel vs plain at (8,512) FC and k=5, (2,300)
                    and (1,1000), both norm_diff settings; vs K1 at (8,512)
-  6. datagen       fresh GT trajectories through K2 (2000 substeps, T=200 frames)
-  7. rollout       199 self-feed steps through K1, and 20 steps of the kernel
+  7. K3-bf16,      its bf16 form and its elem_bf16 form (with bf16 and with f32
+     K3-elem       operands) vs their plain versions at (8,512) FC and k=5 and
+                   (1,1000), both norm_diff settings
+  8. datagen       fresh GT trajectories through K2 (2000 substeps, T=200 frames)
+  9. rollout       199 self-feed steps through K1, and 20 steps of the kernel
                    path against the plain path
-  8. score         six-macro KS p-values and the Fisher-combined p
-  9. bign-rollout  GT at N=512 through K2 (1000 substeps, T=100), 99 streaming
+ 10. score         six-macro KS p-values and the Fisher-combined p
+ 11. determinism   every edge kernel form launched twice on one input gives
+                   bitwise-equal outputs; the counted f32 rollout repeated from
+                   the same GT gives bitwise-equal trajectories
+ 12. rollout-bf16  the mixed-bf16 model on the same GT: 199 steps through
+                   K1-bf16 only, against the plain path, KS score
+ 13. bign-rollout  GT at N=512 through K2 (1000 substeps, T=100), 99 streaming
                    steps through K3, 20 steps against the plain path, KS score
- 10. bign          bign_bench rows: steps/s and peak memory, dense K1 against
+ 14. bign-rollout-bf16  the same GT in the mixed-bf16 streaming model, with
+                   the bf16 elementwise stack (99 steps through K3-elem only)
+                   and without it (through K3-bf16 only), KS score
+ 15. bign          bign_bench rows: steps/s and peak memory, dense K1 against
                    streaming K3, at (N,B) = (256,16), (512,8), (1024,2), (4096,1)
 
 Each phase prints one line with its result and elapsed seconds.  Any failed
@@ -31,17 +46,21 @@ check exits non-zero before the result is printed.  The second-to-last line
 is a JSON object with every kernel's launches on its path, its error against
 the plain version, its time, the plain version's time and its bound; the last
 line is ``{"ok": true, "device": {...}}``.  The script writes only into the
-package's ignored build directory.
+package's ignored build directory.  It sets ``CUBLAS_WORKSPACE_CONFIG`` so that
+the cuBLAS products around the kernels are reproducible too.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
+
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # before torch loads cuBLAS
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = "extending_the_n_body_benchmark_a_cross_model_study_of_geometric_deep_learning_architectures_tpu_torch"
@@ -58,15 +77,27 @@ COMPARE_STEPS = 20
 BIG_B, BIG_N, BIG_SUBSTEPS = 8, 512, 1000
 BIG_FRAMES = BIG_SUBSTEPS // SAMPLE_FREQ
 K3_SHAPES = ((8, 512, ("fc", "knn5")), (2, 300, ("fc",)), (1, 1000, ("fc",)))
+K3_BF16_SHAPES = ((8, 512, ("fc", "knn5")), (1, 1000, ("fc",)))
 BIGN_STEPS = 20
 
 # K2: same sums in the same order up to rsqrtf's few ulp
 K2_RTOL, K2_ATOL = 1e-5, 1e-5
 # K1 and K3: the kernels sum products and means in another order than cuBLAS / torch
 K1_RTOL, K1_ATOL = 1e-4, 1e-5
+# their bf16 forms: the kernels round where the plain versions round, but an f32
+# sum taken in another order (or elem_bf16's approximate h2exp / h2rcp) can move
+# an intermediate across a bf16 rounding boundary, one bf16 ulp being 2**-8
+# relative; so 1e-2 of the largest value, for agg (bf16) and trans (f32) alike
+BF16_RTOL, BF16_ATOL = 1e-2, 1e-5
+# the f32 K1 / K3 times of the float-atomic sums that the fixed-order sums
+# replaced (commit d072d88, run beside this code in one call on an NVIDIA H100
+# 80GB HBM3, 700.00 W), printed with this run's for the fixed order's cost
+ATOMIC_K1_MS, ATOMIC_K3_MS = 2.4947, 7.3923
 
-# H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, HBM3 bandwidth
+# H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, dense bf16 on the tensor
+# cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 K2_FLOPS_PER_PAIR = 20  # 3 sub, 6 for r2 + eps^2, rsqrt, 3 for inv^3 * m, 3 FMA
 T_START = time.perf_counter()
@@ -84,8 +115,8 @@ def report(phase: str, t0: float, seconds=None, **info) -> None:
     print(f"[{phase}] ok {seconds:.2f} s {items}", flush=True)
 
 
-def bound_ms(n_bytes: float, flops: float):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / PEAK_F32_FLOPS
+def bound_ms(n_bytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -144,10 +175,16 @@ def main() -> None:
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the cuBLAS bf16 products around the kernels (hA, hB, node MLPs) reduce in
+    # f32, as XLA's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     kind = torch.cuda.get_device_name(0)
     report("device", t0, kind=repr(kind), torch=torch.__version__, cuda=torch.version.cuda,
            tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
-           tf32_cudnn=torch.backends.cudnn.allow_tf32)
+           tf32_cudnn=torch.backends.cudnn.allow_tf32,
+           bf16_reduced_precision_reduction=(
+               torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction),
+           cublas_workspace_config=os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
 
     # ------------------------------------------------------------- 2. build
     t0 = time.perf_counter()
@@ -194,15 +231,20 @@ def main() -> None:
     report("K2", t0, max_abs_err=k2_err, rtol=K2_RTOL, atol=K2_ATOL, ms=f"{k2_ms:.5f}",
            plain_ms=f"{k2_plain_ms:.5f}", bound_ms=f"{k2_bound:.5f}", bound_by=k2_by)
 
-    def check_close(kernel: str, label: str, got, want, errs: dict) -> None:
+    def check_close(kernel: str, label: str, got, want, errs: dict,
+                    rtol: float = K1_RTOL, atol: float = K1_ATOL) -> None:
         """Hold a kernel's ``(agg, trans)`` against a reference's, at K1's tolerance
-        against the reference's scale; record the errors in ``errs``."""
+        (or the given one) against the reference's scale; record the errors in
+        ``errs``.  Dtypes must agree (agg in the operand dtype, trans in f32)."""
         for part, a, b in (("agg", got[0], want[0]), ("trans", got[1], want[1])):
+            if a.dtype != b.dtype:
+                fail(f"{kernel} {part} is {a.dtype}, its reference {b.dtype} ({label})")
+            a, b = a.float(), b.float()
             if not torch.isfinite(a).all():
                 fail(f"{kernel} {part} not finite ({label})")
             err = (a - b).abs().max().item()
             scale = b.abs().max().item()
-            if err > K1_ATOL + K1_RTOL * scale:
+            if err > atol + rtol * scale:
                 fail(f"{kernel} {part} disagrees ({label}): "
                      f"max abs err {err}, max |reference| {scale}")
             errs[f"{part} {label}"] = (err, err / max(scale, 1e-30))
@@ -236,6 +278,8 @@ def main() -> None:
         mask = masks["fc"]
         k1_ms = cuda_ms(lambda: EM.fused_egnn_messages(hA, hB, geom, mask, *w), iters=20)
         k1_plain_ms = cuda_ms(lambda: EM.egnn_messages_plain(hA, hB, geom, mask, *w), iters=5)
+    # the edge kernels' calls that [determinism] repeats, by form
+    repeat = {"K1": functools.partial(EM.fused_egnn_messages, hA, hB, geom, mask, *w)}
     He = Hc = WIDTH
     edge_flops = He * He + He * Hc + 5 * He + Hc  # per edge row, times 2 for multiply-add
     weight_floats = 5 * He + He * He + He + He * Hc + 2 * Hc
@@ -247,19 +291,52 @@ def main() -> None:
     report("K1", t0, rtol=K1_RTOL, atol=K1_ATOL, ms=f"{k1_ms:.4f}", plain_ms=f"{k1_plain_ms:.4f}",
            bound_ms=f"{k1_bound:.4f}", bound_by=k1_by, gflop=f"{k1_flops / 1e9:.2f}")
 
-    # ---------------------------------------------------------------- 5. K3
+    # ----------------------------------------------------------- 5. K1-bf16
+    # the mixed-bf16 model's inputs: h in bf16 after the embedding, the block's
+    # parameters cast to bf16 at use, the geometry f32
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    wb = block.edge_weights(bf16)
+    k1b_err = {}
+    with torch.no_grad():
+        hAb, hBb = block.node_terms(model.embedding(x).to(bf16))
+        for name, mask in masks.items():
+            check_close("K1-bf16", f"{name} mask",
+                        EM.fused_egnn_messages(hAb, hBb, geom, mask, *wb),
+                        EM.egnn_messages_plain(hAb, hBb, geom, mask, *wb), k1b_err,
+                        BF16_RTOL, BF16_ATOL)
+        mask = masks["fc"]
+        k1b_ms = cuda_ms(lambda: EM.fused_egnn_messages(hAb, hBb, geom, mask, *wb), iters=20)
+        k1b_plain_ms = cuda_ms(lambda: EM.egnn_messages_plain(hAb, hBb, geom, mask, *wb), iters=5)
+    repeat["K1-bf16"] = functools.partial(EM.fused_egnn_messages, hAb, hBb, geom, mask, *wb)
+    # bf16 operands and agg, f32 geometry, mask and trans; the products at the
+    # tensor cores' bf16 rate
+    k1b_bytes = (2.0 * (2 * B * N * He + weight_floats + B * N * He)
+                 + 4.0 * (B * N * N * 8 + B * N * N + B * N * 3))
+    k1b_bound, k1b_by = bound_ms(k1b_bytes, k1_flops, PEAK_BF16_FLOPS)
+    print_errs("K1-bf16", k1b_err)
+    report("K1-bf16", t0, rtol=BF16_RTOL, atol=BF16_ATOL, ms=f"{k1b_ms:.4f}",
+           plain_ms=f"{k1b_plain_ms:.4f}", bound_ms=f"{k1b_bound:.4f}", bound_by=k1b_by,
+           gflop=f"{k1_flops / 1e9:.2f}")
+
+    def k3_inputs(bb: int, nn_: int):
+        """A random scene's node data ``(pos0, vel, mass, coord)`` and its
+        embedding ``h`` through the checkpoint's first layer."""
+        pos0 = torch.randn((bb, nn_, 3), device=dev, generator=gen) * (nn_ / 5.0) ** (1 / 3)
+        vel = torch.randn((bb, nn_, 3), device=dev, generator=gen)
+        mass = torch.rand((bb, nn_, 1), device=dev, generator=gen) + 0.5
+        coord = pos0 + 0.1 * torch.randn((bb, nn_, 3), device=dev, generator=gen)
+        x = torch.cat([torch.linalg.vector_norm(vel, dim=-1, keepdim=True), mass], dim=-1)
+        return model.embedding(x), (pos0, vel, mass, coord)
+
+    # ---------------------------------------------------------------- 6. K3
     t0 = time.perf_counter()
     k3_err, k3_vs_k1_err = {}, {}
     with torch.no_grad():
         for bb, nn_, mask_names in K3_SHAPES:
-            pos0 = torch.randn((bb, nn_, 3), device=dev, generator=gen) * (nn_ / 5.0) ** (1 / 3)
-            vel = torch.randn((bb, nn_, 3), device=dev, generator=gen)
-            mass = torch.rand((bb, nn_, 1), device=dev, generator=gen) + 0.5
-            coord = pos0 + 0.1 * torch.randn((bb, nn_, 3), device=dev, generator=gen)
-            x = torch.cat([torch.linalg.vector_norm(vel, dim=-1, keepdim=True), mass], dim=-1)
-            h = model.embedding(x)
+            h, node = k3_inputs(bb, nn_)
             hA, hB = block.node_terms(h)
-            node = (pos0, vel, mass, coord)
+            pos0, vel, mass, coord = node
             for name in mask_names:
                 mask = graph.knn_mask(pos0, nn_ - 1 if name == "fc" else 5).float()
                 for nd in (True, False):
@@ -284,6 +361,7 @@ def main() -> None:
             k3_plain_ms = cuda_ms(
                 lambda: ES.streaming_egnn_messages_plain(hA, hB, *node, mask, *w),
                 iters=3, warmup=1)
+            repeat["K3"] = functools.partial(ES.streaming_egnn_messages, hA, hB, *node, mask, *w)
             k3_b, k3_n = bb, nn_
     k3_flops = 2.0 * k3_b * k3_n * k3_n * edge_flops
     k3_bytes = 4.0 * (2 * k3_b * k3_n * He + k3_b * k3_n * 10 + k3_b * k3_n * k3_n
@@ -295,33 +373,93 @@ def main() -> None:
            plain_ms=f"{k3_plain_ms:.4f}", bound_ms=f"{k3_bound:.4f}", bound_by=k3_by,
            gflop=f"{k3_flops / 1e9:.2f}")
 
+    # ---------------------------------------------------- 7. K3-bf16, K3-elem
+    # the mixed-bf16 streaming model's two kernel forms: bf16 operands, and the
+    # same with the bf16 elementwise stack (elem_bf16); and elem_bf16 with f32
+    # operands, the third instantiation of the template (on no counted path)
+    t0 = time.perf_counter()
+    f32 = torch.float32
+    k3b = {"K3-bf16": dict(op=bf16, elem=False), "K3-elem": dict(op=bf16, elem=True),
+           "K3-elem f32 operands": dict(op=f32, elem=True)}
+    for f in k3b.values():
+        f["err"] = {}
+    with torch.no_grad():
+        for bb, nn_, mask_names in K3_BF16_SHAPES:
+            h, node = k3_inputs(bb, nn_)
+            operands = {op: (*block.node_terms(h.to(op)), block.edge_weights(op))
+                        for op in (bf16, f32)}
+            for name in mask_names:
+                mask = graph.knn_mask(node[0], nn_ - 1 if name == "fc" else 5).float()
+                for nd in (True, False):
+                    for form, f in k3b.items():
+                        hA_, hB_, w_ = operands[f["op"]]
+                        check_close(
+                            form, f"{bb}x{nn_} {name} norm_diff={nd}",
+                            ES.streaming_egnn_messages(hA_, hB_, *node, mask, *w_, norm_diff=nd,
+                                                       elem_bf16=f["elem"]),
+                            ES.streaming_egnn_messages_plain(hA_, hB_, *node, mask, *w_,
+                                                             norm_diff=nd, elem_bf16=f["elem"]),
+                            f["err"], BF16_RTOL, BF16_ATOL)
+            if (bb, nn_) != (k3_b, k3_n):
+                continue
+            mask = graph.knn_mask(node[0], nn_ - 1).float()
+            for form, f in k3b.items():
+                hA_, hB_, w_ = operands[f["op"]]
+                args = (hA_, hB_, *node, mask, *w_)
+                call = functools.partial(ES.streaming_egnn_messages, *args, elem_bf16=f["elem"])
+                f["ms"] = cuda_ms(call, iters=10)
+                f["plain_ms"] = cuda_ms(functools.partial(
+                    ES.streaming_egnn_messages_plain, *args, elem_bf16=f["elem"]),
+                    iters=3, warmup=1)
+                repeat[form] = call
+            del operands
+    # bf16 operands and agg move half the bytes and run the products at the
+    # tensor cores' rate; f32 operands run them on the CUDA cores, as K3 does
+    k3b_bytes = (2.0 * (2 * k3_b * k3_n * He + weight_floats + k3_b * k3_n * He)
+                 + 4.0 * (k3_b * k3_n * 10 + k3_b * k3_n * k3_n + k3_b * k3_n * 3))
+    k3b_bound, k3b_by = bound_ms(k3b_bytes, k3_flops, PEAK_BF16_FLOPS)
+    k3b_s = time.perf_counter() - t0
+    for form, f in k3b.items():
+        bound, by = (k3b_bound, k3b_by) if f["op"] == bf16 else (k3_bound, k3_by)
+        print_errs(form, f["err"])
+        report(form, t0, k3b_s, rtol=BF16_RTOL, atol=BF16_ATOL, shape=f"B={k3_b},N={k3_n}",
+               ms=f"{f['ms']:.4f}", plain_ms=f"{f['plain_ms']:.4f}",
+               bound_ms=f"{bound:.4f}", bound_by=by, gflop=f"{k3_flops / 1e9:.2f}")
+
     # ------------------------------------------------ helpers of the paths
+    counters = {  # name -> (wrapper, attribute): every kernel form's launch count
+        "k1": (EM.fused_egnn_messages, "launches"),
+        "k1_bf16": (EM.fused_egnn_messages, "launches_bf16"),
+        "k2": (gravity.acceleration, "launches"),
+        "k3": (ES.streaming_egnn_messages, "launches"),
+        "k3_bf16": (ES.streaming_egnn_messages, "launches_bf16"),
+        "k3_elem": (ES.streaming_egnn_messages, "launches_elem"),
+    }
+
     def counts() -> dict:
-        return {"k1": EM.fused_egnn_messages.launches, "k2": gravity.acceleration.launches,
-                "k3": ES.streaming_egnn_messages.launches}
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
 
     def reset_counts() -> None:
-        EM.fused_egnn_messages.launches = 0
-        gravity.acceleration.launches = 0
-        ES.streaming_egnn_messages.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
 
     class TimedDataset:
-        """Times the GT generation that run_self_feed asks for, and reads the
-        launch counts at its end."""
+        """Times the GT generation that run_self_feed asks for, reads the launch
+        counts at its end and keeps the GT ``(loc, vel, force, mass)``."""
 
         def __init__(self, ds):
             self.ds, self.target = ds, ds.target
 
         def get_ground_truth_trajectories(self, batch_size=None):
             t = time.perf_counter()
-            out = self.ds.get_ground_truth_trajectories(batch_size)
+            self.gt = self.ds.get_ground_truth_trajectories(batch_size)
             sync()
             self.seconds = time.perf_counter() - t
             self.counts = counts()
             self.t_end = time.perf_counter()
-            return out
+            return self.gt
 
-    def drive(model_, bb: int, nn_: int, substeps: int, seed: int, edge_kernel: str):
+    def drive(model_, bb: int, nn_: int, substeps: int, seed: int, edge_kernel: str) -> dict:
         """One counted run of a path: fresh GT through K2, then the self-feed
         rollout, which must launch ``edge_kernel`` once per layer and step and
         no other kernel."""
@@ -337,10 +475,11 @@ def main() -> None:
         total = counts()
         if tuple(loc_gt.shape) != (bb, frames, nn_, 3) or not torch.isfinite(loc_gt).all():
             fail(f"GT trajectories bad at N={nn_}: shape {tuple(loc_gt.shape)}")
-        if ds.counts["k2"] < substeps or ds.counts["k1"] or ds.counts["k3"]:
+        edge_launches = sum(v for k, v in ds.counts.items() if k != "k2")
+        if ds.counts["k2"] < substeps or edge_launches:
             fail(f"datagen at N={nn_} launched {ds.counts} (want K2 >= {substeps}, no edge kernel)")
         rolled = {k: total[k] - ds.counts[k] for k in total}
-        want = {"k1": 0, "k2": 0, "k3": 0}
+        want = dict.fromkeys(counters, 0)
         want[edge_kernel] = LAYERS * (frames - 1)
         if rolled != want:
             fail(f"the rollout at N={nn_} launched {rolled}, want {want}")
@@ -353,11 +492,20 @@ def main() -> None:
               f"frames={frames} k2_launches={ds.counts['k2']} "
               f"energy_drift_rel_mean={drift.mean().item():.3e} max={drift.max().item():.3e}",
               flush=True)
-        return (loc_gt, vel_gt, loc_pred, vel_pred, survived_min, t_end - ds.t_end, total)
+        return dict(loc_gt=loc_gt, vel_gt=vel_gt, loc_pred=loc_pred, vel_pred=vel_pred,
+                    survived_min=survived_min, seconds=t_end - ds.t_end, counts=total,
+                    gt=ds.gt, target=ds.target)
 
-    def compare_paths(model_, loc_gt, vel_gt, plain_path, tag: str) -> dict:
+    def same_gt(run: dict, ref: dict, tag: str) -> None:
+        """A path that is compared with another runs from the same GT (same seed)."""
+        if not (torch.equal(run["loc_gt"], ref["loc_gt"])
+                and torch.equal(run["vel_gt"], ref["vel_gt"])):
+            fail(f"{tag}: the GT drawn from the same seed differs from the f32 run's")
+
+    def compare_paths(model_, loc_gt, vel_gt, plain_path, tag: str,
+                      rtol: float = K1_RTOL, atol: float = K1_ATOL) -> dict:
         """The kernel path against the plain path, outside the counted run: one
-        model call on GT frame 0, held to K1's tolerance, then COMPARE_STEPS
+        model call on GT frame 0, held to K1's tolerance (or the given one), then COMPARE_STEPS
         closed-loop steps, printed beside the spread that a 1e-7 relative nudge
         of frame 0 gives the plain path alone (a closed loop amplifies last-bit
         differences)."""
@@ -370,7 +518,7 @@ def main() -> None:
             with plain_path():
                 out_p = model_(scene0, mask0)
         step_err, step_scale = (out_k - out_p).abs().max().item(), out_p.abs().max().item()
-        if not step_err <= K1_ATOL + K1_RTOL * step_scale:
+        if not step_err <= atol + rtol * step_scale:
             fail(f"{tag}: one model call differs by {step_err} between the kernel and plain "
                  f"paths (max |out| {step_scale})")
         short = self_feed.make_rollout_fn(model_, COMPARE_STEPS + 1)
@@ -392,6 +540,7 @@ def main() -> None:
             print(f"  step {t:3d}: max|dpos| kernel vs plain {d_kp[t].item():.3e}, "
                   f"plain vs nudged plain {d_np[t].item():.3e}", flush=True)
         return {"one_call_max_abs_err": f"{step_err:.3e}",
+                "one_call_max_abs_out": f"{step_scale:.3e}",
                 f"max_dpos_{COMPARE_STEPS}_steps": f"{d_kp[-1].item():.3e}",
                 "max_dpos_bounded_sims": f"{d_calm:.3e} ({int(calm.sum())} of {bb} sims below 1e3)",
                 "survived_min_kernel/plain": f"{int(surv_k.min())}/{int(surv_p.min())}"}
@@ -421,37 +570,112 @@ def main() -> None:
         pvals = " ".join(f"{k}={v:.3e}" for k, v in per.items())
         report(tag, t0, combined_p=f"{combined:.3e}", **{"p": "[" + pvals + "]"})
 
-    # ------------------------------------------- 6 + 7. main path (counted)
-    loc_gt, vel_gt, loc_pred, vel_pred, survived_min, rollout_s, main_counts = drive(
-        model, B, N, SUBSTEPS, 0, "k1")
-    cmp = compare_paths(model, loc_gt, vel_gt,
-                        lambda: mock.patch.object(EM, "fused_egnn_messages", EM.egnn_messages_plain),
-                        "rollout")
-    report("rollout", 0.0, rollout_s, steps=FRAMES - 1, layers=LAYERS,
-           width=WIDTH, k1_launches=main_counts["k1"], survived_min=survived_min,
-           steps_per_s=f"{(FRAMES - 1) / rollout_s:.2f}", **cmp)
+    plain_k1 = lambda: mock.patch.object(EM, "fused_egnn_messages",  # noqa: E731
+                                         EM.egnn_messages_plain)
+    plain_k3 = lambda: mock.patch.object(ES, "streaming_egnn_messages",  # noqa: E731
+                                         ES.streaming_egnn_messages_plain)
 
-    # -------------------------------------------------------------- 8. score
-    score("score", loc_gt, vel_gt, loc_pred, vel_pred)
+    def mixed(**kw):
+        """The checkpoint in the mixed-bf16 model: parameters stay f32."""
+        m = models.create_model("egnn_mc", device=dev, compute_dtype="bfloat16", **kw)
+        m.load_state_dict(model.state_dict())
+        return m.eval()
 
-    # ------------------------------------------------------ 9. bign-rollout
+    # ---------------------------------------- 8 + 9. main path (counted), f32
+    main = drive(model, B, N, SUBSTEPS, 0, "k1")
+    main_counts = main["counts"]
+    cmp = compare_paths(model, main["loc_gt"], main["vel_gt"], plain_k1, "rollout")
+    report("rollout", 0.0, main["seconds"], steps=FRAMES - 1, layers=LAYERS,
+           width=WIDTH, k1_launches=main["counts"]["k1"], survived_min=main["survived_min"],
+           steps_per_s=f"{(FRAMES - 1) / main['seconds']:.2f}", **cmp)
+
+    # ------------------------------------------------------------- 10. score
+    score("score", main["loc_gt"], main["vel_gt"], main["loc_pred"], main["vel_pred"])
+
+    # ------------------------------------------------------- 11. determinism
+    # F1: the edge kernels sum in a fixed order, so a repeated launch and a
+    # repeated rollout from the same GT are bitwise equal
+    t0 = time.perf_counter()
+    forms = ",".join(repeat)
+    with torch.no_grad():
+        for form, call in repeat.items():
+            first, second = call(), call()
+            sync()
+            if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                fail(f"determinism: two launches of {form} on one input differ")
+    del repeat
+    loc_gt0, vel_gt0, force_gt0, mass0 = main["gt"]
+    scene0 = Scene(pos=loc_gt0[:, 0], vel=vel_gt0[:, 0], force=force_gt0[:, 0], mass=mass0)
+    loc2, vel2, surv2 = self_feed.make_rollout_fn(model, FRAMES, target=main["target"])(scene0)
+    sync()
+    if not (torch.equal(loc2, main["loc_pred"]) and torch.equal(vel2, main["vel_pred"])
+            and int(surv2.min()) == main["survived_min"]):
+        fail("determinism: the f32 rollout repeated from the same GT differs")
+    del loc2, vel2
+    report("determinism", t0, kernel_forms=repr(forms),
+           launches_bitwise_equal=True, rollout_steps=FRAMES - 1, rollout_bitwise_equal=True,
+           survived_min=main["survived_min"],
+           k1_f32_ms=f"{k1_ms:.4f}", k1_f32_ms_float_atomics=ATOMIC_K1_MS,
+           fixed_order_cost_k1_ms=f"{k1_ms - ATOMIC_K1_MS:.4f}",
+           k3_f32_ms=f"{k3_ms:.4f}", k3_f32_ms_float_atomics=ATOMIC_K3_MS,
+           fixed_order_cost_k3_ms=f"{k3_ms - ATOMIC_K3_MS:.4f}")
+
+    # ------------------------------------------------------ 12. rollout-bf16
+    # the mixed-bf16 model (the JAX package's pallas-mixed-bf16 config) on the
+    # same GT, through K1-bf16 only (counted)
+    model_bf = mixed()
+    run = drive(model_bf, B, N, SUBSTEPS, 0, "k1_bf16")
+    same_gt(run, main, "rollout-bf16")
+    cmp = compare_paths(model_bf, run["loc_gt"], run["vel_gt"], plain_k1, "rollout-bf16",
+                        BF16_RTOL, BF16_ATOL)
+    bf16_counts = {"k1_bf16": run["counts"]["k1_bf16"]}
+    report("rollout-bf16", 0.0, run["seconds"], steps=FRAMES - 1,
+           k1_bf16_launches=run["counts"]["k1_bf16"], k1_launches=run["counts"]["k1"],
+           survived_min=run["survived_min"], survived_min_f32=main["survived_min"],
+           steps_per_s=f"{(FRAMES - 1) / run['seconds']:.2f}",
+           steps_per_s_f32=f"{(FRAMES - 1) / main['seconds']:.2f}", **cmp)
+    score("score-bf16", run["loc_gt"], run["vel_gt"], run["loc_pred"], run["vel_pred"])
+    del run, model_bf, main
+
+    # ------------------------------------------------------ 13. bign-rollout
     # the same checkpoint in the streaming model, at N=512 (counted)
     big_model = models.create_model("egnn_mc", device=dev, streaming=True)
     big_model.load_state_dict(model.state_dict())
     big_model.eval()
-    loc_gt, vel_gt, loc_pred, vel_pred, survived_min, big_s, big_counts = drive(
-        big_model, BIG_B, BIG_N, BIG_SUBSTEPS, 1, "k3")
-    cmp = compare_paths(
-        big_model, loc_gt, vel_gt,
-        lambda: mock.patch.object(ES, "streaming_egnn_messages", ES.streaming_egnn_messages_plain),
-        "bign-rollout")
-    report("bign-rollout", 0.0, big_s, B=BIG_B, N=BIG_N,
+    big = drive(big_model, BIG_B, BIG_N, BIG_SUBSTEPS, 1, "k3")
+    big_counts = big["counts"]
+    cmp = compare_paths(big_model, big["loc_gt"], big["vel_gt"], plain_k3, "bign-rollout")
+    report("bign-rollout", 0.0, big["seconds"], B=BIG_B, N=BIG_N,
            steps=BIG_FRAMES - 1, k3_launches=big_counts["k3"], k1_launches=big_counts["k1"],
-           survived_min=survived_min, steps_per_s=f"{(BIG_FRAMES - 1) / big_s:.2f}", **cmp)
-    score("bign-score", loc_gt, vel_gt, loc_pred, vel_pred)
-    del loc_gt, vel_gt, loc_pred, vel_pred, big_model
+           survived_min=big["survived_min"],
+           steps_per_s=f"{(BIG_FRAMES - 1) / big['seconds']:.2f}", **cmp)
+    score("bign-score", big["loc_gt"], big["vel_gt"], big["loc_pred"], big["vel_pred"])
+    del big_model
 
-    # --------------------------------------------------------------- 10. bign
+    # ------------------------------------------------- 14. bign-rollout-bf16
+    # the mixed-bf16 streaming model on the same GT, with the bf16 elementwise
+    # stack (the JAX package's stream-mixed-ebf16, through K3-elem only) and
+    # without it (stream-mixed-bf16, through K3-bf16 only), each counted
+    for config, kw, kernel in (("stream-mixed-ebf16", dict(stream_elem_bf16=True), "k3_elem"),
+                               ("stream-mixed-bf16", {}, "k3_bf16")):
+        big_bf = mixed(streaming=True, **kw)
+        run = drive(big_bf, BIG_B, BIG_N, BIG_SUBSTEPS, 1, kernel)
+        same_gt(run, big, f"bign-rollout-bf16 {config}")
+        cmp = compare_paths(big_bf, run["loc_gt"], run["vel_gt"], plain_k3,
+                            f"bign-rollout-bf16 {config}", BF16_RTOL, BF16_ATOL)
+        bf16_counts[kernel] = run["counts"][kernel]
+        report("bign-rollout-bf16", 0.0, run["seconds"], config=config, B=BIG_B, N=BIG_N,
+               steps=BIG_FRAMES - 1, **{f"{kernel}_launches": run["counts"][kernel]},
+               k3_launches=run["counts"]["k3"], survived_min=run["survived_min"],
+               survived_min_f32=big["survived_min"],
+               steps_per_s=f"{(BIG_FRAMES - 1) / run['seconds']:.2f}",
+               steps_per_s_f32=f"{(BIG_FRAMES - 1) / big['seconds']:.2f}", **cmp)
+        score(f"bign-score-bf16 {config}", run["loc_gt"], run["vel_gt"], run["loc_pred"],
+              run["vel_pred"])
+        del run, big_bf
+    del big
+
+    # --------------------------------------------------------------- 15. bign
     t0 = time.perf_counter()
     state = bign_bench.seeded_state(2)
     rows = []
@@ -460,7 +684,7 @@ def main() -> None:
             reset_counts()
             row = bign_bench.measure_row(nn_, bb, path, BIGN_STEPS, state, dev)
             got = counts()
-            want = {"k1": 0, "k2": 0, "k3": 0}
+            want = dict.fromkeys(counters, 0)
             want["k3" if streaming else "k1"] = LAYERS * (
                 bign_bench.WARMUP_STEPS - 1 + BIGN_STEPS - 1)
             if got != want:
@@ -513,7 +737,35 @@ def main() -> None:
             "bound_by": k3_by,
             "library_ms": None,
         },
+        {
+            "name": "egnn_messages bf16 (K1-bf16)",
+            "route": "cuda",
+            "source": f"{PKG}/csrc/egnn_messages.cu",
+            "replaces": f"{TPU_PKG}/ops/pallas/egnn_messages.py:197",
+            "launches": bf16_counts["k1_bf16"],
+            "max_abs_err": max(a for a, _ in k1b_err.values()),
+            "ms": k1b_ms,
+            "plain_ms": k1b_plain_ms,
+            "bound_ms": k1b_bound,
+            "bound_by": k1b_by,
+            "library_ms": None,
+        },
     ]
+    for form, kernel in (("K3-bf16", "k3_bf16"), ("K3-elem", "k3_elem")):
+        f = k3b[form]
+        kernels.append({
+            "name": f"egnn_stream {'elem_bf16' if f['elem'] else 'bf16'} ({form})",
+            "route": "cuda",
+            "source": f"{PKG}/csrc/egnn_stream.cu",
+            "replaces": f"{TPU_PKG}/ops/pallas/egnn_stream.py:192",
+            "launches": bf16_counts[kernel],
+            "max_abs_err": max(a for a, _ in f["err"].values()),
+            "ms": f["ms"],
+            "plain_ms": f["plain_ms"],
+            "bound_ms": k3b_bound,
+            "bound_by": k3b_by,
+            "library_ms": None,
+        })
     print(f"total {time.perf_counter() - T_START:.2f} s on {card}", flush=True)
     print(json.dumps({"bign": rows}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -23,11 +23,23 @@
 //   * per chunk, the geometry and mask rows are loaded into shared memory, and
 //     the edge stage shared with K3 (egnn_edge.cuh) builds m1, runs the two
 //     register-tiled f32 FMA products and adds the masked sums of agg and trans
-//     to shared accumulators; the outputs are written once per receiver.
-//   * 209 KB of shared memory leaves one block per SM, so the block is as
+//     to shared accumulators, in a fixed order (bitwise reproducible); the
+//     outputs are written once per receiver.
+//   * 214 KB of shared memory leaves one block per SM, so the block is as
 //     large as the 128-register budget allows: 16 warps hide shared-memory
 //     latency better than 8 (a 256-thread block measured ~1.3x slower).
-// f32 FMA throughout: no TF32, no tensor cores yet (a later step for wgmma).
+// The f32 form runs f32 FMA throughout (no TF32, no tensor cores).
+//
+// The bf16 form (`nbody_egnn_messages_bf16`, the mixed-bf16 model) follows the
+// TPU body's rounding points for bf16 operands (egnn_messages.py:66-115): the
+// geometry g[0:5] is rounded to bf16 for its product with the bf16 Wg, m1, m2
+// and the silu output before wc2 are rounded to bf16 as matmul operands, every
+// product accumulates in f32, the elementwise work and the masked sums are f32,
+// agg is written in bf16 and trans in f32.  Its two 128x128 products run on the
+// tensor cores (mma.sync m16n8k16, egnn_edge.cuh): ~0.043 ms of bf16 work at the
+// rollout shape against 989 TFLOP/s.  Staging W2 and Wc1 in bf16 halves their
+// shared memory to 68 KB (padded rows); the f32 copy of m2 that agg sums takes
+// 68 KB of what that frees, so the block stays 512 threads, one per SM.
 //
 // Plain C interface for ctypes (ops/_build.py); returns cudaGetLastError().
 
@@ -39,16 +51,16 @@ namespace {
 
 using namespace egnn_edge;
 
-template <bool kTanh>
+template <typename T, bool kTanh>
 __global__ void __launch_bounds__(kThreads, 1)
-egnn_edge_kernel(const float* __restrict__ hA, const float* __restrict__ hB,
+egnn_edge_kernel(const T* __restrict__ hA, const T* __restrict__ hB,
                  const float* __restrict__ geom, const float* __restrict__ mask,
-                 const float* __restrict__ wg, const float* __restrict__ W2,
-                 const float* __restrict__ b2, const float* __restrict__ Wc1,
-                 const float* __restrict__ bc1, const float* __restrict__ wc2,
-                 float* __restrict__ agg, float* __restrict__ trans, int n, int ti) {
-  extern __shared__ __align__(16) float smem[];
-  const Smem s(smem);
+                 const T* __restrict__ wg, const T* __restrict__ W2, const T* __restrict__ b2,
+                 const T* __restrict__ Wc1, const T* __restrict__ bc1,
+                 const T* __restrict__ wc2, T* __restrict__ agg, float* __restrict__ trans,
+                 int n, int ti) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Smem<T, false> s(smem);
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
   const int i0 = blockIdx.x * ti;
@@ -57,40 +69,56 @@ egnn_edge_kernel(const float* __restrict__ hA, const float* __restrict__ hB,
 
   stage_weights(s, wg, W2, b2, Wc1, bc1, wc2, tid);
 
-  const float* hAb = hA + (static_cast<size_t>(b) * n + i0) * kH;
-  const float* hBb = hB + static_cast<size_t>(b) * n * kH;
+  const T* hAb = hA + (static_cast<size_t>(b) * n + i0) * kH;
+  const T* hBb = hB + static_cast<size_t>(b) * n * kH;
   const float* geomb = geom + (static_cast<size_t>(b) * n + i0) * n * kGeom;
   const float* maskb = mask + (static_cast<size_t>(b) * n + i0) * n;
 
   for (int r0 = 0; r0 < rows; r0 += kRows) {
-    // geometry and mask of this chunk's edges; rows past the tile are zero
+    // geometry and mask of this chunk's edges; rows past the tile are zero.  With
+    // bf16 operands g[0:5] is a matmul operand and is rounded to bf16.
     for (int e = tid; e < kRows * kGeom; e += kThreads) {
       const int r = r0 + e / kGeom;
-      s.geom[e] = r < rows ? geomb[static_cast<size_t>(r0) * kGeom + e] : 0.0f;
+      float g = r < rows ? geomb[static_cast<size_t>(r0) * kGeom + e] : 0.0f;
+      if (std::is_same<T, bf16>::value && e % kGeom < 5) g = round_bf16(g);
+      s.geom[e] = g;
     }
     if (tid < kRows) {
       const int r = r0 + tid;
       const float m = r < rows ? maskb[r] : 0.0f;
       s.mask[tid] = m;
-      if (r < rows) atomicAdd(&s.deg[r / n], m);
+      if (r < rows) atomicAdd(&s.deg[r / n], m);  // exact: adds 0 or 1
     }
     __syncthreads();
-    edge_chunk<kTanh>(s, hAb, hBb, r0, rows, n, tid);
+    edge_chunk<T, false, kTanh>(s, hAb, hBb, r0, rows, n, tid);
   }
   write_means(s, agg, trans, b, n, i0, nrecv, tid);
 }
 
-template <bool kTanh>
-int launch(const float* hA, const float* hB, const float* geom, const float* mask,
-           const float* wg, const float* W2, const float* b2, const float* Wc1,
-           const float* bc1, const float* wc2, float* agg, float* trans, int batch, int n,
-           int ti, cudaStream_t stream) {
+template <typename T, bool kTanh>
+int launch(const T* hA, const T* hB, const float* geom, const float* mask, const T* wg,
+           const T* W2, const T* b2, const T* Wc1, const T* bc1, const T* wc2, T* agg,
+           float* trans, int batch, int n, int ti, cudaStream_t stream) {
   static bool configured = false;
-  if (const int err = allow_smem(egnn_edge_kernel<kTanh>, kSmemBytes, configured)) return err;
+  constexpr size_t bytes = Smem<T, false>::kBytes;
+  const auto kernel = &egnn_edge_kernel<T, kTanh>;
+  if (const int err = allow_smem(kernel, bytes, configured)) return err;
   dim3 grid((n + ti - 1) / ti, batch);
-  egnn_edge_kernel<kTanh><<<grid, kThreads, kSmemBytes, stream>>>(
-      hA, hB, geom, mask, wg, W2, b2, Wc1, bc1, wc2, agg, trans, n, ti);
+  kernel<<<grid, kThreads, bytes, stream>>>(hA, hB, geom, mask, wg, W2, b2, Wc1, bc1, wc2,
+                                            agg, trans, n, ti);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const T* hA, const T* hB, const float* geom, const float* mask, const T* wg,
+             const T* W2, const T* b2, const T* Wc1, const T* bc1, const T* wc2, T* agg,
+             float* trans, int batch, int n, int he, int hc, int ti, int use_tanh,
+             void* stream) {
+  if (he != kH || hc != kH || ti < 1 || ti > kMaxTi || n < 1 || batch < 1 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto go = use_tanh ? &launch<T, true> : &launch<T, false>;
+  return go(hA, hB, geom, mask, wg, W2, b2, Wc1, bc1, wc2, agg, trans, batch, n, ti,
+            static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -101,11 +129,17 @@ extern "C" int nbody_egnn_messages_f32(const float* hA, const float* hB, const f
                                        const float* wc2, float* agg, float* trans, int batch,
                                        int n, int he, int hc, int ti, int use_tanh,
                                        void* stream) {
-  if (he != kH || hc != kH || ti < 1 || ti > kMaxTi || n < 1 || batch < 1 || batch > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return use_tanh ? launch<true>(hA, hB, geom, mask, wg, W2, b2, Wc1, bc1, wc2, agg, trans,
-                                 batch, n, ti, s)
-                  : launch<false>(hA, hB, geom, mask, wg, W2, b2, Wc1, bc1, wc2, agg, trans,
-                                  batch, n, ti, s);
+  return dispatch(hA, hB, geom, mask, wg, W2, b2, Wc1, bc1, wc2, agg, trans, batch, n, he, hc,
+                  ti, use_tanh, stream);
+}
+
+// hA, hB, the weights and agg in bf16; geom, mask and trans in f32.
+extern "C" int nbody_egnn_messages_bf16(const bf16* hA, const bf16* hB, const float* geom,
+                                        const float* mask, const bf16* wg, const bf16* W2,
+                                        const bf16* b2, const bf16* Wc1, const bf16* bc1,
+                                        const bf16* wc2, bf16* agg, float* trans, int batch,
+                                        int n, int he, int hc, int ti, int use_tanh,
+                                        void* stream) {
+  return dispatch(hA, hB, geom, mask, wg, W2, b2, Wc1, bc1, wc2, agg, trans, batch, n, he, hc,
+                  ti, use_tanh, stream);
 }

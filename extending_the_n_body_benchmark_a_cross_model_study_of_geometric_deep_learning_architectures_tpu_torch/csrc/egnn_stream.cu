@@ -29,7 +29,19 @@
 //     stage shared with K1 runs on them;
 //   * any N: the last chunk of a tile and the last tile of a sim are ragged and
 //     masked, with no tile-divisibility assumption.
-// f32 FMA throughout: no TF32, no tensor cores yet.
+// The f32 form runs f32 FMA throughout (no TF32, no tensor cores).
+//
+// The bf16 form (`nbody_egnn_stream_bf16`, the mixed-bf16 model) takes hA, hB
+// and the weights in bf16 and writes agg in bf16, trans in f32.  Its operand
+// rule is K1's (egnn_messages.cu) but for the geometry term, which the TPU body
+// computes as an f32 product with Wg upcast (egnn_stream.py:124-136), so the
+// geometry is not rounded.  Its two 128x128 products run on the tensor cores
+// (mma.sync m16n8k16, egnn_edge.cuh).  `elem_bf16` (egnn_stream.py:111-158) runs
+// the two silus and the mask multiply in bf16 on __nv_bfloat162 pairs, one
+// rounding per operation; h2exp and h2rcp are approximate, so a value can land
+// one bf16 ulp from the plain version's.  It is legal with f32 operands too (a
+// third instantiation of the same template).  The running sums of agg, trans
+// and the degree stay f32 and run in a fixed order.
 //
 // Plain C interface for ctypes (ops/_build.py); returns cudaGetLastError().
 
@@ -42,20 +54,24 @@ namespace {
 using namespace egnn_edge;
 
 constexpr int kNode = 10;  // pos0 (3), vel (3), mass (1), coord (3)
-constexpr size_t kStreamSmemBytes = kSmemBytes + kMaxTi * kNode * sizeof(float);
 
-template <bool kTanh, bool kNormDiff>
+template <typename T, bool kElem>
+constexpr size_t stream_smem_bytes() {
+  return Smem<T, kElem>::kBytes + kMaxTi * kNode * sizeof(float);
+}
+
+template <typename T, bool kElem, bool kTanh, bool kNormDiff>
 __global__ void __launch_bounds__(kThreads, 1)
-egnn_stream_kernel(const float* __restrict__ hA, const float* __restrict__ hB,
+egnn_stream_kernel(const T* __restrict__ hA, const T* __restrict__ hB,
                    const float* __restrict__ pos0, const float* __restrict__ vel,
                    const float* __restrict__ mass, const float* __restrict__ coord,
-                   const float* __restrict__ mask, const float* __restrict__ wg,
-                   const float* __restrict__ W2, const float* __restrict__ b2,
-                   const float* __restrict__ Wc1, const float* __restrict__ bc1,
-                   const float* __restrict__ wc2, float* __restrict__ agg,
-                   float* __restrict__ trans, int n, int ti) {
-  extern __shared__ __align__(16) float smem[];
-  const Smem s(smem);
+                   const float* __restrict__ mask, const T* __restrict__ wg,
+                   const T* __restrict__ W2, const T* __restrict__ b2,
+                   const T* __restrict__ Wc1, const T* __restrict__ bc1,
+                   const T* __restrict__ wc2, T* __restrict__ agg, float* __restrict__ trans,
+                   int n, int ti) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Smem<T, kElem> s(smem);
   float* sNode = s.end();  // [kMaxTi, kNode]
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
@@ -76,8 +92,8 @@ egnn_stream_kernel(const float* __restrict__ hA, const float* __restrict__ hB,
   }
   stage_weights(s, wg, W2, b2, Wc1, bc1, wc2, tid);  // its barrier covers sNode too
 
-  const float* hAb = hA + (sim + i0) * kH;
-  const float* hBb = hB + sim * kH;
+  const T* hAb = hA + (sim + i0) * kH;
+  const T* hBb = hB + sim * kH;
   const float* maskb = mask + (sim + i0) * n;
 
   for (int r0 = 0; r0 < rows; r0 += kRows) {
@@ -114,31 +130,50 @@ egnn_stream_kernel(const float* __restrict__ hA, const float* __restrict__ hB,
         g[6] = cy;
         g[7] = cz;
         m = maskb[r];
-        atomicAdd(&s.deg[il], m);
+        atomicAdd(&s.deg[il], m);  // exact: adds 0 or 1
       }
 #pragma unroll
       for (int k = 0; k < kGeom; ++k) s.geom[tid * kGeom + k] = g[k];
       s.mask[tid] = m;
     }
     __syncthreads();
-    edge_chunk<kTanh>(s, hAb, hBb, r0, rows, n, tid);
+    edge_chunk<T, kElem, kTanh>(s, hAb, hBb, r0, rows, n, tid);
   }
   write_means(s, agg, trans, b, n, i0, nrecv, tid);
 }
 
-template <bool kTanh, bool kNormDiff>
-int launch(const float* hA, const float* hB, const float* pos0, const float* vel,
-           const float* mass, const float* coord, const float* mask, const float* wg,
-           const float* W2, const float* b2, const float* Wc1, const float* bc1,
-           const float* wc2, float* agg, float* trans, int batch, int n, int ti,
-           cudaStream_t stream) {
+template <typename T, bool kElem, bool kTanh, bool kNormDiff>
+int launch(const T* hA, const T* hB, const float* pos0, const float* vel, const float* mass,
+           const float* coord, const float* mask, const T* wg, const T* W2, const T* b2,
+           const T* Wc1, const T* bc1, const T* wc2, T* agg, float* trans, int batch, int n,
+           int ti, cudaStream_t stream) {
   static bool configured = false;
-  const auto kernel = &egnn_stream_kernel<kTanh, kNormDiff>;
-  if (const int err = allow_smem(kernel, kStreamSmemBytes, configured)) return err;
+  constexpr size_t bytes = stream_smem_bytes<T, kElem>();
+  const auto kernel = &egnn_stream_kernel<T, kElem, kTanh, kNormDiff>;
+  if (const int err = allow_smem(kernel, bytes, configured)) return err;
   dim3 grid((n + ti - 1) / ti, batch);
-  kernel<<<grid, kThreads, kStreamSmemBytes, stream>>>(
-      hA, hB, pos0, vel, mass, coord, mask, wg, W2, b2, Wc1, bc1, wc2, agg, trans, n, ti);
+  kernel<<<grid, kThreads, bytes, stream>>>(hA, hB, pos0, vel, mass, coord, mask, wg, W2, b2,
+                                            Wc1, bc1, wc2, agg, trans, n, ti);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kElem>
+auto pick(int use_tanh, int norm_diff) {
+  return use_tanh ? (norm_diff ? &launch<T, kElem, true, true> : &launch<T, kElem, true, false>)
+                  : (norm_diff ? &launch<T, kElem, false, true> : &launch<T, kElem, false, false>);
+}
+
+template <typename T>
+int dispatch(const T* hA, const T* hB, const float* pos0, const float* vel, const float* mass,
+             const float* coord, const float* mask, const T* wg, const T* W2, const T* b2,
+             const T* Wc1, const T* bc1, const T* wc2, T* agg, float* trans, int batch, int n,
+             int he, int hc, int ti, int use_tanh, int norm_diff, int elem_bf16, void* stream) {
+  if (he != kH || hc != kH || ti < 1 || ti > kMaxTi || n < 1 || batch < 1 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto go =
+      elem_bf16 ? pick<T, true>(use_tanh, norm_diff) : pick<T, false>(use_tanh, norm_diff);
+  return go(hA, hB, pos0, vel, mass, coord, mask, wg, W2, b2, Wc1, bc1, wc2, agg, trans, batch,
+            n, ti, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -149,12 +184,19 @@ extern "C" int nbody_egnn_stream_f32(const float* hA, const float* hB, const flo
                                      const float* b2, const float* Wc1, const float* bc1,
                                      const float* wc2, float* agg, float* trans, int batch,
                                      int n, int he, int hc, int ti, int use_tanh,
-                                     int norm_diff, void* stream) {
-  if (he != kH || hc != kH || ti < 1 || ti > kMaxTi || n < 1 || batch < 1 || batch > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto go = use_tanh ? (norm_diff ? &launch<true, true> : &launch<true, false>)
-                           : (norm_diff ? &launch<false, true> : &launch<false, false>);
-  return go(hA, hB, pos0, vel, mass, coord, mask, wg, W2, b2, Wc1, bc1, wc2, agg, trans,
-            batch, n, ti, s);
+                                     int norm_diff, int elem_bf16, void* stream) {
+  return dispatch(hA, hB, pos0, vel, mass, coord, mask, wg, W2, b2, Wc1, bc1, wc2, agg, trans,
+                  batch, n, he, hc, ti, use_tanh, norm_diff, elem_bf16, stream);
+}
+
+// hA, hB, the weights and agg in bf16; node data, mask and trans in f32.
+extern "C" int nbody_egnn_stream_bf16(const bf16* hA, const bf16* hB, const float* pos0,
+                                      const float* vel, const float* mass, const float* coord,
+                                      const float* mask, const bf16* wg, const bf16* W2,
+                                      const bf16* b2, const bf16* Wc1, const bf16* bc1,
+                                      const bf16* wc2, bf16* agg, float* trans, int batch,
+                                      int n, int he, int hc, int ti, int use_tanh,
+                                      int norm_diff, int elem_bf16, void* stream) {
+  return dispatch(hA, hB, pos0, vel, mass, coord, mask, wg, W2, b2, Wc1, bc1, wc2, agg, trans,
+                  batch, n, he, hc, ti, use_tanh, norm_diff, elem_bf16, stream);
 }

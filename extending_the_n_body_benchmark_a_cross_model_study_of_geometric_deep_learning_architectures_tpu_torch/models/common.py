@@ -1,10 +1,10 @@
 """Shared model building blocks (dense ``[B, N, ...]`` layout).
 
 Counterpart of the JAX package's ``models/common.py``.  torch's ``nn.Linear``
-already initialises kernel and bias as ``U(-1/sqrt(fan_in), +1/sqrt(fan_in))``,
-the scale the reference models rely on; the init functions below reproduce it
-(and the small-gain Xavier of EGNN's coordinate head) for parameters that are
-not held by an ``nn.Linear``.  Kernels kept outside ``nn.Linear`` use the JAX
+(which :class:`TorchLinear` extends) already initialises kernel and bias as
+``U(-1/sqrt(fan_in), +1/sqrt(fan_in))``, the scale the reference models rely
+on; the init functions below reproduce it (and the small-gain Xavier of EGNN's
+coordinate head) for parameters that are not held by an ``nn.Linear``.  Kernels kept outside ``nn.Linear`` use the JAX
 package's ``[in, out]`` layout.
 """
 
@@ -44,9 +44,18 @@ def xavier_uniform_gain(gain: float) -> Callable:
     return init
 
 
-#: the JAX package's ``TorchLinear`` reproduces torch's default init; here it
-#: is ``nn.Linear`` itself
-TorchLinear = nn.Linear
+class TorchLinear(nn.Linear):
+    """``nn.Linear`` that computes in its input's dtype, as the JAX package's
+    ``TorchLinear`` (flax ``nn.Dense(dtype=x.dtype, param_dtype=float32)``) does.
+
+    The parameters stay as they are (float32 in a mixed-bf16 model) and are
+    cast to the input's dtype at use.  A cast call rounds where JAX does: the
+    product is rounded to that dtype, then the bias add."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return F.linear(x, self.weight, self.bias)
+        return x @ self.weight.to(x.dtype).T + self.bias.to(x.dtype)
 
 
 ACTIVATIONS = {

@@ -18,8 +18,15 @@ Both share one parameter tree.  The first edge matmul is decomposed over the
 concat ``[h_i, h_j, d^2, e_ij]`` into per-node projections ``hA``/``hB`` plus
 a 5-feature geometric term, so no ``[B, N, N, 2H + 5]`` tensor exists.
 
-Not ported yet, and refused: ``stream_elem_bf16``, ``body_ring`` (multi-GPU),
-``fc_fast``, ``remat`` and ``compute_dtype="bfloat16"``.
+``compute_dtype="bfloat16"`` is the JAX model's mixed precision
+(``models/egnn_mc.py:261-264``): ``h`` is cast after the embedding, each block
+casts its parameters to ``h.dtype`` at use (they stay float32), and the
+edge kernels run their bf16 forms; coordinates, geometry, ``trans`` and the
+heads stay float32.  ``stream_elem_bf16`` runs the streaming kernel's
+elementwise stack in bf16.
+
+Not ported yet, and refused: ``body_ring`` (multi-GPU), ``fc_fast`` and
+``remat``.
 """
 
 from __future__ import annotations
@@ -42,11 +49,9 @@ from .common import (
 )
 
 _LATER = {
-    "compute_dtype": "ROADMAP.md, still to come 1: K1 and K3 in bfloat16",
-    "stream_elem_bf16": "ROADMAP.md, still to come 1: K3's bf16 elementwise stack",
-    "fc_fast": "ROADMAP.md, queue 1 item 4 (fc_fast dense path)",
-    "remat": "ROADMAP.md, queue 1 item 10 (training)",
-    "body_ring": "ROADMAP.md, queue 1 item 15 (multi-GPU)",
+    "fc_fast": "ROADMAP.md, queue 1 (fc_fast dense path)",
+    "remat": "ROADMAP.md, queue 1 (training)",
+    "body_ring": "ROADMAP.md, queue 1 (multi-GPU)",
 }
 
 
@@ -66,6 +71,7 @@ class EGNNBlock(nn.Module):
         norm_diff: bool = False,
         tanh: bool = False,
         streaming: bool = False,
+        elem_bf16: bool = False,
     ):
         super().__init__()
         H, He, Hc = hidden_node_dim, hidden_edge_dim, hidden_coord_dim
@@ -90,11 +96,14 @@ class EGNNBlock(nn.Module):
         self.norm_diff = norm_diff
         self.tanh = tanh
         self.streaming = streaming
+        self.elem_bf16 = elem_bf16
 
     def node_terms(self, h):
-        """``hA = h W1[:H] + b1`` (receiver term) and ``hB = h W1[H:2H]`` (sender term)."""
+        """``hA = h W1[:H] + b1`` (receiver term) and ``hB = h W1[H:2H]`` (sender term),
+        in ``h``'s dtype."""
         H = self.hidden_node_dim
-        return h @ self.edge_w1[:H] + self.edge_b1, h @ self.edge_w1[H : 2 * H]
+        W1, b1 = self.edge_w1.to(h.dtype), self.edge_b1.to(h.dtype)
+        return h @ W1[:H] + b1, h @ W1[H : 2 * H]
 
     def edge_inputs(self, h, coord, edge_attr):
         """The dense edge stage's per-call inputs: ``hA``, ``hB [B,N,He]`` and
@@ -107,10 +116,12 @@ class EGNNBlock(nn.Module):
             coord_diff = coord_diff / torch.clamp(G.safe_sqrt(radial), min=1.0)
         return hA, hB, torch.cat([radial, edge_attr, coord_diff], dim=-1)
 
-    def edge_weights(self):
-        """``(w_geom, W2, b2, Wc1, bc1, wc2)`` as the edge stage takes them."""
-        return (self.edge_w1[2 * self.hidden_node_dim :], self.edge_w2, self.edge_b2,
-                self.coord_w1, self.coord_b1, self.coord_w2[:, 0])
+    def edge_weights(self, dtype=None):
+        """``(w_geom, W2, b2, Wc1, bc1, wc2)`` as the edge stage takes them, cast to
+        ``dtype`` (default: the parameters' own)."""
+        w = (self.edge_w1[2 * self.hidden_node_dim :], self.edge_w2, self.edge_b2,
+             self.coord_w1, self.coord_b1, self.coord_w2[:, 0])
+        return w if dtype is None else tuple(t.to(dtype) for t in w)
 
     def forward(self, h, coord, velocity, edge_attr, mask) -> Tuple[torch.Tensor, torch.Tensor]:
         """``h [B,N,H]``, ``coord``/``velocity [B,N,3]``, ``mask [B,N,N]``, and
@@ -120,19 +131,21 @@ class EGNNBlock(nn.Module):
             pos0, mass = edge_attr
             hA, hB = self.node_terms(h)
             agg, trans = ES.streaming_egnn_messages(
-                hA, hB, pos0, velocity, mass, coord, mask, *self.edge_weights(),
-                tanh=self.tanh, norm_diff=self.norm_diff, activation=self.activation,
+                hA, hB, pos0, velocity, mass, coord, mask, *self.edge_weights(h.dtype),
+                tanh=self.tanh, norm_diff=self.norm_diff, elem_bf16=self.elem_bf16,
+                activation=self.activation,
             )
         else:
             hA, hB, geom = self.edge_inputs(h, coord, edge_attr)
             agg, trans = EM.fused_egnn_messages(
-                hA, hB, geom, mask, *self.edge_weights(),
+                hA, hB, geom, mask, *self.edge_weights(h.dtype),
                 tanh=self.tanh, activation=self.activation,
             )
         coord = coord + trans.to(coord.dtype) * self.coords_weight
-        # velocity-gated coordinate update, then the node model
+        # velocity-gated coordinate update (a bf16 gate promotes against the f32
+        # velocity), then the node model in h's dtype
         coord = coord + self.vel_mlp(h) * velocity
-        h_out = self.node_mlp(torch.cat([h, agg], dim=-1))
+        h_out = self.node_mlp(torch.cat([h, agg], dim=-1)).to(h.dtype)
         if self.recurrent:
             h_out = h + h_out
         return h_out, coord
@@ -170,18 +183,19 @@ class EGNNMC(nn.Module):
         compute_dtype: str = "",
     ):
         super().__init__()
-        for name, value in (("stream_elem_bf16", stream_elem_bf16), ("body_ring", body_ring),
-                            ("fc_fast", fc_fast), ("remat", remat),
-                            ("compute_dtype", compute_dtype)):
+        for name, value in (("body_ring", body_ring), ("fc_fast", fc_fast), ("remat", remat)):
             if value:
                 raise NotImplementedError(f"EGNNMC({name}=...) is not ported yet: {_LATER[name]}")
+        if compute_dtype not in ("", "float32", "bfloat16"):
+            raise ValueError(f"compute_dtype {compute_dtype!r}: '', 'float32' or 'bfloat16'")
         H = hidden_node_dim
         self.hidden_node_dim = H
         self.streaming = streaming
+        self.compute_dtype = getattr(torch, compute_dtype) if compute_dtype else None
         self.embedding = TorchLinear(node_input_dim, H)
         self.layers = nn.ModuleList(
             EGNNBlock(H, hidden_edge_dim, hidden_coord_dim, edge_attr_dim, activation,
-                      coords_weight, recurrent, norm_diff, tanh, streaming)
+                      coords_weight, recurrent, norm_diff, tanh, streaming, stream_elem_bf16)
             for _ in range(num_layers)
         )
         self.heads = nn.ModuleList(
@@ -209,11 +223,13 @@ class EGNNMC(nn.Module):
         else:
             x, edge_attr = self.featurize(scene)
         h = self.embedding(x)
+        if self.compute_dtype is not None:
+            h = h.to(self.compute_dtype)
         coord = scene.pos
         maskf = mask.to(scene.dtype)  # converted once for all layers
         for layer in self.layers:
             h, coord = layer(h, coord, scene.vel, edge_attr, maskf)
-        head_in = torch.cat([h, coord - scene.pos, scene.vel], dim=-1)
+        head_in = torch.cat([h.to(coord.dtype), coord - scene.pos, scene.vel], dim=-1)
         return torch.cat([head(head_in) for head in self.heads], dim=-1)
 
     def get_model_size(self) -> int:

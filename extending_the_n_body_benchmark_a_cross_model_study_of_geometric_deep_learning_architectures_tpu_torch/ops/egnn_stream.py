@@ -15,8 +15,15 @@ memory.
 
 ``streaming_egnn_messages`` is the wrapper the model calls.  On a CPU tensor it
 computes :func:`streaming_egnn_messages_plain`; on a CUDA tensor it launches the
-kernel (f32, He = Hc = 128, silu) and counts the launch in
-``streaming_egnn_messages.launches``.
+kernel (He = Hc = 128, silu) and counts the launch: ``launches`` for float32
+operands, ``launches_bf16`` for bfloat16 operands and ``launches_elem`` for
+``elem_bf16`` (either operand dtype).
+
+Operand types follow K1's (``ops.egnn_messages``) with the TPU body's one
+difference (``ops/pallas/egnn_stream.py:124-136``): the geometry term is an
+f32 product with ``w_geom`` upcast, so the geometry is never rounded.
+``elem_bf16=True`` runs the ``[B, N, N, He]`` silus and the mask multiply in
+bfloat16 (``:111-158``), with float32 or bfloat16 operands.
 """
 
 from __future__ import annotations
@@ -28,17 +35,17 @@ import torch
 from . import _build
 from . import egnn_messages as EM  # K1's module: the plain formula, tiles, widths
 
-_ELEM_BF16_LATER = "ROADMAP.md, still to come: stream_elem_bf16 (bf16 elementwise stack)"
-
 
 def streaming_egnn_messages_plain(
     hA, hB, pos0, vel, mass, coord, mask, w_geom, W2, b2, Wc1, bc1, wc2,
     tanh: bool = True, norm_diff: bool = True, activation: str = "silu",
+    elem_bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense reference: builds the ``[B, N, N, 8]`` geometry ``[radial, m_i m_j,
     proj_i, proj_j, d0^2, cd]`` as the TPU kernel's body does
-    (``egnn_stream.py:95-109``), then K1's plain formula, which materialises the
-    ``[B, N, N, He]`` messages (fine for tests and checks up to N ~ 1000)."""
+    (``egnn_stream.py:95-109``), then the edge stage of K1's plain version with
+    K3's rounding points, which materialises the ``[B, N, N, He]`` messages
+    (fine for tests and checks up to N ~ 1000)."""
     cd0 = pos0[:, :, None, :] - pos0[:, None, :, :]
     d2_0 = torch.sum(cd0 * cd0, dim=-1, keepdim=True)
     dir0 = cd0 / torch.clamp(torch.sqrt(torch.clamp(d2_0, min=0.0)), min=1e-12)
@@ -50,8 +57,8 @@ def streaming_egnn_messages_plain(
     if norm_diff:
         cd = cd / torch.clamp(torch.sqrt(torch.clamp(radial, min=0.0)), min=1.0)
     geom = torch.cat([radial, mass_prod, proj_i, proj_j, d2_0, cd], dim=-1)
-    return EM.egnn_messages_plain(hA, hB, geom, mask, w_geom, W2, b2, Wc1, bc1, wc2,
-                                  tanh, activation)
+    return EM.edge_stage_plain(hA, hB, geom, mask, w_geom, W2, b2, Wc1, bc1, wc2,
+                               tanh, activation, round_geom=False, elem_bf16=elem_bf16)
 
 
 def streaming_egnn_messages(
@@ -65,19 +72,17 @@ def streaming_egnn_messages(
     ``tile_i`` and ``tile_j`` are the TPU kernel's tile sizes; they are taken
     for its signature's sake and change nothing here."""
     del tile_i, tile_j
-    if elem_bf16:
-        raise NotImplementedError(f"elem_bf16 is not ported yet: {_ELEM_BF16_LATER}")
     if not _build.wants_kernel(hA):
         return streaming_egnn_messages_plain(
             hA, hB, pos0, vel, mass, coord, mask, w_geom, W2, b2, Wc1, bc1, wc2,
-            tanh, norm_diff, activation,
+            tanh, norm_diff, activation, elem_bf16,
         )
     if activation != "silu":
         raise ValueError(f"the edge kernel computes silu, not {activation!r}")
-    tensors = (hA, hB, pos0, vel, mass, coord, w_geom, W2, b2, Wc1, bc1, wc2)
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("the streaming edge kernel takes float32 (bfloat16 is a later step)")
-    if any(t.device != hA.device for t in (*tensors, mask)):
+    operands = (hA, hB, w_geom, W2, b2, Wc1, bc1, wc2)
+    node = (pos0, vel, mass, coord)
+    op = EM.operand_dtype(operands, node)
+    if any(t.device != hA.device for t in (*operands, *node, mask)):
         raise ValueError("edge-stage inputs lie on different devices")
     B, N, He = hA.shape
     Hc = Wc1.shape[1]
@@ -92,18 +97,29 @@ def streaming_egnn_messages(
         raise ValueError("bad weight shapes")
     if b2.shape != (He,) or bc1.shape != (Hc,) or wc2.shape != (Hc,):
         raise ValueError("bad bias shapes")
-    ins = [EM._aligned(t) for t in (hA, hB, pos0, vel, mass, coord, mask,
-                                    w_geom, W2, b2, Wc1, bc1, wc2)]
-    agg = torch.empty((B, N, He), dtype=torch.float32, device=hA.device)
+    EM.refuse_grad("streaming_egnn_messages", (*operands, *node))
+    ins = [EM.aligned(t, op) for t in (hA, hB)]
+    ins += [EM.aligned(t, torch.float32) for t in (*node, mask)]
+    ins += [EM.aligned(t, op) for t in (w_geom, W2, b2, Wc1, bc1, wc2)]
+    agg = torch.empty((B, N, He), dtype=op, device=hA.device)
     trans = torch.empty((B, N, 3), dtype=torch.float32, device=hA.device)
-    err = _build.kernels().nbody_egnn_stream_f32(
+    bf16 = op == torch.bfloat16
+    name = "nbody_egnn_stream_bf16" if bf16 else "nbody_egnn_stream_f32"
+    err = getattr(_build.kernels(), name)(
         *(t.data_ptr() for t in ins), agg.data_ptr(), trans.data_ptr(),
         B, N, He, Hc, EM.receiver_tile(N), int(bool(tanh)), int(bool(norm_diff)),
-        _build.stream_ptr(hA),
+        int(bool(elem_bf16)), _build.stream_ptr(hA),
     )
-    _build.check(err, "nbody_egnn_stream_f32")
-    streaming_egnn_messages.launches += 1
+    _build.check(err, name)
+    if elem_bf16:
+        streaming_egnn_messages.launches_elem += 1
+    elif bf16:
+        streaming_egnn_messages.launches_bf16 += 1
+    else:
+        streaming_egnn_messages.launches += 1
     return agg, trans
 
 
 streaming_egnn_messages.launches = 0
+streaming_egnn_messages.launches_bf16 = 0
+streaming_egnn_messages.launches_elem = 0

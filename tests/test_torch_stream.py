@@ -244,7 +244,6 @@ def test_stream_wrapper_refuses_to_fall_back(no_card):
     ("he32", ValueError, "He = Hc = 128"),
     ("float64", TypeError, "float32"),
     ("relu", ValueError, "silu"),
-    ("elem_bf16", NotImplementedError, "ROADMAP"),
     ("mixed_devices", ValueError, "different devices"),
 ])
 def test_stream_wrapper_rejects_what_the_kernel_does_not_take(monkeypatch, case, error, match):
@@ -256,8 +255,6 @@ def test_stream_wrapper_rejects_what_the_kernel_does_not_take(monkeypatch, case,
         args = [a.double() for a in args]
     elif case == "relu":
         kwargs["activation"] = "relu"
-    elif case == "elem_bf16":
-        kwargs["elem_bf16"] = True
     elif case == "mixed_devices":
         args[_ORDER.index("mask")] = args[_ORDER.index("mask")].to("meta")
     before = ES.streaming_egnn_messages.launches
@@ -297,11 +294,6 @@ def test_seeded_state_is_the_seed_and_keeps_the_init_scale():
     assert float(a["layers.0.edge_w2"].abs().max()) <= 128 ** -0.5
     assert float(a["layers.0.coord_w2"].abs().max()) <= 1e-3 * (6.0 / 129) ** 0.5
     assert set(a) == set(EGNNMC(**bign_bench.MODEL_DEFAULTS["egnn_mc"]).state_dict())
-
-
-def test_elem_bf16_is_refused_on_the_cpu_too():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ES.streaming_egnn_messages(*_torch(_stream_inputs(Bn=1, Nn=4)), elem_bf16=True)
 
 
 def test_csrc_holds_k3_and_its_shared_header():
