@@ -16,11 +16,16 @@ bf16, coordinates, geometry and integration in f32):
   1. device        card name and power limit, torch / CUDA versions, TF32 off,
                    bf16 products reduced in f32
   2. build         kernels (nvcc -> one .so, ctypes) and macro library (g++)
+     silu          the edge stage's silu (SFU exp2 and reciprocal) against float64
+                   over [-100, 100], and IEEE's edges: -0, NaN, x
   3. K2            gravity kernel vs plain at (B,N) = (64,100) and (2,300)
-  4. K1            EGNN edge kernel vs plain at the bench shape, FC and k=5 masks
+  4. K1            EGNN edge kernel vs plain at the bench shape, FC and k=5 masks,
+                   and with hA, hB x100 (pre-activations past expf's overflow)
   5. K1-bf16       its bf16 form vs the bf16 plain version, same shapes
   6. K3            streaming edge kernel vs plain at (8,512) FC and k=5, (2,300)
-                   and (1,1000), both norm_diff settings; vs K1 at (8,512)
+                   and (1,1000), both norm_diff settings, and at (2,64) with hA,
+                   hB x100; vs K1 at (8,512); the persistent grid's block count
+                   at (1,1000) beside the card's SM count
   7. K3-bf16,      its bf16 form and its elem_bf16 form (with bf16 and with f32
      K3-elem       operands) vs their plain versions at (8,512) FC and k=5 and
                    (1,1000), both norm_diff settings
@@ -89,10 +94,14 @@ K1_RTOL, K1_ATOL = 1e-4, 1e-5
 # an intermediate across a bf16 rounding boundary, one bf16 ulp being 2**-8
 # relative; so 1e-2 of the largest value, for agg (bf16) and trans (f32) alike
 BF16_RTOL, BF16_ATOL = 1e-2, 1e-5
-# the f32 K1 / K3 times of the float-atomic sums that the fixed-order sums
-# replaced (commit d072d88, run beside this code in one call on an NVIDIA H100
-# 80GB HBM3, 700.00 W), printed with this run's for the fixed order's cost
-ATOMIC_K1_MS, ATOMIC_K3_MS = 2.4947, 7.3923
+# the f32 K1 / K3 times of the edge stage before its rework (commit c5fcefb,
+# the mean of two runs beside this code's in one call on an NVIDIA H100 80GB
+# HBM3, 700.00 W), printed with this run's
+PARENT_K1_MS, PARENT_K3_MS = 2.1544, 6.4136
+# the silu's worst relative error against float64 must stay a tenth of K1_RTOL
+SILU_RTOL = K1_RTOL / 10
+# hA and hB scaled so that pre-activations pass expf's overflow at -88
+BIG_PRE = 100.0
 
 # H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, dense bf16 on the tensor
 # cores, HBM3 bandwidth
@@ -205,6 +214,31 @@ def main() -> None:
     report("build", t0, kernels=os.path.relpath(kern_path, REPO),
            macros=os.path.relpath(macro_path, REPO))
 
+    # --------------------------------------------------------------- silu
+    t0 = time.perf_counter()
+    inf, nan = float("inf"), float("nan")
+    edges = torch.tensor([-inf, -100.0, -89.0, nan, 0.0, -0.0, 100.0, inf], device=dev)
+    x = torch.cat([torch.linspace(-100.0, 100.0, 2_000_001, device=dev), edges])
+    y = torch.empty_like(x)
+    _build.check(_build.kernels().nbody_edge_silu_f32(x.data_ptr(), y.data_ptr(), x.numel(),
+                                                      _build.stream_ptr(x)), "silu")
+    ieee = x / (1.0 + torch.exp(-x))  # the formula the kernels used before, on the card
+    sync()
+    ye, ie = y[-len(edges):], ieee[-len(edges):]
+    same = (torch.isnan(ye) == torch.isnan(ie)) & ((ye == ie) | torch.isnan(ye))
+    if not bool(same.all()) or not bool((torch.signbit(ye) == torch.signbit(ie)).all()):
+        fail(f"silu at {edges.tolist()}: {ye.tolist()}, IEEE gives {ie.tolist()}")
+    # where exp(-x) < 2^126; below, the sigmoid is under 2^-126 and flushes to 0
+    ref = x.double() * torch.sigmoid(x.double())
+    keep = torch.isfinite(ref) & (x >= -87.0) & (ref != 0)
+    silu_err = ((y.double() - ref).abs() / ref.abs())[keep].max().item()
+    below = (x < -87.0) & torch.isfinite(x)
+    silu_abs_below = (y.double() - ref).abs()[below].max().item()
+    if not silu_err <= SILU_RTOL:
+        fail(f"silu: worst relative error {silu_err} over [-87, 100] (limit {SILU_RTOL})")
+    report("silu", t0, max_rel_err=f"{silu_err:.3e}", limit=SILU_RTOL,
+           max_abs_err_below_minus_87=f"{silu_abs_below:.3e}", edges="IEEE")
+
     gen = torch.Generator(device=dev).manual_seed(0)
 
     # ---------------------------------------------------------------- 3. K2
@@ -275,6 +309,10 @@ def main() -> None:
         for name, mask in masks.items():
             check_close("K1", f"{name} mask", EM.fused_egnn_messages(hA, hB, geom, mask, *w),
                         EM.egnn_messages_plain(hA, hB, geom, mask, *w), k1_err)
+        big = (BIG_PRE * hA[:4, :40], BIG_PRE * hB[:4, :40], geom[:4, :40, :40],
+               masks["fc"][:4, :40, :40])
+        check_close("K1", f"hA, hB x{BIG_PRE:g}", EM.fused_egnn_messages(*big, *w),
+                    EM.egnn_messages_plain(*big, *w), k1_err)
         mask = masks["fc"]
         k1_ms = cuda_ms(lambda: EM.fused_egnn_messages(hA, hB, geom, mask, *w), iters=20)
         k1_plain_ms = cuda_ms(lambda: EM.egnn_messages_plain(hA, hB, geom, mask, *w), iters=5)
@@ -345,6 +383,11 @@ def main() -> None:
                                 ES.streaming_egnn_messages_plain(hA, hB, *node, mask, *w,
                                                                  norm_diff=nd),
                                 k3_err)
+            if (bb, nn_) == (1, 1000):
+                sms = _build.sm_count(hA)
+                k3_blocks = EM.launch_blocks(bb, nn_, sms)
+                if k3_blocks < min(bb * nn_, sms):
+                    fail(f"K3 at (1,1000) launches {k3_blocks} blocks on {sms} SMs")
             if (bb, nn_) != K3_SHAPES[0][:2]:
                 continue
             # the main shape: K3 against K1 fed the dense path's geometry (the
@@ -363,6 +406,12 @@ def main() -> None:
                 iters=3, warmup=1)
             repeat["K3"] = functools.partial(ES.streaming_egnn_messages, hA, hB, *node, mask, *w)
             k3_b, k3_n = bb, nn_
+        h, node = k3_inputs(2, 64)
+        hA, hB = (BIG_PRE * t for t in block.node_terms(h))
+        mask = graph.knn_mask(node[0], 63).float()
+        check_close("K3", f"2x64 fc hA, hB x{BIG_PRE:g}",
+                    ES.streaming_egnn_messages(hA, hB, *node, mask, *w),
+                    ES.streaming_egnn_messages_plain(hA, hB, *node, mask, *w), k3_err)
     k3_flops = 2.0 * k3_b * k3_n * k3_n * edge_flops
     k3_bytes = 4.0 * (2 * k3_b * k3_n * He + k3_b * k3_n * 10 + k3_b * k3_n * k3_n
                       + weight_floats + k3_b * k3_n * (He + 3))
@@ -371,7 +420,7 @@ def main() -> None:
     print_errs("K3 vs K1", k3_vs_k1_err)
     report("K3", t0, rtol=K1_RTOL, atol=K1_ATOL, shape=f"B={k3_b},N={k3_n}", ms=f"{k3_ms:.4f}",
            plain_ms=f"{k3_plain_ms:.4f}", bound_ms=f"{k3_bound:.4f}", bound_by=k3_by,
-           gflop=f"{k3_flops / 1e9:.2f}")
+           gflop=f"{k3_flops / 1e9:.2f}", blocks_1x1000=k3_blocks, sms=sms)
 
     # ---------------------------------------------------- 7. K3-bf16, K3-elem
     # the mixed-bf16 streaming model's two kernel forms: bf16 operands, and the
@@ -615,10 +664,8 @@ def main() -> None:
     report("determinism", t0, kernel_forms=repr(forms),
            launches_bitwise_equal=True, rollout_steps=FRAMES - 1, rollout_bitwise_equal=True,
            survived_min=main["survived_min"],
-           k1_f32_ms=f"{k1_ms:.4f}", k1_f32_ms_float_atomics=ATOMIC_K1_MS,
-           fixed_order_cost_k1_ms=f"{k1_ms - ATOMIC_K1_MS:.4f}",
-           k3_f32_ms=f"{k3_ms:.4f}", k3_f32_ms_float_atomics=ATOMIC_K3_MS,
-           fixed_order_cost_k3_ms=f"{k3_ms - ATOMIC_K3_MS:.4f}")
+           k1_f32_ms=f"{k1_ms:.4f}", k1_f32_ms_c5fcefb=PARENT_K1_MS,
+           k3_f32_ms=f"{k3_ms:.4f}", k3_f32_ms_c5fcefb=PARENT_K3_MS)
 
     # ------------------------------------------------------ 12. rollout-bf16
     # the mixed-bf16 model (the JAX package's pallas-mixed-bf16 config) on the
@@ -701,6 +748,7 @@ def main() -> None:
         {
             "name": "egnn_messages (K1)",
             "route": "cuda",
+            "reworked": "PR 8",
             "source": f"{PKG}/csrc/egnn_messages.cu",
             "replaces": f"{TPU_PKG}/ops/pallas/egnn_messages.py:197",
             "launches": main_counts["k1"],
@@ -727,6 +775,7 @@ def main() -> None:
         {
             "name": "egnn_stream (K3)",
             "route": "cuda",
+            "reworked": "PR 8",
             "source": f"{PKG}/csrc/egnn_stream.cu",
             "replaces": f"{TPU_PKG}/ops/pallas/egnn_stream.py:192",
             "launches": big_counts["k3"],
@@ -740,6 +789,7 @@ def main() -> None:
         {
             "name": "egnn_messages bf16 (K1-bf16)",
             "route": "cuda",
+            "reworked": "PR 8",
             "source": f"{PKG}/csrc/egnn_messages.cu",
             "replaces": f"{TPU_PKG}/ops/pallas/egnn_messages.py:197",
             "launches": bf16_counts["k1_bf16"],
@@ -756,6 +806,7 @@ def main() -> None:
         kernels.append({
             "name": f"egnn_stream {'elem_bf16' if f['elem'] else 'bf16'} ({form})",
             "route": "cuda",
+            "reworked": "PR 8",
             "source": f"{PKG}/csrc/egnn_stream.cu",
             "replaces": f"{TPU_PKG}/ops/pallas/egnn_stream.py:192",
             "launches": bf16_counts[kernel],

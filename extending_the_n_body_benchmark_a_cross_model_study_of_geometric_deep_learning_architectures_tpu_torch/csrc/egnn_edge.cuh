@@ -12,10 +12,21 @@
 //
 // and the final division by max(deg_i, 1).
 //
-// Layout: one block of kThreads threads per (sim, tile of <= kMaxTi receivers).
-// The tile's edge rows are r = il * n + j <-> (receiver i0 + il, sender j) and are
-// walked in chunks of kRows.  W2 and Wc1 are staged in dynamic shared memory once
-// per block; m2 overwrites m1 in place.
+// The grid is persistent: min(B N, SMs) blocks of kThreads threads, one an SM
+// (the shared layout below leaves room for one).  Block k stages W2 and Wc1 once,
+// then walks the global receivers b N + i in [k R / G, (k + 1) R / G), R = B N,
+// G blocks, in sub-tiles of at most kMaxTi receivers that never cross a sim
+// (for_each_subtile; ops/egnn_messages.py:receiver_ranges states the same split).
+// A sub-tile's edge rows are r = il * n + j <-> (receiver i0 + il, sender j) and
+// are walked in chunks of kRows; m2 overwrites m1 in place.  At (B, N) = (64, 100)
+// this turns 448 blocks (3.4 waves, the last 39% full) into 132 blocks of 48-49
+// receivers; at (1, 1000) 63 blocks into 132.
+//
+// silu(x) = x * rcp(1 + exp(-x)) on the special-function unit (ex2.approx and
+// rcp.approx), with IEEE's edges: -0 where exp overflows, NaN through, x for large
+// x.  Its worst relative error over [-87, 100] is measured by chip_smoke.py
+// ([silu]); below -87 the sigmoid flushes to 0 and silu gives -0 where IEEE gives
+// a value under 1.1e-36 in magnitude.
 //
 // Two operand types, one template (T):
 //   * float: each 128x128 product is a register-tiled f32 FMA loop (8 rows x 4
@@ -34,12 +45,26 @@
 // rounding per operation (x * 1/(1 + exp(-x)) on __nv_bfloat162 pairs), and m2
 // is stored only in bf16; the sums stay f32.
 //
-// Every sum runs in a fixed order, so a launch is bitwise reproducible: after a
-// chunk's m2 is in shared memory, one thread owns each (receiver, column pair)
-// and adds mask * m2 over the chunk's rows of that receiver in row order; each
-// row writes its three masked, clipped trans terms to shared memory, and one
-// thread per (receiver, component) adds them in row order.  Only the degree
-// uses a float atomic, and it adds exact 0/1 values.
+// m1 is built with the sub-tile's hA rows staged in shared memory once per
+// sub-tile; a thread owns one 16-byte column slice (4 f32 or 8 bf16) of 8 or 4
+// rows, loads those rows' hB slices from device memory first, all 16 bytes wide,
+// and keeps its Wg columns in registers.
+//
+// Every sum runs in a fixed order, so a launch is bitwise reproducible, and no sum
+// uses an atomic.  A chunk's rows are cut into kGroups groups of 32: for agg, the
+// thread of (column, group) adds mask * m2 over the group's rows in row order, one
+// sum per receiver; for trans and the degree (the sum of the 0/1 mask), a warp
+// holds one group's rows, a lane each, and sums them per receiver with shuffles in
+// a fixed pattern.  A receiver inside one group is added to its accumulator at
+// once; the sums of a group's first and last receivers are combined after a
+// barrier, group by group in order (combine_groups).
+//
+// Shared memory, in bytes (Smem<T, kElem>::kBytes; K3 adds 640 of node data):
+// W2, Wc1 and the chunk A (3 x 64 KiB f32, 3 x 34 KiB bf16 with padded rows), the
+// f32 copy of m2 (68 KiB, bf16 without kElem only), the sub-tile's hA (8 KiB f32,
+// 4 KiB bf16), and 5,856 floats (Wg, biases, a chunk's geometry and mask, the
+// accumulators, a chunk's per-row terms, the groups' heads and tails): 228,224 B
+// f32 (of 232,448), 201,600 B bf16, 131,968 B bf16 kElem.
 
 #pragma once
 
@@ -57,10 +82,12 @@ using bf162 = __nv_bfloat162;
 constexpr int kH = 128;              // He == Hc == 128, the model's widths
 constexpr int kThreads = 512;        // 16 warps
 constexpr int kRows = kThreads / 4;  // edge rows per chunk
-constexpr int kMaxTi = 16;           // receivers per block (MAX_RECEIVERS in ops/egnn_messages.py)
+constexpr int kMaxTi = 16;           // receivers of a sub-tile (MAX_RECEIVERS in ops/egnn_messages.py)
 constexpr int kGeom = 8;             // d2, 4 edge attrs, cd_x, cd_y, cd_z
 constexpr int kLdB = kH + 8;         // padded row of a bf16 tile (272 B)
 constexpr int kLdM = kH + 8;         // padded row of the f32 copy of m2
+constexpr int kGroups = 4;           // row groups of a chunk's fixed-order sums
+constexpr int kGroupRows = kRows / kGroups;  // 32: a warp's lanes in warp_group_sums
 
 // The block's dynamic shared memory for operand type T and elementwise mode kElem.
 template <typename T, bool kElem>
@@ -73,21 +100,25 @@ struct Smem {
                                     + kRows * kGeom   // geometry chunk
                                     + kRows           // mask chunk
                                     + kMaxTi * kH     // agg accumulators
-                                    + kMaxTi * 4      // trans accumulators
-                                    + kMaxTi          // degrees
-                                    + kRows * 4       // a chunk's trans terms
-                                    + kRows * 4;      // partial coordinate weights (mma)
-  static constexpr size_t kBytes = 3 * kTileBytes + kM2Bytes + kFloats * sizeof(float);
+                                    + kMaxTi * 4      // trans accumulators and degrees
+                                    + kRows * 4       // per row: trans terms (f32), w's partial sums (mma)
+                                    + kGroups * 2 * kH  // agg: groups' heads and tails
+                                    + kGroups * 2 * 4;  // trans: groups' heads and tails
+  static constexpr size_t kHaBytes = size_t(kMaxTi) * kH * sizeof(T);  // the sub-tile's hA
+  static constexpr size_t kBytes =
+      3 * kTileBytes + kM2Bytes + kHaBytes + kFloats * sizeof(float);
 
   T *W2, *Wc1, *A;  // A: the chunk's m1, then m2 (the matmul operand)
-  float *M2, *Wg, *B2, *Bc1, *Wc2, *geom, *mask, *agg, *trans, *deg, *trow, *wpart;
+  T* hAs;           // [kMaxTi, kH]: hA of the sub-tile's receivers
+  float *M2, *Wg, *B2, *Bc1, *Wc2, *geom, *mask, *agg, *trans, *trow, *part, *tpart;
 
   __device__ explicit Smem(unsigned char* base) {
     W2 = reinterpret_cast<T*>(base);
     Wc1 = reinterpret_cast<T*>(base + kTileBytes);
     A = reinterpret_cast<T*>(base + 2 * kTileBytes);
     M2 = reinterpret_cast<float*>(base + 3 * kTileBytes);
-    Wg = M2 + kM2Bytes / sizeof(float);
+    hAs = reinterpret_cast<T*>(base + 3 * kTileBytes + kM2Bytes);
+    Wg = reinterpret_cast<float*>(base + 3 * kTileBytes + kM2Bytes + kHaBytes);
     B2 = Wg + 5 * kH;
     Bc1 = B2 + kH;
     Wc2 = Bc1 + kH;
@@ -95,15 +126,92 @@ struct Smem {
     mask = geom + kRows * kGeom;
     agg = mask + kRows;
     trans = agg + kMaxTi * kH;
-    deg = trans + kMaxTi * 4;
-    trow = deg + kMaxTi;
-    wpart = trow + kRows * 4;
+    trow = trans + kMaxTi * 4;
+    part = trow + kRows * 4;
+    tpart = part + kGroups * 2 * kH;
   }
   // first float past the shared layout (for a kernel's own extra scratch)
-  __device__ float* end() const { return wpart + kRows * 4; }
+  __device__ float* end() const { return tpart + kGroups * 2 * 4; }
 };
 
-__device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
+// ------------------------------------------------------------------ phase clock
+// Built with -DEGNN_EDGE_PHASES (edge_phases.py), thread 0 of every block adds the
+// SM clocks it spends in each phase, from one stamp to the next, to a device array
+// of its translation unit that the host reads with read_phases().  kBarrier takes
+// thread 0's waits at barriers.  In the normal build every call compiles to nothing.
+enum Phase {
+  kStage, kPrologue, kM1, kW2, kEpi2, kAgg, kWc1, kTrans, kBarrier, kMeans,
+  kChunks, kBlocks, kPhases  // the last two count chunks and blocks
+};
+
+#ifdef EGNN_EDGE_PHASES
+static __device__ unsigned long long g_phase_ticks[kPhases];
+
+__device__ __forceinline__ long long* phase_smem() {
+  __shared__ long long ticks[kPhases];
+  return ticks;
+}
+
+struct PhaseClock {
+  long long last;
+  long long* t;  // [kPhases] in shared memory, touched by thread 0 only
+  __device__ PhaseClock() : last(0), t(phase_smem()) {
+    if (threadIdx.x == 0) {
+      for (int k = 0; k < kPhases; ++k) t[k] = 0;
+      t[kBlocks] = 1;
+      last = clock64();
+    }
+  }
+  __device__ void mark(int k) {
+    if (threadIdx.x == 0) {
+      const long long c = clock64();
+      t[k] += c - last;
+      last = c;
+    }
+  }
+  __device__ void count(int k) {
+    if (threadIdx.x == 0) ++t[k];
+  }
+  __device__ void flush() {
+    if (threadIdx.x == 0)
+      for (int k = 0; k < kPhases; ++k)
+        atomicAdd(&g_phase_ticks[k], static_cast<unsigned long long>(t[k]));
+  }
+};
+
+// copy the totals to out[kPhases] and zero them
+static inline int read_phases(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_ticks, sizeof(g_phase_ticks));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zero[kPhases] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(g_phase_ticks, zero, sizeof(zero)));
+}
+#else
+struct PhaseClock {
+  __device__ void mark(int) {}
+  __device__ void count(int) {}
+  __device__ void flush() {}
+};
+#endif
+
+// __syncthreads() with thread 0's wait counted as kBarrier
+__device__ __forceinline__ void barrier(PhaseClock& clk) {
+  __syncthreads();
+  clk.mark(kBarrier);
+}
+
+// silu(x) = x / (1 + exp(-x)) on the special-function unit: exp as ex2.approx of
+// -x log2(e) (__expf) and the reciprocal as rcp.approx, one instruction each, in
+// place of a full-range expf and an IEEE division with its slow path.  The edges
+// stay IEEE's: for x below about -88 exp overflows to inf, its reciprocal is 0 and
+// silu is -0; NaN passes through; for large x it is x.  Results under 2^-126 in
+// magnitude (x below about -87.3) flush to -0.  The worst relative error elsewhere
+// is measured by chip_smoke.py ([silu]) against float64.
+__device__ __forceinline__ float silu(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.0f + __expf(-x)));
+  return x * r;
+}
 
 // x * (1 / (1 + exp(-x))) in bf16, rounded after each operation (egnn_stream.py:117-122)
 __device__ __forceinline__ bf162 silu2(bf162 x) {
@@ -143,6 +251,44 @@ __device__ __forceinline__ void store2(bf16* p, bf162 v) { *reinterpret_cast<bf1
 
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(bf16* p, float v) { *p = __float2bfloat16(v); }
+
+// the 4 f32 or 8 bf16 values of a 16-byte load, as floats
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& u, float* f);
+template <>
+__device__ __forceinline__ void unpack<float>(const uint4& u, float* f) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+template <>
+__device__ __forceinline__ void unpack<bf16>(const uint4& u, float* f) {
+  const bf162* p = reinterpret_cast<const bf162*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 v = __bfloat1622float2(p[k]);
+    f[2 * k] = v.x;
+    f[2 * k + 1] = v.y;
+  }
+}
+
+__device__ __forceinline__ float silu(float x);
+__device__ __forceinline__ bf162 silu2(bf162 x);
+
+// dst[0:16 / sizeof(T)] = silu(x), in f32 or, with kElem, in bf16 pairs
+template <typename T, bool kElem>
+__device__ __forceinline__ void store_silu(T* dst, const float* x) {
+  constexpr int kVec = 16 / sizeof(T);
+#pragma unroll
+  for (int v = 0; v < kVec; v += 2) {
+    if constexpr (kElem) {
+      store2(dst + v, silu2(__floats2bfloat162_rn(x[v], x[v + 1])));
+    } else {
+      store2(dst + v, make_float2(silu(x[v]), silu(x[v + 1])));
+    }
+  }
+}
 
 __device__ __forceinline__ float comp(const float4& v, int k) {
   return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
@@ -239,7 +385,7 @@ __device__ __forceinline__ void mma_product(const bf16* __restrict__ a,
 }
 
 // ------------------------------------------------------------------ staging
-// Stage the weights in shared memory and zero the accumulators; ends in a barrier.
+// Stage the weights in shared memory; ends in a barrier.
 template <typename T, bool kElem>
 __device__ __forceinline__ void stage_weights(const Smem<T, kElem>& s, const T* __restrict__ wg,
                                               const T* __restrict__ W2, const T* __restrict__ b2,
@@ -262,62 +408,222 @@ __device__ __forceinline__ void stage_weights(const Smem<T, kElem>& s, const T* 
     s.Bc1[e] = to_f(bc1[e]);
     s.Wc2[e] = to_f(wc2[e]);
   }
-  for (int e = tid; e < kMaxTi * kH; e += kThreads) s.agg[e] = 0.0f;
-  if (tid < kMaxTi * 4) s.trans[tid] = 0.0f;
-  if (tid < kMaxTi) s.deg[tid] = 0.0f;
   __syncthreads();
 }
 
-// ------------------------------------------------------------------ one chunk
-// One chunk of edge rows [r0, r0 + kRows) of a tile with `rows` rows and n senders
-// per receiver.  s.geom and s.mask hold the chunk (zero past `rows`) and a barrier
-// has passed since they were written.  hAb points at the tile's first receiver,
-// hBb at the sim's first sender.  Ends in a barrier, so the caller may overwrite
-// s.geom and s.mask right after.
-template <typename T, bool kElem, bool kTanh>
-__device__ __forceinline__ void edge_chunk(const Smem<T, kElem>& s, const T* __restrict__ hAb,
-                                           const T* __restrict__ hBb, int r0, int rows, int n,
-                                           int tid) {
-  using S = Smem<T, kElem>;
-  constexpr int kPairs = kH / 2;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  // m1 = silu(hA_i + hB_j + g . Wg), row-major [kRows, kLd], a column pair per step
-  for (int e = tid; e < kRows * kPairs; e += kThreads) {
-    const int rl = e / kPairs;
-    const int c = (e % kPairs) * 2;
-    const int r = r0 + rl;
-    float2 v = make_float2(0.0f, 0.0f);
-    if (r < rows) {
-      const int il = r / n;
-      const int j = r - il * n;
-      const float* g = s.geom + rl * kGeom;
-      const float2 a = load2(hAb + il * kH + c);
-      const float2 b = load2(hBb + j * kH + c);
-      float gx = 0.0f, gy = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 5; ++k) {
-        gx += g[k] * s.Wg[k * kH + c];
-        gy += g[k] * s.Wg[k * kH + c + 1];
-      }
-      v = make_float2(a.x + b.x + gx, a.y + b.y + gy);
+// ------------------------------------------------------------- the persistent grid
+// Block k of `blocks` walks the global receivers b * n + i in [k R / blocks,
+// (k + 1) R / blocks), R = batch * n, in sub-tiles of at most kMaxTi receivers that
+// never cross a sim: each sim's part of the range is cut into the fewest such
+// sub-tiles, evened out.  f(b, i0, nrecv) runs once per sub-tile, in order.
+// ops/egnn_messages.py:receiver_ranges states the same split.
+template <typename F>
+__device__ __forceinline__ void for_each_subtile(int batch, int n, int blocks, F&& f) {
+  const long long R = static_cast<long long>(batch) * n;
+  long long cur = R * blockIdx.x / blocks;
+  const long long end = R * (blockIdx.x + 1) / blocks;
+  while (cur < end) {
+    const int b = static_cast<int>(cur / n);
+    const int i = static_cast<int>(cur - static_cast<long long>(b) * n);
+    const int seg = static_cast<int>(min(end, static_cast<long long>(b + 1) * n) - cur);
+    const int tiles = (seg + kMaxTi - 1) / kMaxTi;
+    for (int q = 0, i0 = i; q < tiles; ++q) {
+      const int nrecv = seg / tiles + (q < seg % tiles);
+      f(b, i0, nrecv);
+      i0 += nrecv;
     }
-    T* dst = s.A + rl * S::kLd + c;
-    if constexpr (kElem) {
-      store2(dst, silu2(__floats2bfloat162_rn(v.x, v.y)));
-    } else {
-      store2(dst, make_float2(silu(v.x), silu(v.y)));
+    cur += seg;
+  }
+}
+
+// Start a sub-tile: zero its accumulators and copy its receivers' hA rows (hAb, nrecv
+// rows) to shared memory.  The caller's next barrier orders it.
+template <typename T, typename S>
+__device__ __forceinline__ void begin_subtile(const S& s, const T* __restrict__ hAb, int nrecv,
+                                              int tid) {
+  for (int e = tid; e < kMaxTi * kH; e += kThreads) s.agg[e] = 0.0f;
+  if (tid < kMaxTi * 4) s.trans[tid] = 0.0f;
+  constexpr int kVec = 16 / sizeof(T);
+  for (int e = tid; e < nrecv * kH / kVec; e += kThreads)
+    reinterpret_cast<uint4*>(s.hAs)[e] = reinterpret_cast<const uint4*>(hAb)[e];
+}
+
+// ------------------------------------------------------------ fixed-order sums
+// A chunk's live rows [0, valid) are cut into kGroups groups of kGroupRows rows.
+// Within a group, a receiver's rows are summed in row order.  A receiver whose rows
+// lie inside one group only (a middle) is added to its accumulator at once; the
+// sums of a group's first and last receivers (its head and tail, which may run on
+// into the neighbouring groups) go to part [kGroups][2][ld], and combine_groups
+// adds them, group by group in order, after a barrier.  So every sum runs in an
+// order fixed by the shapes alone, and a launch is bitwise reproducible.
+// the receivers (relative to the sub-tile) of group g's first and last live rows
+__device__ __forceinline__ int2 group_ends(int g, int r0, int valid, int n) {
+  const int lo = g * kGroupRows;
+  const int hi = min(lo + kGroupRows, valid) - 1;
+  return make_int2((r0 + lo) / n, (r0 + hi) / n);
+}
+
+// a group's sum of receiver il, to part (head or tail) or to acc (a middle)
+__device__ __forceinline__ void put_group_sum(int il, int2 ends, int g, float v,
+                                              float* part, int ld, float* acc, int acc_ld,
+                                              int c) {
+  if (il == ends.x) {
+    part[(g * 2) * ld + c] = v;
+  } else if (il == ends.y) {
+    part[(g * 2 + 1) * ld + c] = v;
+  } else {
+    acc[il * acc_ld + c] += v;
+  }
+}
+
+// Column c of group g: value(rl) summed over the group's rows in row order, per receiver.
+template <typename Value>
+__device__ __forceinline__ void group_sums(int g, int r0, int valid, int n, float* part, int ld,
+                                           float* acc, int acc_ld, int c, Value&& value) {
+  const int lo = g * kGroupRows;
+  if (lo >= valid) return;
+  const int hi = min(lo + kGroupRows, valid);
+  const int2 ends = group_ends(g, r0, valid, n);
+  int il = ends.x;
+  int next = (il + 1) * n - r0;  // first chunk row of receiver il + 1
+  float sum = 0.0f;
+  for (int rl = lo; rl < hi; ++rl) {
+    if (rl == next) {
+      put_group_sum(il, ends, g, sum, part, ld, acc, acc_ld, c);
+      ++il;
+      next += n;
+      sum = 0.0f;
+    }
+    sum += value(rl);
+  }
+  put_group_sum(il, ends, g, sum, part, ld, acc, acc_ld, c);
+}
+
+// The same for the trans terms and the mask, one row per lane of the first kGroups warps
+// (row rl = threadIdx.x): a segmented sum over the warp's rows with shuffles in a
+// fixed pattern leaves each receiver's sum in the lane of its first row.
+__device__ __forceinline__ void warp_group_sums(int r0, int valid, int n, float term[4],
+                                                float* part, float* acc) {
+  const int rl = threadIdx.x;
+  const int lane = rl & 31;
+  const int g = rl / kGroupRows;
+  const int il = rl < valid ? (r0 + rl) / n : -1;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int other = __shfl_down_sync(0xffffffffu, il, off);
+    float t[4];
+#pragma unroll
+    for (int d = 0; d < 4; ++d) t[d] = __shfl_down_sync(0xffffffffu, term[d], off);
+    if (lane + off < 32 && other == il) {
+#pragma unroll
+      for (int d = 0; d < 4; ++d) term[d] += t[d];
     }
   }
-  __syncthreads();
+  const int before = __shfl_up_sync(0xffffffffu, il, 1);
+  if (il >= 0 && (lane == 0 || before != il)) {
+    const int2 ends = group_ends(g, r0, valid, n);
+#pragma unroll
+    for (int d = 0; d < 4; ++d) put_group_sum(il, ends, g, term[d], part, 4, acc, 4, d);
+  }
+}
+
+// Column c: the groups' heads and tails added to acc, group by group in order.
+__device__ __forceinline__ void combine_groups(int r0, int valid, int n, const float* part,
+                                               int ld, float* acc, int acc_ld, int c) {
+  int cur = -1;
+  float sum = 0.0f;
+  for (int g = 0; g < kGroups && g * kGroupRows < valid; ++g) {
+    const int2 ends = group_ends(g, r0, valid, n);
+    const float head = part[(g * 2) * ld + c];
+    if (ends.x == cur) {
+      sum += head;
+    } else {
+      if (cur >= 0) acc[cur * acc_ld + c] += sum;
+      cur = ends.x;
+      sum = head;
+    }
+    if (ends.y != ends.x) {
+      acc[cur * acc_ld + c] += sum;
+      cur = ends.y;
+      sum = part[(g * 2 + 1) * ld + c];
+    }
+  }
+  if (cur >= 0) acc[cur * acc_ld + c] += sum;
+}
+
+// ------------------------------------------------------------------ one chunk
+// One chunk of edge rows [r0, r0 + kRows) of a sub-tile with `rows` rows and n
+// senders per receiver.  s.hAs holds the sub-tile's hA rows, s.geom and s.mask the
+// chunk's geometry and mask (zero past `rows`), and a barrier has passed since they
+// were written.  hBb points at the sim's first sender.  The caller may overwrite
+// s.geom, s.mask and s.trow right after; it syncs before it reads s.agg or s.trans.
+template <typename T, bool kElem, bool kTanh>
+__device__ __forceinline__ void edge_chunk(const Smem<T, kElem>& s, const T* __restrict__ hBb,
+                                           int r0, int rows, int n, int tid, PhaseClock& clk) {
+  using S = Smem<T, kElem>;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int valid = min(kRows, rows - r0);  // live rows of this chunk
+
+  // m1 = silu(hA_i + hB_j + g . Wg), row-major [kRows, kLd].  A thread owns kVec
+  // columns (one 16-byte load of a row) of the rows rg, rg + kRowStep, ...; it issues
+  // all of its hB loads before the first use, and reads hA from shared memory.
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kRowThreads = kH / kVec;            // threads on one row: 32 or 16
+  constexpr int kRowStep = kThreads / kRowThreads;  // 16 or 32
+  constexpr int kRowsPer = kRows / kRowStep;        // 8 or 4
+  {
+    const int c = (tid % kRowThreads) * kVec;
+    const int rg = tid / kRowThreads;
+    uint4 hb[kRowsPer];
+#pragma unroll
+    for (int q = 0; q < kRowsPer; ++q) {
+      const int rl = rg + q * kRowStep;
+      hb[q] = make_uint4(0u, 0u, 0u, 0u);
+      if (rl < valid) {
+        const int il = (r0 + rl) / n;
+        const int j = r0 + rl - il * n;
+        hb[q] = __ldg(reinterpret_cast<const uint4*>(hBb + static_cast<size_t>(j) * kH + c));
+      }
+    }
+    float wg[5][kVec];
+#pragma unroll
+    for (int k = 0; k < 5; ++k)
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) wg[k][v] = s.Wg[k * kH + c + v];
+#pragma unroll
+    for (int q = 0; q < kRowsPer; ++q) {
+      const int rl = rg + q * kRowStep;
+      float x[kVec];
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) x[v] = 0.0f;  // rows past the tile: m1 = silu(0) = 0
+      if (rl < valid) {
+        const int il = (r0 + rl) / n;
+        const float* g = s.geom + rl * kGeom;
+        float a[kVec], b[kVec];
+        unpack<T>(*reinterpret_cast<const uint4*>(s.hAs + il * kH + c), a);
+        unpack<T>(hb[q], b);
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) {
+          float gx = 0.0f;
+#pragma unroll
+          for (int k = 0; k < 5; ++k) gx += g[k] * wg[k][v];
+          x[v] = a[v] + b[v] + gx;
+        }
+      }
+      store_silu<T, kElem>(s.A + rl * S::kLd + c, x);
+    }
+  }
+  clk.mark(kM1);
+  barrier(clk);
 
   if constexpr (S::kMma) {
     const int wm = warp >> 2, wn = warp & 3;
     const int g = lane >> 2, t4 = lane & 3;
     float acc[2][4][4];
     mma_product(s.A, s.W2, wm, wn, lane, acc);
-    __syncthreads();  // every warp has read m1 before m2 overwrites it
+    clk.mark(kW2);
+    barrier(clk);  // every warp has read m1 before m2 overwrites it
 
     // m2 = silu(m1 W2 + b2) back into A (bf16) and, unrounded, into M2
 #pragma unroll
@@ -342,7 +648,8 @@ __device__ __forceinline__ void edge_chunk(const Smem<T, kElem>& s, const T* __r
     const int tx = lane, ty = warp;
     float acc[8][4];
     chunk_product(s.A, s.W2, ty, tx, acc);
-    __syncthreads();  // every warp has read m1 before m2 overwrites it
+    clk.mark(kW2);
+    barrier(clk);  // every warp has read m1 before m2 overwrites it
 
     const float4 bias = *reinterpret_cast<const float4*>(s.B2 + tx * 4);
 #pragma unroll
@@ -359,45 +666,31 @@ __device__ __forceinline__ void edge_chunk(const Smem<T, kElem>& s, const T* __r
       }
     }
   }
-  __syncthreads();
+  clk.mark(kEpi2);
+  barrier(clk);
 
-  // the receivers this chunk touches
-  const int last = min(r0 + kRows, rows) - 1;
-  const int il0 = r0 / n;
-  const int nrc = last / n - il0 + 1;
-
-  // agg: one thread per (receiver, column pair) adds mask * m2 over the receiver's
-  // rows of this chunk, in row order
-  for (int e = tid; e < nrc * kPairs; e += kThreads) {
-    const int il = il0 + e / kPairs;
-    const int c = (e % kPairs) * 2;
-    const int lo = max(il * n, r0) - r0;
-    const int hi = min((il + 1) * n - 1, last) - r0;
-    float sx = 0.0f, sy = 0.0f;
-    for (int rl = lo; rl <= hi; ++rl) {
-      const float m = s.mask[rl];
-      float2 v;
-      if constexpr (S::kMma && kElem) {  // the mask multiply in bf16 too
-        v = __bfloat1622float2(__hmul2(*reinterpret_cast<const bf162*>(s.A + rl * kLdB + c),
-                                       __float2bfloat162_rn(m)));
+  // agg: a thread owns column c of one group of kGroupRows rows and adds mask * m2
+  // over them in row order, one sum per receiver; middles go to s.agg, heads and
+  // tails to s.part (group_sums)
+  {
+    const int c = tid % kH;
+    group_sums(tid / kH, r0, valid, n, s.part, kH, s.agg, kH, c, [&](int rl) {
+      float v;
+      if constexpr (S::kMma && kElem) {
+        v = __bfloat162float(s.A[rl * kLdB + c]);
       } else if constexpr (S::kMma) {
-        v = load2(s.M2 + rl * kLdM + c);
-        v.x *= m;
-        v.y *= m;
+        v = s.M2[rl * kLdM + c];
       } else {
-        v = load2(s.A + rl * kH + c);
-        v.x *= m;
-        v.y *= m;
+        v = s.A[rl * kH + c];
       }
-      sx += v.x;
-      sy += v.y;
-    }
-    s.agg[il * kH + c] += sx;
-    s.agg[il * kH + c + 1] += sy;
+      return s.mask[rl] * v;  // exact: the mask is 0 or 1
+    });
   }
+  clk.mark(kAgg);
 
-  // w = tanh(silu(m2 Wc1 + bc1) . wc2); each row's three masked, clipped trans terms
-  // go to s.trow
+  // w = tanh(silu(m2 Wc1 + bc1) . wc2): f32 writes each row's three masked,
+  // clipped trans terms to s.trow; mma writes each row's four partial sums of w
+  // (one per 32-column tile) there
   if constexpr (S::kMma) {
     const int wm = warp >> 2, wn = warp & 3;
     const int g = lane >> 2, t4 = lane & 3;
@@ -417,19 +710,8 @@ __device__ __forceinline__ void edge_chunk(const Smem<T, kElem>& s, const T* __r
           }
         sum += __shfl_xor_sync(0xffffffffu, sum, 1);
         sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        if (t4 == 0) s.wpart[(wm * 32 + mt * 16 + g + half * 8) * 4 + wn] = sum;
+        if (t4 == 0) s.trow[(wm * 32 + mt * 16 + g + half * 8) * 4 + wn] = sum;
       }
-    __syncthreads();
-    if (tid < kRows) {
-      const float* wp = s.wpart + tid * 4;
-      const float sum = ((wp[0] + wp[1]) + wp[2]) + wp[3];
-      const float w = kTanh ? tanhf(sum) : sum;
-      const bool live = r0 + tid < rows;
-      const float m = s.mask[tid];
-#pragma unroll
-      for (int d = 0; d < 3; ++d)
-        s.trow[tid * 4 + d] = live ? m * clip100(w * s.geom[tid * kGeom + 5 + d]) : 0.0f;
-    }
   } else {
     const int tx = lane, ty = warp;
     float acc[8][4];
@@ -445,27 +727,47 @@ __device__ __forceinline__ void edge_chunk(const Smem<T, kElem>& s, const T* __r
       const int rl = ty * 8 + q;
       if (tx < 3) {
         const float w = kTanh ? tanhf(sum) : sum;
-        s.trow[rl * 4 + tx] =
-            r0 + rl < rows ? s.mask[rl] * clip100(w * s.geom[rl * kGeom + 5 + tx]) : 0.0f;
+        s.trow[rl * 4 + tx] = rl < valid ? s.mask[rl] * clip100(w * s.geom[rl * kGeom + 5 + tx])
+                                         : 0.0f;
       }
     }
   }
-  __syncthreads();
+  clk.mark(kWc1);
+  barrier(clk);
 
-  // trans: one thread per (receiver, component) adds the chunk's terms in row order
-  if (tid < nrc * 3) {
-    const int il = il0 + tid / 3;
-    const int d = tid % 3;
-    const int lo = max(il * n, r0) - r0;
-    const int hi = min((il + 1) * n - 1, last) - r0;
-    float sum = 0.0f;
-    for (int rl = lo; rl <= hi; ++rl) sum += s.trow[rl * 4 + d];
-    s.trans[il * 4 + d] += sum;
+  if (tid < kRows) {
+    // trans and the degree: thread rl holds row rl's three terms and its mask;
+    // each warp (a group of kGroupRows rows) sums them per receiver with shuffles
+    // in a fixed pattern
+    const int rl = tid;
+    float term[4];
+    term[3] = rl < valid ? s.mask[rl] : 0.0f;
+    if constexpr (S::kMma) {
+      const float* wp = s.trow + rl * 4;
+      const float sum = ((wp[0] + wp[1]) + wp[2]) + wp[3];
+      const float w = kTanh ? tanhf(sum) : sum;
+      const float m = s.mask[rl];
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+        term[d] = rl < valid ? m * clip100(w * s.geom[rl * kGeom + 5 + d]) : 0.0f;
+    } else {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) term[d] = s.trow[rl * 4 + d];
+    }
+    warp_group_sums(r0, valid, n, term, s.tpart, s.trans);
+  } else if (tid < kRows + kH) {
+    combine_groups(r0, valid, n, s.part, kH, s.agg, kH, tid - kRows);
   }
-  __syncthreads();  // before the next chunk overwrites geom, mask, A and trow
+  clk.mark(kTrans);
+  barrier(clk);
+  if (tid < 4) combine_groups(r0, valid, n, s.tpart, 4, s.trans, 4, tid);
+  clk.count(kChunks);
+  // No barrier here: what follows in this chunk reads only s.tpart and writes
+  // s.trans, which the next chunk touches only after its own barriers.  The
+  // caller syncs before it reads the accumulators.
 }
 
-// agg [B, N, kH] (type TO) and trans [B, N, 3] (f32) of the tile's nrecv receivers:
+// agg [B, N, kH] (type TO) and trans [B, N, 3] (f32) of the sub-tile's nrecv receivers:
 // sums / max(deg, 1).
 template <typename TO, typename S>
 __device__ __forceinline__ void write_means(const S& s, TO* __restrict__ agg,
@@ -474,13 +776,13 @@ __device__ __forceinline__ void write_means(const S& s, TO* __restrict__ agg,
   for (int e = tid; e < nrecv * kH; e += kThreads) {
     const int il = e / kH;
     store_out(agg + (static_cast<size_t>(b) * n + i0 + il) * kH + e % kH,
-              s.agg[e] / fmaxf(s.deg[il], 1.0f));
+              s.agg[e] / fmaxf(s.trans[il * 4 + 3], 1.0f));
   }
   if (tid < nrecv * 3) {
     const int il = tid / 3;
     const int d = tid % 3;
     trans[(static_cast<size_t>(b) * n + i0 + il) * 3 + d] =
-        s.trans[il * 4 + d] / fmaxf(s.deg[il], 1.0f);
+        s.trans[il * 4 + d] / fmaxf(s.trans[il * 4 + 3], 1.0f);
   }
 }
 

@@ -14,21 +14,25 @@
 //
 // What bounds it on an H100: the two 128x128 products per edge.  At the rollout
 // shape (B=64, N=100, He=Hc=128) one call is ~42 GFLOP of f32 against ~25 MB of
-// inputs, so it is bound by operations (0.63 ms at 67 TFLOP/s f32 on CUDA cores)
+// inputs, so it is bound by operations (0.64 ms at 67 TFLOP/s f32 on CUDA cores)
 // and never by bytes, as long as no [B, N, N, He] tensor goes to device memory.
 // The design keeps every per-edge intermediate on chip:
-//   * one block of 512 threads per (sim, tile of <= 16 receivers); it stages W2
-//     and Wc1 (64 KB each) in dynamic shared memory once and walks the
-//     tile's (receiver, sender) edges in chunks of 128 rows;
+//   * a persistent grid of min(B N, SMs) blocks of 512 threads, one an SM: each
+//     stages W2 and Wc1 (64 KB each) in shared memory once and walks a balanced
+//     range of the B N receivers in sub-tiles of <= 16 that never cross a sim
+//     (egnn_edge.cuh, for_each_subtile), each sub-tile's edges in chunks of 128
+//     rows;
 //   * per chunk, the geometry and mask rows are loaded into shared memory, and
 //     the edge stage shared with K3 (egnn_edge.cuh) builds m1, runs the two
-//     register-tiled f32 FMA products and adds the masked sums of agg and trans
-//     to shared accumulators, in a fixed order (bitwise reproducible); the
-//     outputs are written once per receiver.
-//   * 214 KB of shared memory leaves one block per SM, so the block is as
+//     register-tiled f32 FMA products and adds the masked sums of agg, trans and
+//     the degree to shared accumulators in a fixed order, without atomics
+//     (bitwise reproducible); the outputs are written once per receiver.
+//   * 228 KB of shared memory leaves one block per SM, so the block is as
 //     large as the 128-register budget allows: 16 warps hide shared-memory
 //     latency better than 8 (a 256-thread block measured ~1.3x slower).
-// The f32 form runs f32 FMA throughout (no TF32, no tensor cores).
+// The f32 form runs f32 FMA throughout (no TF32, no tensor cores).  Measured
+// (PERF.md): 1.47 ms at the rollout shape, 2.3x its bound; two thirds of a
+// chunk are the two FMA products, at ~68% of the SM's FMA issue rate.
 //
 // The bf16 form (`nbody_egnn_messages_bf16`, the mixed-bf16 model) follows the
 // TPU body's rounding points for bf16 operands (egnn_messages.py:66-115): the
@@ -40,6 +44,9 @@
 // rollout shape against 989 TFLOP/s.  Staging W2 and Wc1 in bf16 halves their
 // shared memory to 68 KB (padded rows); the f32 copy of m2 that agg sums takes
 // 68 KB of what that frees, so the block stays 512 threads, one per SM.
+// Measured (PERF.md): 0.57 ms, 13x its bound; the products are under a
+// fifth of a chunk, and m1 (a quarter), the epilogues' f32 silus, the sums and
+// the chunk's geometry load hold it.
 //
 // Plain C interface for ctypes (ops/_build.py); returns cudaGetLastError().
 
@@ -58,67 +65,79 @@ egnn_edge_kernel(const T* __restrict__ hA, const T* __restrict__ hB,
                  const T* __restrict__ wg, const T* __restrict__ W2, const T* __restrict__ b2,
                  const T* __restrict__ Wc1, const T* __restrict__ bc1,
                  const T* __restrict__ wc2, T* __restrict__ agg, float* __restrict__ trans,
-                 int n, int ti) {
+                 int batch, int n, int blocks) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem<T, false> s(smem);
   const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int i0 = blockIdx.x * ti;
-  const int nrecv = min(ti, n - i0);
-  const int rows = nrecv * n;  // edge row r = il * n + j  <->  (i0 + il, j)
-
+  PhaseClock clk;
   stage_weights(s, wg, W2, b2, Wc1, bc1, wc2, tid);
+  clk.mark(kStage);
 
-  const T* hAb = hA + (static_cast<size_t>(b) * n + i0) * kH;
-  const T* hBb = hB + static_cast<size_t>(b) * n * kH;
-  const float* geomb = geom + (static_cast<size_t>(b) * n + i0) * n * kGeom;
-  const float* maskb = mask + (static_cast<size_t>(b) * n + i0) * n;
-
-  for (int r0 = 0; r0 < rows; r0 += kRows) {
-    // geometry and mask of this chunk's edges; rows past the tile are zero.  With
-    // bf16 operands g[0:5] is a matmul operand and is rounded to bf16.
-    for (int e = tid; e < kRows * kGeom; e += kThreads) {
-      const int r = r0 + e / kGeom;
-      float g = r < rows ? geomb[static_cast<size_t>(r0) * kGeom + e] : 0.0f;
-      if (std::is_same<T, bf16>::value && e % kGeom < 5) g = round_bf16(g);
-      s.geom[e] = g;
-    }
-    if (tid < kRows) {
-      const int r = r0 + tid;
-      const float m = r < rows ? maskb[r] : 0.0f;
-      s.mask[tid] = m;
-      if (r < rows) atomicAdd(&s.deg[r / n], m);  // exact: adds 0 or 1
-    }
+  for_each_subtile(batch, n, blocks, [&](int b, int i0, int nrecv) {
+    const int rows = nrecv * n;  // edge row r = il * n + j  <->  (i0 + il, j)
+    const T* hAb = hA + (static_cast<size_t>(b) * n + i0) * kH;
+    const T* hBb = hB + static_cast<size_t>(b) * n * kH;
+    const float* geomb = geom + (static_cast<size_t>(b) * n + i0) * n * kGeom;
+    const float* maskb = mask + (static_cast<size_t>(b) * n + i0) * n;
+    begin_subtile(s, hAb, nrecv, tid);
     __syncthreads();
-    edge_chunk<T, false, kTanh>(s, hAb, hBb, r0, rows, n, tid);
-  }
-  write_means(s, agg, trans, b, n, i0, nrecv, tid);
+
+    for (int r0 = 0; r0 < rows; r0 += kRows) {
+      // geometry and mask of this chunk's edges; rows past the tile are zero.  With
+      // bf16 operands g[0:5] is a matmul operand and is rounded to bf16.
+      for (int e = tid; e < kRows * kGeom; e += kThreads) {
+        const int r = r0 + e / kGeom;
+        float g = r < rows ? geomb[static_cast<size_t>(r0) * kGeom + e] : 0.0f;
+        if (std::is_same<T, bf16>::value && e % kGeom < 5) g = round_bf16(g);
+        s.geom[e] = g;
+      }
+      if (tid < kRows) {
+        const int r = r0 + tid;
+        const float m = r < rows ? maskb[r] : 0.0f;
+        s.mask[tid] = m;
+      }
+      clk.mark(kPrologue);
+      barrier(clk);
+      edge_chunk<T, false, kTanh>(s, hBb, r0, rows, n, tid, clk);
+    }
+    __syncthreads();  // the last chunk's sums are in
+    write_means(s, agg, trans, b, n, i0, nrecv, tid);
+    __syncthreads();  // before the next sub-tile zeroes the accumulators
+    clk.mark(kMeans);
+  });
+  clk.flush();
 }
 
 template <typename T, bool kTanh>
 int launch(const T* hA, const T* hB, const float* geom, const float* mask, const T* wg,
            const T* W2, const T* b2, const T* Wc1, const T* bc1, const T* wc2, T* agg,
-           float* trans, int batch, int n, int ti, cudaStream_t stream) {
+           float* trans, int batch, int n, int blocks, cudaStream_t stream) {
   static bool configured = false;
   constexpr size_t bytes = Smem<T, false>::kBytes;
   const auto kernel = &egnn_edge_kernel<T, kTanh>;
   if (const int err = allow_smem(kernel, bytes, configured)) return err;
-  dim3 grid((n + ti - 1) / ti, batch);
-  kernel<<<grid, kThreads, bytes, stream>>>(hA, hB, geom, mask, wg, W2, b2, Wc1, bc1, wc2,
-                                            agg, trans, n, ti);
+  kernel<<<blocks, kThreads, bytes, stream>>>(hA, hB, geom, mask, wg, W2, b2, Wc1, bc1, wc2,
+                                              agg, trans, batch, n, blocks);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const T* hA, const T* hB, const float* geom, const float* mask, const T* wg,
              const T* W2, const T* b2, const T* Wc1, const T* bc1, const T* wc2, T* agg,
-             float* trans, int batch, int n, int he, int hc, int ti, int use_tanh,
+             float* trans, int batch, int n, int he, int hc, int blocks, int use_tanh,
              void* stream) {
-  if (he != kH || hc != kH || ti < 1 || ti > kMaxTi || n < 1 || batch < 1 || batch > 65535)
+  if (he != kH || hc != kH || n < 1 || batch < 1 || blocks < 1 ||
+      static_cast<long long>(blocks) > static_cast<long long>(batch) * n)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto go = use_tanh ? &launch<T, true> : &launch<T, false>;
-  return go(hA, hB, geom, mask, wg, W2, b2, Wc1, bc1, wc2, agg, trans, batch, n, ti,
+  return go(hA, hB, geom, mask, wg, W2, b2, Wc1, bc1, wc2, agg, trans, batch, n, blocks,
             static_cast<cudaStream_t>(stream));
+}
+
+// The edge stage's silu on its own, element by element (chip_smoke.py measures its error).
+__global__ void silu_kernel(const float* __restrict__ x, float* __restrict__ y, int count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < count) y[i] = silu(x[i]);
 }
 
 }  // namespace
@@ -127,10 +146,10 @@ extern "C" int nbody_egnn_messages_f32(const float* hA, const float* hB, const f
                                        const float* mask, const float* wg, const float* W2,
                                        const float* b2, const float* Wc1, const float* bc1,
                                        const float* wc2, float* agg, float* trans, int batch,
-                                       int n, int he, int hc, int ti, int use_tanh,
+                                       int n, int he, int hc, int blocks, int use_tanh,
                                        void* stream) {
   return dispatch(hA, hB, geom, mask, wg, W2, b2, Wc1, bc1, wc2, agg, trans, batch, n, he, hc,
-                  ti, use_tanh, stream);
+                  blocks, use_tanh, stream);
 }
 
 // hA, hB, the weights and agg in bf16; geom, mask and trans in f32.
@@ -138,8 +157,18 @@ extern "C" int nbody_egnn_messages_bf16(const bf16* hA, const bf16* hB, const fl
                                         const float* mask, const bf16* wg, const bf16* W2,
                                         const bf16* b2, const bf16* Wc1, const bf16* bc1,
                                         const bf16* wc2, bf16* agg, float* trans, int batch,
-                                        int n, int he, int hc, int ti, int use_tanh,
+                                        int n, int he, int hc, int blocks, int use_tanh,
                                         void* stream) {
   return dispatch(hA, hB, geom, mask, wg, W2, b2, Wc1, bc1, wc2, agg, trans, batch, n, he, hc,
-                  ti, use_tanh, stream);
+                  blocks, use_tanh, stream);
 }
+
+extern "C" int nbody_edge_silu_f32(const float* x, float* y, int count, void* stream) {
+  if (count < 1) return static_cast<int>(cudaErrorInvalidValue);
+  silu_kernel<<<(count + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, y, count);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#ifdef EGNN_EDGE_PHASES
+extern "C" int nbody_egnn_messages_phases(unsigned long long* out) { return read_phases(out); }
+#endif

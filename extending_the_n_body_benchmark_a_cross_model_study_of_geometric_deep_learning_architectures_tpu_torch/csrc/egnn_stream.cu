@@ -20,16 +20,20 @@
 // cores) against ~10 MB of node data and mask, so it is bound by operations.  No
 // [B, N, N, *] tensor but the mask goes to or comes from device memory: the
 // dense path's [B, N, N, 8] geometry (537 MB at N = 4096) is never made.
-//   * one block of 512 threads per (sim, tile of <= 16 receivers); the
-//     receivers' node data (10 floats each) sit in shared memory, W2 and Wc1
-//     are staged once (egnn_edge.cuh);
+//   * a persistent grid of min(B N, SMs) blocks of 512 threads, one an SM, each
+//     walking a balanced range of receivers in sub-tiles of <= 16, as K1 does;
+//     a sub-tile's receivers' node data (10 floats each) sit in shared memory,
+//     W2 and Wc1 are staged once per block (egnn_edge.cuh).  At (1, 1000) that
+//     is 132 blocks where one per 16 receivers gave 63;
 //   * per chunk of 128 edge rows, a prologue computes each row's 8 geometry
 //     scalars from the receiver's node data in shared memory and the sender's
 //     read from device memory (L1/L2 resident: 40 bytes a node), then the edge
 //     stage shared with K1 runs on them;
-//   * any N: the last chunk of a tile and the last tile of a sim are ragged and
-//     masked, with no tile-divisibility assumption.
-// The f32 form runs f32 FMA throughout (no TF32, no tensor cores).
+//   * any N: the last chunk of a sub-tile is ragged and masked, with no
+//     tile-divisibility assumption.
+// The f32 form runs f32 FMA throughout (no TF32, no tensor cores).  Measured
+// (PERF.md): 4.53 ms at (8, 512), 2.2x its bound, two thirds of a chunk in
+// the two FMA products.
 //
 // The bf16 form (`nbody_egnn_stream_bf16`, the mixed-bf16 model) takes hA, hB
 // and the weights in bf16 and writes agg in bf16, trans in f32.  Its operand
@@ -41,7 +45,11 @@
 // rounding per operation; h2exp and h2rcp are approximate, so a value can land
 // one bf16 ulp from the plain version's.  It is legal with f32 operands too (a
 // third instantiation of the same template).  The running sums of agg, trans
-// and the degree stay f32 and run in a fixed order.
+// and the degree stay f32 and run in a fixed order.  Measured (PERF.md) at
+// (8, 512): bf16 1.71 ms and elem_bf16 1.81 ms, 12-13x their bound, held as K1's
+// bf16 form is by m1, the epilogues, the sums and the chunk prologue; copying the
+// next chunk's hB rows with cp.async (only elem_bf16 has the shared memory for it)
+// measured no gain and is not done.
 //
 // Plain C interface for ctypes (ops/_build.py); returns cudaGetLastError().
 
@@ -59,6 +67,7 @@ template <typename T, bool kElem>
 constexpr size_t stream_smem_bytes() {
   return Smem<T, kElem>::kBytes + kMaxTi * kNode * sizeof(float);
 }
+static_assert(stream_smem_bytes<float, false>() <= 232448, "over the H100's shared memory per block");
 
 template <typename T, bool kElem, bool kTanh, bool kNormDiff>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -69,91 +78,96 @@ egnn_stream_kernel(const T* __restrict__ hA, const T* __restrict__ hB,
                    const T* __restrict__ W2, const T* __restrict__ b2,
                    const T* __restrict__ Wc1, const T* __restrict__ bc1,
                    const T* __restrict__ wc2, T* __restrict__ agg, float* __restrict__ trans,
-                   int n, int ti) {
+                   int batch, int n, int blocks) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem<T, kElem> s(smem);
   float* sNode = s.end();  // [kMaxTi, kNode]
   const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int i0 = blockIdx.x * ti;
-  const int nrecv = min(ti, n - i0);
-  const int rows = nrecv * n;  // edge row r = il * n + j  <->  (i0 + il, j)
-  const size_t sim = static_cast<size_t>(b) * n;
+  PhaseClock clk;
+  stage_weights(s, wg, W2, b2, Wc1, bc1, wc2, tid);
+  clk.mark(kStage);
 
-  if (tid < nrecv) {
-    const size_t i = sim + i0 + tid;
-    float* nd = sNode + tid * kNode;
-    for (int k = 0; k < 3; ++k) {
-      nd[k] = pos0[i * 3 + k];
-      nd[3 + k] = vel[i * 3 + k];
-      nd[7 + k] = coord[i * 3 + k];
-    }
-    nd[6] = mass[i];
-  }
-  stage_weights(s, wg, W2, b2, Wc1, bc1, wc2, tid);  // its barrier covers sNode too
-
-  const T* hAb = hA + (sim + i0) * kH;
-  const T* hBb = hB + sim * kH;
-  const float* maskb = mask + (sim + i0) * n;
-
-  for (int r0 = 0; r0 < rows; r0 += kRows) {
-    // prologue: the geometry of this chunk's edge rows, as the TPU body computes it
-    // (egnn_stream.py:95-109); rows past the tile are zero
-    if (tid < kRows) {
-      const int r = r0 + tid;
-      float g[kGeom] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      float m = 0.0f;
-      if (r < rows) {
-        const int il = r / n;
-        const size_t j = sim + (r - il * n);
-        const float* ni = sNode + il * kNode;
-        const float c0x = ni[0] - pos0[j * 3], c0y = ni[1] - pos0[j * 3 + 1],
-                    c0z = ni[2] - pos0[j * 3 + 2];
-        const float d2_0 = c0x * c0x + c0y * c0y + c0z * c0z;
-        const float inv_d0 = 1.0f / fmaxf(sqrtf(fmaxf(d2_0, 0.0f)), 1e-12f);
-        const float ux = c0x * inv_d0, uy = c0y * inv_d0, uz = c0z * inv_d0;
-        float cx = ni[7] - coord[j * 3], cy = ni[8] - coord[j * 3 + 1],
-              cz = ni[9] - coord[j * 3 + 2];
-        const float radial = cx * cx + cy * cy + cz * cz;
-        if (kNormDiff) {
-          const float inv_norm = 1.0f / fmaxf(sqrtf(fmaxf(radial, 0.0f)), 1.0f);
-          cx *= inv_norm;
-          cy *= inv_norm;
-          cz *= inv_norm;
-        }
-        g[0] = radial;
-        g[1] = ni[6] * mass[j];
-        g[2] = ni[3] * ux + ni[4] * uy + ni[5] * uz;
-        g[3] = vel[j * 3] * ux + vel[j * 3 + 1] * uy + vel[j * 3 + 2] * uz;
-        g[4] = d2_0;
-        g[5] = cx;
-        g[6] = cy;
-        g[7] = cz;
-        m = maskb[r];
-        atomicAdd(&s.deg[il], m);  // exact: adds 0 or 1
+  for_each_subtile(batch, n, blocks, [&](int b, int i0, int nrecv) {
+    const int rows = nrecv * n;  // edge row r = il * n + j  <->  (i0 + il, j)
+    const size_t sim = static_cast<size_t>(b) * n;
+    const T* hAb = hA + (sim + i0) * kH;
+    const T* hBb = hB + sim * kH;
+    const float* maskb = mask + (sim + i0) * n;
+    begin_subtile(s, hAb, nrecv, tid);
+    if (tid < nrecv) {
+      const size_t i = sim + i0 + tid;
+      float* nd = sNode + tid * kNode;
+      for (int k = 0; k < 3; ++k) {
+        nd[k] = pos0[i * 3 + k];
+        nd[3 + k] = vel[i * 3 + k];
+        nd[7 + k] = coord[i * 3 + k];
       }
-#pragma unroll
-      for (int k = 0; k < kGeom; ++k) s.geom[tid * kGeom + k] = g[k];
-      s.mask[tid] = m;
+      nd[6] = mass[i];
     }
     __syncthreads();
-    edge_chunk<T, kElem, kTanh>(s, hAb, hBb, r0, rows, n, tid);
-  }
-  write_means(s, agg, trans, b, n, i0, nrecv, tid);
+
+    for (int r0 = 0; r0 < rows; r0 += kRows) {
+      // prologue: the geometry of this chunk's edge rows, as the TPU body computes it
+      // (egnn_stream.py:95-109); rows past the tile are zero
+      if (tid < kRows) {
+        const int r = r0 + tid;
+        float g[kGeom] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        float m = 0.0f;
+        if (r < rows) {
+          const int il = r / n;
+          const size_t j = sim + (r - il * n);
+          const float* ni = sNode + il * kNode;
+          const float c0x = ni[0] - pos0[j * 3], c0y = ni[1] - pos0[j * 3 + 1],
+                      c0z = ni[2] - pos0[j * 3 + 2];
+          const float d2_0 = c0x * c0x + c0y * c0y + c0z * c0z;
+          const float inv_d0 = 1.0f / fmaxf(sqrtf(fmaxf(d2_0, 0.0f)), 1e-12f);
+          const float ux = c0x * inv_d0, uy = c0y * inv_d0, uz = c0z * inv_d0;
+          float cx = ni[7] - coord[j * 3], cy = ni[8] - coord[j * 3 + 1],
+                cz = ni[9] - coord[j * 3 + 2];
+          const float radial = cx * cx + cy * cy + cz * cz;
+          if (kNormDiff) {
+            const float inv_norm = 1.0f / fmaxf(sqrtf(fmaxf(radial, 0.0f)), 1.0f);
+            cx *= inv_norm;
+            cy *= inv_norm;
+            cz *= inv_norm;
+          }
+          g[0] = radial;
+          g[1] = ni[6] * mass[j];
+          g[2] = ni[3] * ux + ni[4] * uy + ni[5] * uz;
+          g[3] = vel[j * 3] * ux + vel[j * 3 + 1] * uy + vel[j * 3 + 2] * uz;
+          g[4] = d2_0;
+          g[5] = cx;
+          g[6] = cy;
+          g[7] = cz;
+          m = maskb[r];
+        }
+#pragma unroll
+        for (int k = 0; k < kGeom; ++k) s.geom[tid * kGeom + k] = g[k];
+        s.mask[tid] = m;
+      }
+      clk.mark(kPrologue);
+      barrier(clk);
+      edge_chunk<T, kElem, kTanh>(s, hBb, r0, rows, n, tid, clk);
+    }
+    __syncthreads();  // the last chunk's sums are in
+    write_means(s, agg, trans, b, n, i0, nrecv, tid);
+    __syncthreads();  // before the next sub-tile zeroes the accumulators and node data
+    clk.mark(kMeans);
+  });
+  clk.flush();
 }
 
 template <typename T, bool kElem, bool kTanh, bool kNormDiff>
 int launch(const T* hA, const T* hB, const float* pos0, const float* vel, const float* mass,
            const float* coord, const float* mask, const T* wg, const T* W2, const T* b2,
            const T* Wc1, const T* bc1, const T* wc2, T* agg, float* trans, int batch, int n,
-           int ti, cudaStream_t stream) {
+           int blocks, cudaStream_t stream) {
   static bool configured = false;
   constexpr size_t bytes = stream_smem_bytes<T, kElem>();
   const auto kernel = &egnn_stream_kernel<T, kElem, kTanh, kNormDiff>;
   if (const int err = allow_smem(kernel, bytes, configured)) return err;
-  dim3 grid((n + ti - 1) / ti, batch);
-  kernel<<<grid, kThreads, bytes, stream>>>(hA, hB, pos0, vel, mass, coord, mask, wg, W2, b2,
-                                            Wc1, bc1, wc2, agg, trans, n, ti);
+  kernel<<<blocks, kThreads, bytes, stream>>>(hA, hB, pos0, vel, mass, coord, mask, wg, W2, b2,
+                                              Wc1, bc1, wc2, agg, trans, batch, n, blocks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -167,13 +181,15 @@ template <typename T>
 int dispatch(const T* hA, const T* hB, const float* pos0, const float* vel, const float* mass,
              const float* coord, const float* mask, const T* wg, const T* W2, const T* b2,
              const T* Wc1, const T* bc1, const T* wc2, T* agg, float* trans, int batch, int n,
-             int he, int hc, int ti, int use_tanh, int norm_diff, int elem_bf16, void* stream) {
-  if (he != kH || hc != kH || ti < 1 || ti > kMaxTi || n < 1 || batch < 1 || batch > 65535)
+             int he, int hc, int blocks, int use_tanh, int norm_diff, int elem_bf16,
+             void* stream) {
+  if (he != kH || hc != kH || n < 1 || batch < 1 || blocks < 1 ||
+      static_cast<long long>(blocks) > static_cast<long long>(batch) * n)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto go =
       elem_bf16 ? pick<T, true>(use_tanh, norm_diff) : pick<T, false>(use_tanh, norm_diff);
   return go(hA, hB, pos0, vel, mass, coord, mask, wg, W2, b2, Wc1, bc1, wc2, agg, trans, batch,
-            n, ti, static_cast<cudaStream_t>(stream));
+            n, blocks, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -183,10 +199,10 @@ extern "C" int nbody_egnn_stream_f32(const float* hA, const float* hB, const flo
                                      const float* mask, const float* wg, const float* W2,
                                      const float* b2, const float* Wc1, const float* bc1,
                                      const float* wc2, float* agg, float* trans, int batch,
-                                     int n, int he, int hc, int ti, int use_tanh,
+                                     int n, int he, int hc, int blocks, int use_tanh,
                                      int norm_diff, int elem_bf16, void* stream) {
   return dispatch(hA, hB, pos0, vel, mass, coord, mask, wg, W2, b2, Wc1, bc1, wc2, agg, trans,
-                  batch, n, he, hc, ti, use_tanh, norm_diff, elem_bf16, stream);
+                  batch, n, he, hc, blocks, use_tanh, norm_diff, elem_bf16, stream);
 }
 
 // hA, hB, the weights and agg in bf16; node data, mask and trans in f32.
@@ -195,8 +211,12 @@ extern "C" int nbody_egnn_stream_bf16(const bf16* hA, const bf16* hB, const floa
                                       const float* mask, const bf16* wg, const bf16* W2,
                                       const bf16* b2, const bf16* Wc1, const bf16* bc1,
                                       const bf16* wc2, bf16* agg, float* trans, int batch,
-                                      int n, int he, int hc, int ti, int use_tanh,
+                                      int n, int he, int hc, int blocks, int use_tanh,
                                       int norm_diff, int elem_bf16, void* stream) {
   return dispatch(hA, hB, pos0, vel, mass, coord, mask, wg, W2, b2, Wc1, bc1, wc2, agg, trans,
-                  batch, n, he, hc, ti, use_tanh, norm_diff, elem_bf16, stream);
+                  batch, n, he, hc, blocks, use_tanh, norm_diff, elem_bf16, stream);
 }
+
+#ifdef EGNN_EDGE_PHASES
+extern "C" int nbody_egnn_stream_phases(unsigned long long* out) { return read_phases(out); }
+#endif

@@ -43,6 +43,7 @@ _LIB_STEM = "libnbody_kernels"
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
+_sm_counts: dict = {}  # device index -> multi_processor_count
 #: ``nvcc``'s output of the last build in this process (``-Xptxas -v``
 #: reports each kernel's registers, shared memory and spills)
 build_log = ""
@@ -79,9 +80,9 @@ def source_hash(paths, flags) -> str:
     return h.hexdigest()[:16]
 
 
-def library_path() -> str:
-    digest = source_hash(sources() + headers(), NVCC_FLAGS)
-    return os.path.join(BUILD_DIR, f"{_LIB_STEM}-{digest}.so")
+def library_path(flags=NVCC_FLAGS, stem: str = _LIB_STEM) -> str:
+    digest = source_hash(sources() + headers(), flags)
+    return os.path.join(BUILD_DIR, f"{stem}-{digest}.so")
 
 
 def find_nvcc() -> str:
@@ -96,10 +97,14 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def build() -> str:
-    """Compile ``csrc/*.cu`` into the hashed library unless it exists; return its path."""
+def build(extra_flags=(), stem: str = _LIB_STEM) -> str:
+    """Compile ``csrc/*.cu`` into the hashed library unless it exists; return its path.
+
+    ``extra_flags`` and ``stem`` make a library of another build beside the
+    normal one (``edge_phases.py``'s instrumented kernels)."""
     global build_log
-    out = library_path()
+    flags = (*NVCC_FLAGS, *extra_flags)
+    out = library_path(flags, stem)
     if os.path.exists(out):
         return out
     nvcc = find_nvcc()
@@ -109,7 +114,7 @@ def build() -> str:
         procs = []
         for src in sources():
             obj = os.path.join(work, os.path.basename(src) + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+            cmd = [nvcc, *flags, "-c", src, "-o", obj]
             procs.append((obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         logs, failed = [], False
@@ -130,7 +135,7 @@ def build() -> str:
         build_log = "\n".join(logs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    for stale in glob.glob(os.path.join(BUILD_DIR, f"{_LIB_STEM}-*.so")):
+    for stale in glob.glob(os.path.join(BUILD_DIR, f"{stem}-*.so")):
         if stale != out:
             try:
                 os.remove(stale)
@@ -139,16 +144,17 @@ def build() -> str:
     return out
 
 
-def _bind(lib: ctypes.CDLL) -> None:
+def bind(lib: ctypes.CDLL) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nbody_gravity_f32.argtypes = [vp, vp, vp, ci, ci, cf, cf, vp]
+    lib.nbody_edge_silu_f32.argtypes = [vp, vp, ci, vp]
     edge = (lib.nbody_egnn_messages_f32, lib.nbody_egnn_messages_bf16)
     stream = (lib.nbody_egnn_stream_f32, lib.nbody_egnn_stream_bf16)
     for fn in edge:
         fn.argtypes = [vp] * 12 + [ci] * 6 + [vp]
     for fn in stream:
         fn.argtypes = [vp] * 15 + [ci] * 8 + [vp]
-    for fn in (lib.nbody_gravity_f32, *edge, *stream):
+    for fn in (lib.nbody_gravity_f32, lib.nbody_edge_silu_f32, *edge, *stream):
         fn.restype = ctypes.c_int
 
 
@@ -166,9 +172,18 @@ def kernels() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            _bind(lib)
+            bind(lib)
             _lib = lib
     return _lib
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """The number of SMs of the card ``t`` lies on, read once per card: the
+    persistent edge kernels launch one block per SM."""
+    index = t.device.index if t.device.index is not None else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
 
 
 def check(err: int, name: str) -> None:

@@ -45,7 +45,7 @@ from ..models.common import get_activation
 from . import _build
 
 KERNEL_WIDTH = 128  # He and Hc the kernel is compiled for
-MAX_RECEIVERS = 16  # receivers per thread block (kMaxTi in the source)
+MAX_RECEIVERS = 16  # receivers a block sums at once (kMaxTi in the source)
 
 
 def edge_stage_plain(
@@ -133,10 +133,37 @@ def refuse_grad(name: str, tensors) -> None:
             "edge path)")
 
 
-def receiver_tile(n: int) -> int:
-    """Receivers per block: the fewest tiles of at most ``MAX_RECEIVERS``, evened out."""
-    tiles = -(-n // MAX_RECEIVERS)
-    return -(-n // tiles)
+def launch_blocks(B: int, N: int, sms: int) -> int:
+    """The persistent grid of K1 and K3: one block per SM, and no block without a
+    receiver."""
+    return min(B * N, sms)
+
+
+def receiver_ranges(B: int, N: int, blocks: int):
+    """The split of the ``R = B * N`` receivers ``b * N + i`` over ``blocks``
+    blocks that K1 and K3 walk (``csrc/egnn_edge.cuh``, ``for_each_subtile``).
+
+    Block ``k`` owns ``[k R // blocks, (k + 1) R // blocks)``, so the ranges
+    differ by at most one receiver, and walks it in sub-tiles of at most
+    ``MAX_RECEIVERS`` receivers that never cross a sim: each sim's part of the
+    range is cut into the fewest such sub-tiles, evened out.  Returns, per
+    block, its sub-tiles ``(b, i0, count)`` in the order it runs them."""
+    R = B * N
+    out = []
+    for k in range(blocks):
+        cur, end = k * R // blocks, (k + 1) * R // blocks
+        tiles = []
+        while cur < end:
+            b, i = divmod(cur, N)
+            seg = min(end, (b + 1) * N) - cur
+            count = -(-seg // MAX_RECEIVERS)
+            for q in range(count):
+                nrecv = seg // count + (q < seg % count)
+                tiles.append((b, i, nrecv))
+                i += nrecv
+            cur += seg
+        out.append(tiles)
+    return out
 
 
 def fused_egnn_messages(
@@ -174,7 +201,8 @@ def fused_egnn_messages(
     name = "nbody_egnn_messages_bf16" if bf16 else "nbody_egnn_messages_f32"
     err = getattr(_build.kernels(), name)(
         *(t.data_ptr() for t in ins), agg.data_ptr(), trans.data_ptr(),
-        B, N, He, Hc, receiver_tile(N), int(bool(tanh)), _build.stream_ptr(hA),
+        B, N, He, Hc, launch_blocks(B, N, _build.sm_count(hA)), int(bool(tanh)),
+        _build.stream_ptr(hA),
     )
     _build.check(err, name)
     if bf16:

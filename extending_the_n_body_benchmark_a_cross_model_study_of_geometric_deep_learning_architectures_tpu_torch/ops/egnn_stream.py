@@ -33,7 +33,7 @@ from typing import Tuple
 import torch
 
 from . import _build
-from . import egnn_messages as EM  # K1's module: the plain formula, tiles, widths
+from . import egnn_messages as EM  # K1's module: the plain formula, the grid, widths
 
 
 def streaming_egnn_messages_plain(
@@ -107,8 +107,8 @@ def streaming_egnn_messages(
     name = "nbody_egnn_stream_bf16" if bf16 else "nbody_egnn_stream_f32"
     err = getattr(_build.kernels(), name)(
         *(t.data_ptr() for t in ins), agg.data_ptr(), trans.data_ptr(),
-        B, N, He, Hc, EM.receiver_tile(N), int(bool(tanh)), int(bool(norm_diff)),
-        int(bool(elem_bf16)), _build.stream_ptr(hA),
+        B, N, He, Hc, EM.launch_blocks(B, N, _build.sm_count(hA)), int(bool(tanh)),
+        int(bool(norm_diff)), int(bool(elem_bf16)), _build.stream_ptr(hA),
     )
     _build.check(err, name)
     if elem_bf16:

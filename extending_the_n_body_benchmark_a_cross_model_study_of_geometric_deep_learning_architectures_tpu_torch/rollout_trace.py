@@ -1,0 +1,106 @@
+"""Where an N=100 rollout step's time goes on the card: device busy time against wall time.
+
+    python -m extending_the_n_body_benchmark_a_cross_model_study_of_geometric_deep_learning_architectures_tpu_torch.rollout_trace
+
+Rolls the committed N=100 checkpoint (EGNN-MC 6 x 128, fully connected, B=64)
+out from fresh ground truth (seed 0, 2000 substeps, a frame every 10: 199
+steps), in f32 and in mixed bf16, as ``chip_smoke.py``'s ``[rollout]`` and
+``[rollout-bf16]`` do.  Each config runs once to warm up, then ``--runs``
+times untraced (wall ms a step: host clock, synchronised at the end), then
+once under ``torch.profiler``: the summed time of the CUDA kernels a step,
+the edge kernel's part of it, and the device's idle share of the traced wall
+time.  The rollout launches without waiting on the device, so a step takes
+the longer of the host's launches and the device's work: where the untraced
+wall time a step is well above the device's busy time, the host sets it.
+Prints the card's name and power limit, then one JSON line per config.
+Needs a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+
+from .bign_bench import card_name
+from .core.scene import Scene
+from .data.gravity_otf import GravityDatasetOtf
+from .models import create_model
+from .rollout.self_feed import make_rollout_fn
+from .weights import params_from_jax, read_jax_checkpoint
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CKPT = os.path.join(REPO, "docs", "results", "fidelity_n100", "egnn_n100_ckpt_30_model.ckpt")
+B, N, SUBSTEPS, SAMPLE_FREQ = 64, 100, 2000, 10
+EDGE_KERNEL = "egnn_edge_kernel"  # K1's __global__ name in csrc/egnn_messages.cu
+
+
+def device_us(event) -> float:
+    """An event's own device time in microseconds (the attribute's name moved)."""
+    t = getattr(event, "self_device_time_total", None)
+    return float(t if t is not None else event.self_cuda_time_total)
+
+
+def measure(model, scene0, target: str, steps: int, runs: int) -> dict:
+    fn = make_rollout_fn(model, steps + 1, target=target)
+    fn(scene0)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        fn(scene0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3 / steps)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        fn(scene0)
+        torch.cuda.synchronize()
+        traced = (time.perf_counter() - t) * 1e3 / steps
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(device_us(e) for e in kernels) / 1e3 / steps
+    edge = sum(device_us(e) for e in kernels if EDGE_KERNEL in e.key) / 1e3 / steps
+    launches = sum(e.count for e in kernels) / steps
+    return {
+        "wall_ms_per_step": sorted(walls),
+        "traced_wall_ms_per_step": traced,
+        "device_busy_ms_per_step": busy,
+        "edge_kernel_ms_per_step": edge,
+        "device_ops_per_step": launches,
+        "device_idle_share_traced": 1.0 - busy / traced if traced > 0 else None,
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--runs", type=int, default=3)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("rollout_trace needs a CUDA card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    print(card_name(), flush=True)
+    state = params_from_jax(read_jax_checkpoint(CKPT))
+    ds = GravityDatasetOtf(batch_size=B, sim_length=SUBSTEPS, sample_freq=SAMPLE_FREQ,
+                           num_nodes=N, interaction_strength=2.0, softening=0.2, seed=0,
+                           device=dev)
+    loc, vel, force, mass = ds.get_ground_truth_trajectories()
+    scene0 = Scene(pos=loc[:, 0], vel=vel[:, 0], force=force[:, 0], mass=mass)
+    steps = int(loc.shape[1]) - 1
+    for config, kw in (("f32", {}), ("mixed-bf16", {"compute_dtype": "bfloat16"})):
+        model = create_model("egnn_mc", device=dev, **kw)
+        model.load_state_dict(state)
+        model.eval()
+        row = measure(model, scene0, ds.target, steps, args.runs)
+        print(json.dumps({"config": config, "B": B, "N": N, "steps": steps, **row}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

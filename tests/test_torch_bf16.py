@@ -349,7 +349,11 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(_build, "wants_kernel", lambda t: True)
     monkeypatch.setattr(_build, "kernels", lambda: fake)
     monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(_build, "sm_count", lambda t: FAKE_SMS)
     return fake
+
+
+FAKE_SMS = 5  # fewer than the B * 4 receivers of the wrapper tests
 
 
 @pytest.mark.parametrize("kernel,op,elem,entry,counter", [
@@ -372,7 +376,7 @@ def test_wrapper_launches_the_form_of_its_operands(fake_card, kernel, op, elem, 
     (name, cargs), = fake_card.calls
     assert name == entry
     n_ptr = 12 if kernel == "k1" else 15
-    assert cargs[n_ptr:n_ptr + 4] == (B, 4, 128, 128)
+    assert cargs[n_ptr:n_ptr + 5] == (B, 4, 128, 128, min(B * 4, FAKE_SMS))  # ..., blocks
     if kernel == "k3":
         assert cargs[-2] == int(elem)
     assert agg.dtype == args[0].dtype and trans.dtype == torch.float32

@@ -25,6 +25,10 @@ from extending_the_n_body_benchmark_a_cross_model_study_of_geometric_deep_learni
     egnn_messages as JEM,
     gravity as JGK,
 )
+from extending_the_n_body_benchmark_a_cross_model_study_of_geometric_deep_learning_architectures_tpu_torch import (
+    edge_phases,
+    rollout_trace,
+)
 from extending_the_n_body_benchmark_a_cross_model_study_of_geometric_deep_learning_architectures_tpu_torch.ops import (
     _build,
     egnn_messages as EM,
@@ -96,8 +100,36 @@ def test_edge_plain_without_tanh_and_empty_receiver():
 
 
 def test_receiver_tile():
-    assert EM.receiver_tile(100) == 15 and EM.receiver_tile(16) == 16
-    assert EM.receiver_tile(17) == 9 and EM.receiver_tile(1) == 1
+    """One block over one sim cuts it into the fewest sub-tiles of at most 16
+    receivers, evened out."""
+    def tile(n):
+        (tiles,) = EM.receiver_ranges(1, n, 1)
+        return max(count for _, _, count in tiles)
+
+    assert tile(100) == 15 and tile(16) == 16
+    assert tile(17) == 9 and tile(1) == 1
+
+
+@pytest.mark.parametrize("sms", [1, 7, 132])
+@pytest.mark.parametrize("B,N", [(1, 1), (1, 5), (64, 5), (64, 100), (8, 512), (1, 1000),
+                                 (1, 4096)])
+def test_receiver_ranges(B, N, sms):
+    """The persistent grid's split: every receiver exactly once, block ranges
+    balanced to within one receiver, no sub-tile across a sim or above 16."""
+    blocks = EM.launch_blocks(B, N, sms)
+    assert blocks == min(B * N, sms)
+    ranges = EM.receiver_ranges(B, N, blocks)
+    assert len(ranges) == blocks
+    seen = []
+    for tiles in ranges:
+        assert tiles, "a launched block with no receiver"
+        for b, i0, count in tiles:
+            assert 1 <= count <= EM.MAX_RECEIVERS and 0 <= b < B
+            assert 0 <= i0 and i0 + count <= N
+            seen.extend(b * N + i for i in range(i0, i0 + count))
+    assert seen == list(range(B * N))  # each once, in block order
+    sizes = [sum(count for _, _, count in tiles) for tiles in ranges]
+    assert max(sizes) - min(sizes) <= 1
 
 
 @pytest.fixture
@@ -161,3 +193,13 @@ def test_library_path_follows_every_source_and_header(tmp_path, monkeypatch):
     paths.append(_build.library_path())
     assert len(set(paths)) == 4
     assert all(os.path.dirname(p) == _build.BUILD_DIR for p in paths)
+    # the instrumented build of edge_phases.py: a library of its own
+    phases = _build.library_path((*_build.NVCC_FLAGS, "-DEGNN_EDGE_PHASES"), "libnbody_phases")
+    assert phases not in paths and os.path.basename(phases).startswith("libnbody_phases-")
+
+
+@pytest.mark.parametrize("script", [edge_phases, rollout_trace], ids=["edge_phases", "rollout_trace"])
+def test_measurement_scripts_need_a_card(script, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert script.main([]) == 1
+    assert "needs a CUDA card" in capsys.readouterr().err
