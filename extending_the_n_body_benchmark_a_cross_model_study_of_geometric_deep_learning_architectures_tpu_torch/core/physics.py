@@ -8,8 +8,12 @@ Counterpart of the JAX package's ``core/physics.py``:
 * ``sample_initial_conditions`` -- CoM-frame random initial states.
 * ``simulate`` / ``sample_trajectory_batch`` -- B independent trajectories,
   each frame saved *before* stepping, saved force = acc * mass, optional
-  observation noise.  The JAX package nests two ``lax.scan``s; here it is a
-  Python loop over substeps whose every step is a few batched launches.
+  observation noise.  The JAX package nests two ``lax.scan``s; here, on the
+  card, one launch of the integrator K2-leapfrog (``ops/gravity.py``) runs a
+  whole batch where ``integrator_takes`` says so by shape, and elsewhere (N
+  past its shared memory, or sims so large that K2 over the whole card is
+  faster than a cluster of at most 16 blocks a sim) a Python loop runs one
+  K2 launch (and the kicks around it) a substep.  The two give bitwise the same trajectories.
 * ``energies`` -- kinetic / potential / total energy.
 
 Randomness comes from an explicit ``torch.Generator``; it does not give the
@@ -23,7 +27,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..ops.gravity import acceleration
+from ..ops import _build
+from ..ops.gravity import acceleration, integrator_takes, kick_drift_kick, leapfrog, leapfrog_loop
 
 
 class GravityParams(NamedTuple):
@@ -45,12 +50,8 @@ def compute_acceleration(pos: torch.Tensor, mass: torch.Tensor, G, softening) ->
 
 def leapfrog_step(pos, vel, acc, mass, params: GravityParams):
     """One kick-drift-kick step; returns ``(pos, vel, acc)``."""
-    dt = params.dt
-    vel = vel + acc * (dt / 2.0)
-    pos = pos + vel * dt
-    acc = compute_acceleration(pos, mass, params.interaction_strength, params.softening)
-    vel = vel + acc * (dt / 2.0)
-    return pos, vel, acc
+    return kick_drift_kick(pos, vel, acc, mass, params.interaction_strength, params.softening,
+                           params.dt, compute_acceleration)
 
 
 def sample_initial_conditions(
@@ -89,21 +90,16 @@ def simulate(
     Returns ``loc, vel, force [B, T // sample_freq, N, d]``: frame ``k`` is the
     state after ``k * sample_freq`` substeps, and force is ``acc * mass``.
     Observation noise (``params.noise_var``) is drawn from ``generator``.
+    On the card the rule is by shape (``integrator_takes``): the integrator
+    or the loop of K2 launches; on the CPU both compute the plain loop.
     """
-    if T % sample_freq:
-        raise ValueError(f"T={T} is not a multiple of sample_freq={sample_freq}")
-    t_save = T // sample_freq
-    B, N, d = pos.shape
-    loc_s = torch.empty((B, t_save, N, d), dtype=pos.dtype, device=pos.device)
-    vel_s = torch.empty_like(loc_s)
-    force_s = torch.empty_like(loc_s)
-    acc = compute_acceleration(pos, mass, params.interaction_strength, params.softening)
-    for t in range(t_save):
-        loc_s[:, t] = pos
-        vel_s[:, t] = vel
-        force_s[:, t] = acc * mass
-        for _ in range(sample_freq):
-            pos, vel, acc = leapfrog_step(pos, vel, acc, mass, params)
+    args = (pos, vel, mass, T, sample_freq, params.interaction_strength, params.softening,
+            params.dt)
+    if not _build.wants_kernel(pos) or integrator_takes(pos.shape[0], pos.shape[-2],
+                                                         _build.sm_count(pos)):
+        loc_s, vel_s, force_s = leapfrog(*args)
+    else:
+        loc_s, vel_s, force_s = leapfrog_loop(*args, compute_acceleration)
     if params.noise_var:
         for arr in (loc_s, vel_s, force_s):
             noise = torch.randn(arr.shape, dtype=arr.dtype, device=arr.device, generator=generator)

@@ -148,13 +148,15 @@ def bind(lib: ctypes.CDLL) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nbody_gravity_f32.argtypes = [vp, vp, vp, ci, ci, cf, cf, vp]
     lib.nbody_edge_silu_f32.argtypes = [vp, vp, ci, vp]
+    lib.nbody_leapfrog_f32.argtypes = [vp] * 6 + [ci] * 4 + [cf] * 4 + [ci] * 3 + [vp]
     edge = (lib.nbody_egnn_messages_f32, lib.nbody_egnn_messages_bf16)
     stream = (lib.nbody_egnn_stream_f32, lib.nbody_egnn_stream_bf16)
     for fn in edge:
         fn.argtypes = [vp] * 12 + [ci] * 6 + [vp]
     for fn in stream:
         fn.argtypes = [vp] * 15 + [ci] * 8 + [vp]
-    for fn in (lib.nbody_gravity_f32, lib.nbody_edge_silu_f32, *edge, *stream):
+    for fn in (lib.nbody_gravity_f32, lib.nbody_leapfrog_f32, lib.nbody_edge_silu_f32, *edge,
+               *stream):
         fn.restype = ctypes.c_int
 
 
