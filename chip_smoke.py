@@ -58,24 +58,41 @@ bf16, coordinates, geometry and integration in f32):
                    (B=1, 20 substeps; N=8192, above the integrator's shared
                    memory, and N=7264, where the loop is faster): one K2
                    launch a substep, against the plain loop
- 16. bign          bign_bench rows: steps/s and peak memory, dense K1 against
+ 16. train         the trainer on the N=100 study run (EGNN-MC 6 x 128, B=16,
+                   2500 substeps, T=250) resumed from the committed checkpoint
+                   and its AdamW state: two epochs of 20 steps through the dense
+                   autograd edge stage (no K1 launch), then its self-feed
+                   evaluation (249 frames, 6 K1 f32 launches a step) and KS
+                   score; the written checkpoint read back bitwise; one training
+                   step on the card against the same step on the CPU in float64;
+                   step ms, steps/s and peak memory (CUDA events), the split of a
+                   step and its top kernels (torch.profiler)
+ 17. train-n5      the reference default (N=5, B=64, 10000 substeps) from a fresh
+                   initialisation, 50 steps, every loss finite
+ 18. bign          bign_bench rows: steps/s and peak memory, dense K1 against
                    streaming K3, at (N,B) = (256,16), (512,8), (1024,2), (4096,1)
 
 Each phase prints one line with its result and elapsed seconds.  Any failed
 check exits non-zero before the result is printed.  The second-to-last line
-is a JSON object with every kernel's launches on its path, its error against
-the plain version, its time, the plain version's time and its bound; the last
-line is ``{"ok": true, "device": {...}}``.  The script writes only into the
-package's ignored build directory.  It sets ``CUBLAS_WORKSPACE_CONFIG`` so that
+is a JSON object with every kernel's launches on its path (and on the two
+training paths), its error against the plain version, its time, the plain
+version's time and its bound; the last line is ``{"ok": true, "device":
+{...}}``.  The script writes only into the package's ignored build directory
+and, for the training phases, into a temporary working directory that it
+removes.  It sets ``CUBLAS_WORKSPACE_CONFIG`` so that
 the cuBLAS products around the kernels are reproducible too.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import functools
 import json
 import os
+import shutil
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
@@ -105,16 +122,19 @@ K2_RTOL, K2_ATOL = 1e-5, 1e-5
 DT = 0.01  # the datagen's substep (GravityParams, GravityDatasetOtf)
 # K2-leapfrog against the loop of K2 launches: bitwise, at (B, N, substeps, softening)
 INTEGRATE_BITWISE = ((B, N, SUBSTEPS, SOFTENING), (BIG_B, BIG_N, BIG_SUBSTEPS, SOFTENING),
-                     (3, 300, 200, SOFTENING), (16, 100, 200, 0.0), (1, 7264, 20, SOFTENING))
+                     (3, 300, 200, SOFTENING), (16, 100, 200, 0.0), (1, 7264, 20, SOFTENING),
+                     # the trainer's GT: the reference default and the N=100 study run
+                     (64, 5, 10000, SOFTENING), (16, 100, 2500, SOFTENING))
 # ... and against the plain loop over 20 substeps, a frame each, at its launch
 # for (4, 100) and at the two GT shapes: K2's 1e-5 an acceleration, 20 times
 # over, against each output's largest value
 PLAIN_SUBSTEPS, LEAPFROG_RTOL = 20, 20 * K2_RTOL
 PLAIN_SHAPES = ((4, N), (B, N), (BIG_B, BIG_N))
 # GT datagen seconds, both ways: the two paths' GT, the evaluation's T=1000,
-# and one sim at N=4096 and N=7264, the two sides of simulate's rule at B=1
+# one sim at N=4096 and N=7264, the two sides of simulate's rule at B=1, and
+# the reference default's training GT
 DATAGEN_SHAPES = ((B, N, SUBSTEPS), (BIG_B, BIG_N, BIG_SUBSTEPS), (B, N, 10000),
-                  (1, 4096, 200), (1, 7264, 200))
+                  (1, 4096, 200), (1, 7264, 200), (64, 5, 10000))
 # GT through the loop of K2 launches: above the integrator's shared-memory
 # limit, and at the largest N that fits, where simulate's rule takes the loop
 FAR_B, FAR_N, FAR_RULE_N, FAR_SUBSTEPS = 1, 8192, 7264, 20
@@ -133,6 +153,37 @@ PARENT_K1_MS, PARENT_K3_MS = 2.1544, 6.4136
 SILU_RTOL = K1_RTOL / 10
 # hA and hB scaled so that pre-activations pass expf's overflow at -88
 BIG_PRE = 100.0
+
+# the trainer: the N=100 study run that made the committed checkpoint (README
+# of docs/results/fidelity_n100, section 3: B=16, sim_length 2500, T=250),
+# resumed from it for two epochs of 20 steps, then scored over 249 frames.
+# It resumes from a copy in its temporary directory: a resumed run links
+# itself into the checkpoint's folder (``restoring/``), which is in the tree
+STUDY_ARGV = ["--dataloader.batch_size", "16",
+              "--dataloader.gravity_dataset.num_atoms", "100",
+              "--dataloader.gravity_dataset.sim_length", "2500",
+              "--trainer.steps_per_epoch", "20", "--trainer.train_steps", "32",
+              "--trainer.save_model_every", "1", "--trainer.test_macros_every", "1000",
+              "--trainer.self_feed_limit_steps", "249", "--dataloader.seed", "0",
+              "--trainer.run_name", "study_n100"]
+STUDY_EPOCHS, STUDY_STEPS = 2, 20
+# the reference default (default_config.yaml: N=5, B=64, sim_length 10000) from
+# a fresh initialisation: 5 epochs of 10 steps
+N5_ARGV = ["--trainer.steps_per_epoch", "10", "--trainer.train_steps", "5",
+           "--trainer.save_model_every", "5", "--trainer.test_macros_every", "1000",
+           "--trainer.seed", "0", "--dataloader.seed", "0", "--trainer.run_name", "n5"]
+N5_EPOCHS, N5_STEPS = 5, 10
+# one training step on the card (f32) against the same step on the CPU in
+# float64, from the checkpoint's parameters and AdamW state, on the first
+# TRAIN_CMP_B sims of one batch.  The parameters after the step: each tensor
+# within 1e-4 of its largest value (f32 holds 6e-8; the f32 gradient's error,
+# ~1e-5 relative through 6 layers of 100-sender sums, enters the update at
+# the learning rate, ~2.6e-4 at count 30000).  The update itself (parameters
+# after minus before): within 2e-2 of each tensor's largest update, the f32
+# rounding of the parameters being up to ~2.4e-3 of an update of 2.6e-4 x
+# the ratio of Adam's moments.
+TRAIN_CMP_B, TRAIN_PARAM_RTOL, TRAIN_UPDATE_RTOL = 4, 1e-4, 2e-2
+TIMED_STEPS = 10
 
 # H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, dense bf16 on the tensor
 # cores, HBM3 bandwidth
@@ -187,6 +238,10 @@ def main() -> None:
         macros = importlib.import_module(f"{PKG}.metrics.macros")
         ks = importlib.import_module(f"{PKG}.metrics.ks")
         weights = importlib.import_module(f"{PKG}.weights")
+        trainer_mod = importlib.import_module(f"{PKG}.train.trainer")
+        config_mod = importlib.import_module(f"{PKG}.utils.config")
+        artifacts = importlib.import_module(f"{PKG}.metrics.artifacts")
+        cli = importlib.import_module(f"{PKG}.cli")
     except ImportError as e:
         fail(f"the port's package is not importable from {REPO}: {e}")
     if not os.path.exists(CKPT):
@@ -875,7 +930,275 @@ def main() -> None:
            leapfrog_launches=far_counts[FAR_N]["leapfrog"] + far_counts[FAR_RULE_N]["leapfrog"],
            max_abs_err_vs_plain=f"{far_err:.3e}", rtol=LEAPFROG_RTOL)
 
-    # --------------------------------------------------------------- 16. bign
+    # ------------------------------------------------------------- 16. train
+    # the trainer's path: create_trainer_from_args and Trainer.train(), in a
+    # temporary working directory (runs/ and saved_simulations/ land there)
+
+    def train_run(argv, tag: str, epochs: int, steps: int) -> dict:
+        """Build the trainer from ``argv`` and train it, counted: its first GT
+        batch through one K2-leapfrog launch, the steps through no kernel.
+        Returns the trainer, each step's loss and the counts."""
+        args, resolved = config_mod.parse_args(argv)
+        cli.set_seed(args.seed)
+        reset_counts()
+        t = time.perf_counter()
+        trainer = trainer_mod.create_trainer_from_args(args, resolved_config=resolved, device=dev)
+        sync()
+        init_s, init_counts = time.perf_counter() - t, counts()
+        want = dict.fromkeys(counters, 0)
+        want["leapfrog"] = 1  # the first training GT batch, drawn by the constructor
+        if init_counts != want:
+            fail(f"{tag}: the trainer's construction launched {init_counts}, want {want}")
+        losses = []
+        step = trainer._train_step
+
+        def recorded(scene, y):
+            vec = step(scene, y)
+            losses.append(vec[0])
+            return vec
+
+        trainer._train_step = recorded
+        count0 = trainer.optim.count
+        reset_counts()
+        t = time.perf_counter()
+        trainer.train()
+        sync()
+        train_s, train_counts = time.perf_counter() - t, counts()
+        trainer._train_step = step
+        # GT batches drawn while training: PREFETCH frame pairs at a time, the
+        # constructor's draw and every step's, T - 1 pairs a batch
+        pairs = trainer.dataset.sim_length // trainer.dataset.sample_freq - 1
+        prefetch = trainer.dataset.PREFETCH
+        drawn = -(-(1 + epochs * steps) // prefetch) * prefetch
+        want = dict.fromkeys(counters, 0)
+        want["leapfrog"] = -(-drawn // pairs) - 1
+        if train_counts != want:
+            fail(f"{tag}: training launched {train_counts}, want {want} (the dense edge stage "
+                 "launches no edge kernel, and new GT batches one K2-leapfrog each)")
+        losses = torch.stack(losses).cpu()
+        if len(losses) != epochs * steps or not torch.isfinite(losses).all():
+            fail(f"{tag}: {len(losses)} step losses, finite: {bool(torch.isfinite(losses).all())}")
+        with open(os.path.join(trainer.save_dir_path, "metrics.jsonl")) as f:
+            epoch_losses = [r["train/loss"] for r in map(json.loads, f) if "train/loss" in r]
+        if len(epoch_losses) != epochs or not all(np.isfinite(epoch_losses)):
+            fail(f"{tag}: epoch losses {epoch_losses}")
+        if trainer.optim.count != count0 + epochs * steps:
+            fail(f"{tag}: AdamW took {trainer.optim.count - count0} updates, want {epochs * steps}")
+        c = trainer.optim.count
+        a = args
+        noam = a.learning_rate * a.learning_rate_factor * trainer.model.get_model_size() ** -0.5 \
+            * min(c ** -0.5, c * a.learning_rate_warmup_steps ** -1.5)
+        lr = float(trainer.optim.lr)
+        if not abs(lr - noam) <= 1e-6 * noam:
+            fail(f"{tag}: learning rate {lr} after {c} updates, the Noam formula gives {noam}")
+        ckpt = os.path.join(trainer.save_dir_path, "model.ckpt")
+        back = weights.params_from_jax(weights.read_jax_checkpoint(ckpt))
+        if not all(torch.equal(back[k], v.cpu()) for k, v in trainer.model.state_dict().items()):
+            fail(f"{tag}: {ckpt} does not read back bitwise through params_from_jax")
+        return dict(trainer=trainer, args=args, losses=losses, epoch_losses=epoch_losses,
+                    init_s=init_s, train_s=train_s, count0=count0, count=c, lr=lr, noam=noam,
+                    counts={k: init_counts[k] + train_counts[k] for k in counters})
+
+    def time_steps(trainer, scene, y) -> dict:
+        """ms a training step (CUDA events over TIMED_STEPS steps after a warm-up
+        step) and the peak memory above what was allocated before them."""
+        trainer._train_step(scene, y)
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        start_bytes = torch.cuda.memory_allocated(dev)
+        ms = cuda_ms(lambda: trainer._train_step(scene, y), iters=TIMED_STEPS, warmup=0)
+        peak = torch.cuda.max_memory_allocated(dev)
+        return dict(ms=ms, steps_per_s=1e3 / ms, peak_mib=peak / 2**20,
+                    peak_above_start_mib=(peak - start_bytes) / 2**20)
+
+    def step_split(trainer, scene, y) -> dict:
+        """One step cut at its forward (featurise, model, loss), backward and
+        update, by CUDA events around each, averaged over TIMED_STEPS steps."""
+        model, optim, loss_fn = trainer.model, trainer.optim, trainer.loss_fn
+        mask = graph.knn_mask(scene.pos, trainer.num_neighbors)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        split = np.zeros(3)
+        for _ in range(TIMED_STEPS):
+            ev[0].record()
+            loss, _ = loss_fn(model(scene, mask, edge_impl="dense"), scene, y)
+            ev[1].record()
+            optim.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            ev[2].record()
+            optim.update()
+            ev[3].record()
+            ev[3].synchronize()
+            split += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+        return dict(zip(("forward_ms", "backward_ms", "update_ms"), split / TIMED_STEPS))
+
+    def top_kernels(trainer, scene, y, n: int = 6):
+        """``(device busy ms a step, its top kernels)`` over 3 steps, from
+        torch.profiler's kernel events (user annotations left out), or None and
+        why there is no such list."""
+        try:
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(3):
+                    trainer._train_step(scene, y)
+                sync()
+            by_name = collections.Counter()
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
+                    by_name[e.name] += e.time_range.elapsed_us()
+            total = sum(by_name.values())
+            if not total:
+                return None, "not measured (the profiler saw no kernel)"
+            top = "; ".join(f"{k[:56]} {v / total:.1%}" for k, v in by_name.most_common(n))
+            return total / 3e3, top
+        except Exception as e:  # a profiler that cannot trace the card fails no phase
+            return None, f"not measured ({type(e).__name__}: {e})"
+
+    def busy_share(busy_ms, step_ms) -> str:
+        if busy_ms is None:
+            return "not measured"
+        return f"{busy_ms:.3f} ms of {step_ms:.3f} ms a step (idle share {1 - busy_ms / step_ms:.1%})"
+
+    t0 = time.perf_counter()
+    train_counts = {}
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        resume = ["--trainer.model_path", shutil.copy(CKPT, tmp)]
+        run = train_run(resume + STUDY_ARGV, "train", STUDY_EPOCHS, STUDY_STEPS)
+        trainer = run["trainer"]
+        ckpt_count = run["count0"]
+        if run["count"] != ckpt_count + STUDY_EPOCHS * STUDY_STEPS or trainer.step_count != 32:
+            fail(f"train: resumed at count {ckpt_count}, epoch {trainer.step_count}")
+        train_counts["train"] = run["counts"]
+        # the evaluation, called directly (train() swallows an evaluation failure)
+        gt_s = []
+        get_gt = trainer.dataset.get_ground_truth_trajectories
+
+        def timed_gt(batch_size=None):
+            t = time.perf_counter()
+            out = get_gt(batch_size)
+            sync()
+            gt_s.append(time.perf_counter() - t)
+            return out
+
+        trainer.dataset.get_ground_truth_trajectories = timed_gt
+        roll_s = []
+        run_self_feed = trainer_mod.run_self_feed
+
+        def timed_rollout(*a, **k):
+            t = time.perf_counter()
+            out = run_self_feed(*a, **k)
+            sync()
+            roll_s.append(time.perf_counter() - t)
+            return out
+
+        reset_counts()
+        t = time.perf_counter()
+        with mock.patch.object(trainer_mod, "run_self_feed", timed_rollout):
+            survived = trainer.run_self_feed_eval()
+        sync()
+        eval_s, eval_counts = time.perf_counter() - t, counts()
+        trainer.dataset.get_ground_truth_trajectories = get_gt
+        frames = int(STUDY_ARGV[STUDY_ARGV.index("--trainer.self_feed_limit_steps") + 1])
+        want = dict.fromkeys(counters, 0)
+        want["k1"], want["leapfrog"] = LAYERS * (frames - 1), 1
+        if eval_counts != want:
+            fail(f"train: the evaluation launched {eval_counts}, want {want}")
+        train_counts["train_eval"] = eval_counts
+        eval_dir = os.path.join(trainer.save_dir_path, "checkpoints", str(trainer.step_count))
+        read = artifacts.read_macro_jsons(eval_dir)
+        per, macro_p = ks.macro_ks_pvalues({k: v["ground truth"] for k, v in read.items()},
+                                           {k: v["predicted"] for k, v in read.items()})
+        with open(os.path.join(eval_dir, "nbody_macro_metrics.json")) as f:
+            energy_p = json.load(f)["ks_pvalues"]["combined"]
+        if not (0 <= survived <= frames - 1 and 0 < macro_p <= 1 and 0 < energy_p <= 1):
+            fail(f"train: survived {survived}, macro combined p {macro_p}, energy p {energy_p}")
+        rollout_s = roll_s[0] - gt_s[0]
+        # one fixed batch for the timings and the card-against-CPU step
+        scene, y = trainer.dataset.get_batch()
+        timing = time_steps(trainer, scene, y)
+        split = step_split(trainer, scene, y)
+        busy_ms, kernels_top = top_kernels(trainer, scene, y)
+
+        # one step on the card against the same step on the CPU in float64
+        payload = weights.read_checkpoint(CKPT)
+        sub = (Scene(*(t_[:TRAIN_CMP_B] for t_ in (scene.pos, scene.vel, scene.force,
+                                                  scene.mass))), y[:TRAIN_CMP_B])
+        after = []
+        for where, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
+            m = models.create_model("egnn_mc", device=where, dtype=dtype)
+            o = trainer_mod.create_optimizer(m.parameters(), learning_rate=run["args"].learning_rate,
+                                             model_size=m.get_model_size(),
+                                             factor=run["args"].learning_rate_factor,
+                                             warmup=run["args"].learning_rate_warmup_steps)
+            trainer_mod.load_training_state(m, o, payload)
+            before = {k: v.detach().cpu().double().clone() for k, v in m.state_dict().items()}
+            step_fn, _ = trainer_mod.make_train_step(m, o, trainer.loss_fn, trainer.targets,
+                                                     N - 1, dtype)
+            vec = step_fn(Scene(*(t_.to(where) for t_ in (sub[0].pos, sub[0].vel, sub[0].force,
+                                                          sub[0].mass))), sub[1].to(where))
+            if not torch.isfinite(vec).all():
+                fail(f"train: the {where} step's metrics are not finite")
+            after.append(({k: v.detach().cpu().double() for k, v in m.state_dict().items()},
+                          before, float(vec[0])))
+        (card_p, card_b, card_loss), (cpu_p, cpu_b, cpu_loss) = after
+        p_err = up_err = 0.0
+        for k, want_p in cpu_p.items():
+            e = (card_p[k] - want_p).abs().max().item() / want_p.abs().max().item()
+            du = (cpu_p[k] - cpu_b[k]).abs().max().item()
+            u = ((card_p[k] - card_b[k]) - (cpu_p[k] - cpu_b[k])).abs().max().item() / du
+            if not (e <= TRAIN_PARAM_RTOL and u <= TRAIN_UPDATE_RTOL):
+                fail(f"train: after one step, {k} on the card differs from the CPU float64 step "
+                     f"by {e:.3e} of its largest value and its update by {u:.3e} of the largest "
+                     f"update (limits {TRAIN_PARAM_RTOL}, {TRAIN_UPDATE_RTOL})")
+            p_err, up_err = max(p_err, e), max(up_err, u)
+        del trainer, run["trainer"], payload, after
+    study_s = time.perf_counter() - t0
+    print(f"  train: {STUDY_EPOCHS} epochs x {STUDY_STEPS} steps, losses "
+          f"{' '.join(f'{x:.5f}' for x in run['epoch_losses'])}; AdamW count "
+          f"{run['count0']} -> {run['count']}, lr {run['lr']:.6e} (Noam {run['noam']:.6e})",
+          flush=True)
+    print(f"  train: step split {' '.join(f'{k}={v:.3f}' for k, v in split.items())}", flush=True)
+    print(f"  train: device busy {busy_share(busy_ms, timing['ms'])}; top kernels: {kernels_top}",
+          flush=True)
+    print(f"  train: one step, card f32 vs CPU f64 on {TRAIN_CMP_B} sims: loss {card_loss:.8f} / "
+          f"{cpu_loss:.8f}, params max rel err {p_err:.3e} (limit {TRAIN_PARAM_RTOL}), update "
+          f"max rel err {up_err:.3e} (limit {TRAIN_UPDATE_RTOL})", flush=True)
+    report("train", t0, study_s, B=16, N=N, layers=LAYERS, width=WIDTH,
+           steps=STUDY_EPOCHS * STUDY_STEPS, k1_launches_training=train_counts["train"]["k1"],
+           leapfrog_launches_training=train_counts["train"]["leapfrog"],
+           train_s=f"{run['train_s']:.3f}", ms_per_step=f"{timing['ms']:.3f}",
+           steps_per_s=f"{timing['steps_per_s']:.2f}", peak_mib=f"{timing['peak_mib']:.1f}",
+           peak_above_start_mib=f"{timing['peak_above_start_mib']:.1f}",
+           eval_s=f"{eval_s:.3f}", eval_rollout_steps=frames - 1,
+           eval_k1_launches=eval_counts["k1"],
+           eval_rollout_steps_per_s=f"{(frames - 1) / rollout_s:.2f}",
+           gt_s=f"{gt_s[0]:.4f}", survived=survived, macro_combined_p=f"{macro_p:.3e}",
+           energy_combined_p=f"{energy_p:.3e}", cmp_param_err=f"{p_err:.3e}",
+           cmp_update_err=f"{up_err:.3e}")
+
+    # ---------------------------------------------------------- 17. train-n5
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        run = train_run(N5_ARGV, "train-n5", N5_EPOCHS, N5_STEPS)
+        trainer = run["trainer"]
+        train_counts["train_n5"] = run["counts"]
+        scene, y = trainer.dataset.get_batch()
+        timing_n5 = time_steps(trainer, scene, y)
+        split_n5 = step_split(trainer, scene, y)
+        busy_n5, top_n5 = top_kernels(trainer, scene, y)
+        del trainer, run["trainer"]
+    print(f"  train-n5: step split {' '.join(f'{k}={v:.3f}' for k, v in split_n5.items())}; "
+          f"device busy {busy_share(busy_n5, timing_n5['ms'])}; top kernels: {top_n5}",
+          flush=True)
+    first10, last10 = run["losses"][:10].mean().item(), run["losses"][-10:].mean().item()
+    report("train-n5", t0, B=64, N=5, layers=LAYERS, width=WIDTH,
+           steps=N5_EPOCHS * N5_STEPS, loss_first10=f"{first10:.5f}",
+           loss_last10=f"{last10:.5f}", k1_launches=run["counts"]["k1"],
+           leapfrog_launches=run["counts"]["leapfrog"], train_s=f"{run['train_s']:.3f}",
+           ms_per_step=f"{timing_n5['ms']:.3f}", steps_per_s=f"{timing_n5['steps_per_s']:.2f}",
+           peak_mib=f"{timing_n5['peak_mib']:.1f}",
+           peak_above_start_mib=f"{timing_n5['peak_above_start_mib']:.1f}")
+
+    # --------------------------------------------------------------- 18. bign
     t0 = time.perf_counter()
     state = bign_bench.seeded_state(2)
     rows = []
@@ -985,6 +1308,16 @@ def main() -> None:
             "bound_by": k3b_by,
             "library_ms": None,
         })
+    # each kernel's launches on the training paths: [train]'s training (its
+    # first GT batch included), [train]'s evaluation, and [train-n5]
+    counter_of = {"egnn_messages (K1)": "k1", "gravity (K2)": "k2",
+                  "gravity leapfrog (K2-leapfrog)": "leapfrog", "egnn_stream (K3)": "k3",
+                  "egnn_messages bf16 (K1-bf16)": "k1_bf16",
+                  "egnn_stream bf16 (K3-bf16)": "k3_bf16",
+                  "egnn_stream elem_bf16 (K3-elem)": "k3_elem"}
+    for entry in kernels:
+        entry["launches_train"] = {path: c[counter_of[entry["name"]]]
+                                   for path, c in train_counts.items()}
     print(f"total {time.perf_counter() - T_START:.2f} s on {card}", flush=True)
     print(json.dumps({"bign": rows}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,7 +14,8 @@ Counterpart of the JAX package's ``core/physics.py``:
   past its shared memory, or sims so large that K2 over the whole card is
   faster than a cluster of at most 16 blocks a sim) a Python loop runs one
   K2 launch (and the kicks around it) a substep.  The two give bitwise the same trajectories.
-* ``energies`` -- kinetic / potential / total energy.
+* ``energies`` -- kinetic / potential / total energy; ``energy_series`` --
+  their batch means per frame, for rollout scoring.
 
 Randomness comes from an explicit ``torch.Generator``; it does not give the
 numbers ``jax.random`` gives for the same seed, so the parity tests feed both
@@ -23,8 +24,9 @@ packages the same initial states.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ops import _build
@@ -143,3 +145,16 @@ def energies(pos, vel, mass, G, softening):
     mm = mass[..., :, 0, None] * mass[..., None, :, 0]
     pe = G * torch.sum(torch.where(iu, -mm * inv_r, torch.zeros_like(inv_r)), dim=(-1, -2))
     return ke, pe, ke + pe
+
+
+def energy_series(loc, vel, G, softening) -> Dict[str, np.ndarray]:
+    """Per-frame batch-mean energies for rollout scoring: unit masses, ``loc,
+    vel [B, T, N, 3]`` (tensors or arrays) -> ``potential``, ``kinetic`` and
+    ``total``, each a float64 ``[T]`` array.  The energies are computed in the
+    input's dtype and averaged over sims in float64, as the JAX package does."""
+    loc, vel = torch.as_tensor(loc), torch.as_tensor(vel)
+    mass = torch.ones(loc.shape[:-1] + (1,), dtype=loc.dtype, device=loc.device)
+    ke, pe, _ = energies(loc, vel, mass, G, softening)  # [B, T]
+    ke = ke.cpu().numpy().astype(np.float64).mean(axis=0)
+    pe = pe.cpu().numpy().astype(np.float64).mean(axis=0)
+    return {"potential": pe, "kinetic": ke, "total": pe + ke}

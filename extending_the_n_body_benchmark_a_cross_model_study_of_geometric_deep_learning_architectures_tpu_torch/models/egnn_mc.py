@@ -4,15 +4,22 @@ Counterpart of the JAX package's ``models/egnn_mc.py``, in its dense and its
 streaming form.  Featurisation (node features ``[|v|, m]``, edge attrs
 ``[m_i m_j, v_i . r_hat, v_j . r_hat, d^2]``) runs inside ``forward``.
 
-Each layer's edge stage goes through one kernel wrapper, which on a CPU tensor
-computes the dense masked-mean formula instead:
+Each layer's edge stage runs one of three ways:
 
-* dense (default): ``ops.egnn_messages.fused_egnn_messages``, kernel K1, fed
-  the ``[B, N, N, 8]`` geometry that ``featurize`` and ``edge_inputs`` build;
+* ``edge_impl="kernel"`` (default): ``ops.egnn_messages.fused_egnn_messages``,
+  kernel K1, fed the ``[B, N, N, 8]`` geometry that ``featurize`` and
+  ``edge_inputs`` build (on a CPU tensor the wrapper computes the dense
+  masked-mean formula instead);
 * ``streaming=True``: ``ops.egnn_stream.streaming_egnn_messages``, kernel K3,
   which computes the geometry itself from the scene's ``pos``, ``vel`` and
   ``mass`` and the layer's coordinates, so no ``[B, N, N, *]`` tensor but the
-  mask exists: the single-card path for large N.
+  mask exists: the single-card path for large N;
+* ``edge_impl="dense"``: :meth:`EGNNBlock.dense_edge_stage`, the JAX model's
+  own XLA edge stage (``use_pallas=False``, ``models/egnn_mc.py:141-201``)
+  written in torch ops on any device.  It materialises the ``[B, N, N, He]``
+  messages and autograd differentiates it: the kernels have no backward, so
+  training runs it (``forward(..., edge_impl="dense")``).  Streaming has no
+  dense form: the JAX model streams only through its kernel.
 
 Both share one parameter tree.  The first edge matmul is decomposed over the
 concat ``[h_i, h_j, d^2, e_ij]`` into per-node projections ``hA``/``hB`` plus
@@ -25,16 +32,20 @@ edge kernels run their bf16 forms; coordinates, geometry, ``trans`` and the
 heads stay float32.  ``stream_elem_bf16`` runs the streaming kernel's
 elementwise stack in bf16.
 
-Not ported yet, and refused: ``body_ring`` (multi-GPU), ``fc_fast`` and
-``remat``.
+``remat=True`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``, the JAX model's ``nn.remat`` of its scanned
+block): the same numbers for less activation memory.
+
+Not ported yet, and refused: ``body_ring`` (multi-GPU) and ``fc_fast``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core import graph as G
 from ..core.scene import Scene
@@ -43,14 +54,16 @@ from ..ops import egnn_stream as ES
 from .common import (
     MLP,
     TorchLinear,
+    get_activation,
     torch_bias_init_for,
     torch_kernel_init,
     xavier_uniform_gain,
 )
 
+EDGE_IMPLS = ("kernel", "dense")
+
 _LATER = {
     "fc_fast": "ROADMAP.md, queue 1 (fc_fast dense path)",
-    "remat": "ROADMAP.md, queue 1 (training)",
     "body_ring": "ROADMAP.md, queue 1 (multi-GPU)",
 }
 
@@ -88,7 +101,7 @@ class EGNNBlock(nn.Module):
         self.coord_b1 = param((Hc,), torch_bias_init_for(He))
         self.coord_w2 = param((Hc, 1), xavier_uniform_gain(0.001))
         self.vel_mlp = MLP(H, [Hc], 1, activation)  # velocity gate
-        self.node_mlp = MLP(2 * H, [H], H, activation)
+        self.node_mlp = MLP(H + He, [H], H, activation)  # on [h, agg]
         self.hidden_node_dim = H
         self.activation = activation
         self.coords_weight = coords_weight
@@ -123,11 +136,31 @@ class EGNNBlock(nn.Module):
              self.coord_w1, self.coord_b1, self.coord_w2[:, 0])
         return w if dtype is None else tuple(t.to(dtype) for t in w)
 
-    def forward(self, h, coord, velocity, edge_attr, mask) -> Tuple[torch.Tensor, torch.Tensor]:
+    def dense_edge_stage(self, h, coord, edge_attr, mask) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The JAX model's XLA edge stage (``models/egnn_mc.py:141-201``) in torch
+        ops, differentiable: ``(agg [B,N,He], trans [B,N,3])``, the masked means
+        over senders of the messages and of the clipped coordinate terms."""
+        act = get_activation(self.activation)
+        hA, hB, geom = self.edge_inputs(h, coord, edge_attr)
+        w_geom, W2, b2, Wc1, bc1, wc2 = self.edge_weights(h.dtype)
+        g_term = geom[..., :5].to(h.dtype) @ w_geom  # [d2, edge_attr] @ W1[2H:]
+        m_ij = act(act(hA[:, :, None, :] + hB[:, None, :, :] + g_term) @ W2 + b2)
+        w = act(m_ij @ Wc1 + bc1) @ wc2  # [B,N,N], a scalar weight per edge
+        if self.tanh:
+            w = torch.tanh(w)
+        # the coordinate update stays in the coordinates' dtype
+        trans = torch.clamp(w[..., None].to(coord.dtype) * geom[..., 5:], -100.0, 100.0)
+        return G.masked_segment_mean(m_ij, mask), G.masked_segment_mean(trans, mask)
+
+    def forward(self, h, coord, velocity, edge_attr, mask,
+                edge_impl: str = "kernel") -> Tuple[torch.Tensor, torch.Tensor]:
         """``h [B,N,H]``, ``coord``/``velocity [B,N,3]``, ``mask [B,N,N]``, and
         ``edge_attr [B,N,N,E]`` -- or, under ``streaming``, the scene's
-        ``(pos [B,N,3], mass [B,N,1])`` -> ``(h, coord)``."""
-        if self.streaming:
+        ``(pos [B,N,3], mass [B,N,1])`` -> ``(h, coord)``.  ``edge_impl`` picks
+        the dense edge stage's form (``"kernel"`` or ``"dense"``)."""
+        if edge_impl == "dense":
+            agg, trans = self.dense_edge_stage(h, coord, edge_attr, mask)
+        elif self.streaming:
             pos0, mass = edge_attr
             hA, hB = self.node_terms(h)
             agg, trans = ES.streaming_egnn_messages(
@@ -155,6 +188,8 @@ class EGNNMC(nn.Module):
     """Embedding, ``num_layers`` blocks and one vector head per target.
 
     ``forward(scene, mask) -> [B, N, 3 * num_targets]`` (pos_dt | vel).
+    ``edge_impl`` is the edge stage's form (``"kernel"`` or ``"dense"``), which
+    ``forward(..., edge_impl=...)`` overrides for one call.
     ``pallas_tile`` and ``stream_tile_j`` are the JAX model's TPU tile sizes,
     taken for its signature's sake; they change nothing here.
     """
@@ -181,16 +216,21 @@ class EGNNMC(nn.Module):
         fc_fast: bool = False,
         remat: bool = False,
         compute_dtype: str = "",
+        edge_impl: str = "kernel",
     ):
         super().__init__()
-        for name, value in (("body_ring", body_ring), ("fc_fast", fc_fast), ("remat", remat)):
+        self.init_kwargs = {k: v for k, v in locals().items()
+                            if k not in ("self", "__class__")}
+        for name, value in (("body_ring", body_ring), ("fc_fast", fc_fast)):
             if value:
                 raise NotImplementedError(f"EGNNMC({name}=...) is not ported yet: {_LATER[name]}")
         if compute_dtype not in ("", "float32", "bfloat16"):
             raise ValueError(f"compute_dtype {compute_dtype!r}: '', 'float32' or 'bfloat16'")
+        self.streaming = streaming
+        self.edge_impl = self._check_impl(edge_impl)
         H = hidden_node_dim
         self.hidden_node_dim = H
-        self.streaming = streaming
+        self.remat = remat
         self.compute_dtype = getattr(torch, compute_dtype) if compute_dtype else None
         self.embedding = TorchLinear(node_input_dim, H)
         self.layers = nn.ModuleList(
@@ -216,7 +256,17 @@ class EGNNMC(nn.Module):
         mass_prod = scene.mass[:, :, None, :] * scene.mass[:, None, :, :]
         return x, torch.cat([mass_prod, proj_i, proj_j, dist_sq], dim=-1)
 
-    def forward(self, scene: Scene, mask: torch.Tensor) -> torch.Tensor:
+    def _check_impl(self, edge_impl: str) -> str:
+        if edge_impl not in EDGE_IMPLS:
+            raise ValueError(f"edge_impl {edge_impl!r}: one of {EDGE_IMPLS}")
+        if edge_impl == "dense" and self.streaming:
+            raise ValueError("streaming=True runs only through its kernel (edge_impl='kernel'), "
+                             "as the JAX model streams only through its Pallas kernel")
+        return edge_impl
+
+    def forward(self, scene: Scene, mask: torch.Tensor,
+                edge_impl: Optional[str] = None) -> torch.Tensor:
+        impl = self.edge_impl if edge_impl is None else self._check_impl(edge_impl)
         if self.streaming:  # the edge kernel featurises from the O(N) node data
             speed = torch.linalg.vector_norm(scene.vel, dim=-1, keepdim=True)
             x, edge_attr = torch.cat([speed, scene.mass], dim=-1), (scene.pos, scene.mass)
@@ -228,7 +278,11 @@ class EGNNMC(nn.Module):
         coord = scene.pos
         maskf = mask.to(scene.dtype)  # converted once for all layers
         for layer in self.layers:
-            h, coord = layer(h, coord, scene.vel, edge_attr, maskf)
+            if self.remat and torch.is_grad_enabled():
+                h, coord = checkpoint(layer, h, coord, scene.vel, edge_attr, maskf, impl,
+                                      use_reentrant=False)
+            else:
+                h, coord = layer(h, coord, scene.vel, edge_attr, maskf, impl)
         head_in = torch.cat([h.to(coord.dtype), coord - scene.pos, scene.vel], dim=-1)
         return torch.cat([head(head_in) for head in self.heads], dim=-1)
 

@@ -84,13 +84,21 @@ def run_self_feed(
     num_steps: Optional[int] = None,
     num_neighbors: Optional[int] = None,
     batch_size: Optional[int] = None,
+    train_mode: bool = False,
+    rng=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """Checkpoint evaluation against fresh ground truth: draw GT trajectories,
     seed the model with frame 0 and roll forward.
 
+    ``train_mode`` rolls out with the model in training mode (``model.train()``,
+    else ``model.eval()``), as the JAX package's rollout does with live dropout;
+    EGNN-MC has no dropout, so its numbers do not change.  ``rng`` is the JAX
+    package's dropout key, taken for its signature's sake.
+
     Returns ``(loc_actual, vel_actual, loc_pred, vel_pred, steps_survived)``
     with ``[B, T, N, 3]`` tensors and the minimum over sims of ``survived``.
     """
+    model.train(train_mode)
     loc_gt, vel_gt, force_gt, mass = dataset.get_ground_truth_trajectories(batch_size)
     T = int(loc_gt.shape[1])
     if num_steps is not None and 0 < num_steps < T:

@@ -1,0 +1,487 @@
+"""The training loop on one device: counterpart of the JAX package's
+``train/trainer.py``.
+
+A training step featurises, runs the model through its dense edge stage
+(``edge_impl="dense"``, which autograd differentiates: the edge kernels have no
+backward, and the JAX trainer differentiates its own XLA edge stage too), takes
+the loss, backward, and one update of AdamW under the Noam schedule
+(``train.optim``).  Nothing in it waits on the device: the step's metric
+vector stays there, and an epoch fetches its steps' vectors once.  Every
+``test_macros_every`` epochs the run scores itself: a self-feed rollout through
+the model's configured edge stage (kernel K1 on the card) under
+``torch.no_grad()``, then the macro and energy KS tests, with the JAX
+package's run-dir artifacts.
+
+Epochs, metric names, checkpoints, crash handling and the run-dir layout
+(``runs/<model>/<timestamp>[__<run_name>]``) are the JAX trainer's.  Not ported
+yet, and refused: the multi-device mesh, PONITA's calibration and the
+per-layer debug statistics.  On the card the edge kernel K1 and the GT
+integrator compute float32 (K1 also bf16 operands in the mixed model), so a
+``double``, ``bfloat16`` or ``autocast`` run there needs the model's
+``edge_impl="dense"``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import datetime
+import json
+import os
+import time
+import traceback
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..core import graph as G
+from ..core.physics import energy_series
+from ..core.scene import Scene
+from ..data.gravity_otf import GravityDatasetOtf
+from ..metrics import artifacts
+from ..metrics.ks import fisher_combine, ks_p
+from ..models import create_model
+from ..ops import _build
+from ..rollout.self_feed import run_self_feed
+from ..utils.config import namespace_to_dict, save_config
+from ..weights import opt_state_from_jax, params_from_jax, params_to_jax
+from .checkpoint import load_checkpoint, save_checkpoint
+from .logging_utils import MetricsLogger, RunningMean
+from .losses import build_loss_fn, percentage_errors
+from .optim import NoamAdamW, create_optimizer
+
+ENERGY_ERROR_THRESHOLDS = [2.5, 5]
+
+# the JAX matmul precisions that let a GPU's float32 products drop to TF32
+TF32_PRECISIONS = ("default", "fastest", "high", "tensorfloat32", "bfloat16", "bfloat16_3x")
+
+
+def resolve_dtype(precision_mode: str) -> torch.dtype:
+    """The compute dtype of a ``precision_mode``; ``autocast`` computes in bf16
+    as the JAX package's does."""
+    return {
+        "double": torch.float64,
+        "single": torch.float32,
+        "bfloat16": torch.bfloat16,
+        "autocast": torch.bfloat16,
+    }[precision_mode]
+
+
+def set_matmul_precision(precision: Optional[str]) -> None:
+    """TF32 on for the matmul precisions that allow it, off otherwise (the
+    ``float32`` default and None): process-global, as JAX's setting is."""
+    allow = precision in TF32_PRECISIONS
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    torch.backends.cudnn.allow_tf32 = allow
+
+
+@contextlib.contextmanager
+def matmul_precision(precision: Optional[str]):
+    """``set_matmul_precision(precision)`` inside the block when it is given."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    if precision:
+        set_matmul_precision(precision)
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _cast(scene: Scene, dtype: torch.dtype) -> Scene:
+    return Scene(*(t.to(dtype) for t in (scene.pos, scene.vel, scene.force, scene.mass)))
+
+
+def make_train_step(model, optim: NoamAdamW, loss_fn, targets, num_neighbors: int,
+                    dtype: torch.dtype, abort_on_nan: bool = False):
+    """``(step, metric_names)``: ``step(scene, y)`` takes one optimizer step
+    through the dense edge stage and returns the metric vector ``[loss,
+    *sorted(terms), *sorted(percentage errors)]`` (float32, on the device);
+    ``metric_names`` fills at the first call.  ``abort_on_nan`` skips an update
+    whose prediction is not finite, decided on the device."""
+    metric_names: list = []
+
+    def step(scene: Scene, y: torch.Tensor) -> torch.Tensor:
+        scene, y = _cast(scene, dtype), y.to(dtype)
+        model.train()
+        pred = model(scene, G.knn_mask(scene.pos, num_neighbors), edge_impl="dense")
+        loss, terms = loss_fn(pred, scene, y)
+        optim.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optim.update(torch.isfinite(pred).all() if abort_on_nan else None)
+        with torch.no_grad():
+            perc = percentage_errors(pred, y, targets)
+            vec = torch.stack([loss.float()] + [terms[n].float() for n in sorted(terms)]
+                              + [perc[n].float() for n in sorted(perc)])
+        if not metric_names:
+            metric_names.extend(["loss"] + sorted(terms) + sorted(perc))
+        return vec
+
+    return step, metric_names
+
+
+def load_training_state(model, optim: NoamAdamW, payload) -> None:
+    """A checkpoint payload's parameters and AdamW state into ``model`` and
+    ``optim``, the JAX package's or the port's."""
+    model.load_state_dict(params_from_jax(payload["params"]))
+    adam = opt_state_from_jax(payload["opt_state"])
+    if adam is not None:
+        count, mu, nu = adam
+        names = [n for n, _ in model.named_parameters()]
+        optim.set_state(count, [mu[n] for n in names], [nu[n] for n in names])
+
+
+class Trainer:
+    def __init__(
+        self,
+        model,
+        dataset: GravityDatasetOtf,
+        args,
+        resolved_config=None,
+        valid_dataset=None,
+        device="cuda",
+    ):
+        self.args = args
+        self.model = model
+        self.dataset = dataset
+        # the partition="valid" stream; None falls back to the training stream
+        self.valid_dataset = valid_dataset
+        self.device = torch.device(device)
+        self.targets = args.target.split("+")
+        self.num_neighbors = args.num_neighbors or (args.num_atoms - 1)
+        self.dtype = resolve_dtype(getattr(args, "precision_mode", "single"))
+        self._refuse_what_is_not_ported()
+        # always set: the flags are process-global, so an earlier Trainer in
+        # this process must not leak its precision into this one
+        set_matmul_precision(getattr(args, "matmul_precision", None))
+
+        # the JAX trainer draws one batch to initialise its parameters; this
+        # draw keeps the frame order the same
+        dataset.get_batch()
+        self.n_params = sum(p.numel() for p in model.parameters())
+        self.optim = create_optimizer(
+            model.parameters(),
+            learning_rate=args.learning_rate,
+            model_size=model.get_model_size(),
+            factor=args.learning_rate_factor,
+            warmup=args.learning_rate_warmup_steps,
+            clip_value=args.clip_gradients_value,
+            clip_norm=args.clip_gradients_norm,
+            discard_nan_gradients=args.discard_nan_gradients,
+        )
+        self.loss_fn = build_loss_fn(args)
+        self.step_count = 0  # counts finished epochs
+        self.best_metrics: Dict[str, float] = {}
+
+        ts = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+        suffix = "" if args.run_name is None else f"__{args.run_name}"
+        self.save_dir_path = os.path.join("runs", args.model_type, f"{ts}{suffix}")
+        os.makedirs(self.save_dir_path, exist_ok=True)
+        self.logger = MetricsLogger(self.save_dir_path)
+        if resolved_config is not None:
+            save_config(resolved_config, self.save_dir_path)
+        self._save_run_artifacts()
+        if args.model_path:
+            self.load_model_from_checkpoint(args.model_path)
+
+        self._train_step, self._metric_names = make_train_step(
+            model, self.optim, self.loss_fn, self.targets, self.num_neighbors, self.dtype,
+            getattr(args, "abort_on_nan_activations", False))
+
+    def _refuse_what_is_not_ported(self) -> None:
+        a = self.args
+        if getattr(a, "debug_layer_stats_every", None):
+            raise NotImplementedError("debug_layer_stats_every needs evaluation/layer_stats.py, "
+                                      "not ported yet: ROADMAP.md, queue 1 item 8")
+        if a.model_type == "ponita":
+            raise NotImplementedError("PONITA (and its calibration) is not ported yet: "
+                                      "ROADMAP.md, queue 1 item 6")
+        if (getattr(a, "data_parallel", True) and self.device.type == "cuda"
+                and torch.cuda.device_count() > 1):
+            raise NotImplementedError(
+                "data parallel training over several cards is not ported yet (ROADMAP.md, queue "
+                "1 item 9): make one card visible, or set --trainer.data_parallel false")
+        on_card = _build.wants_kernel(torch.empty(0, device=self.device))
+        if on_card and self.dtype != torch.float32 and self.model.edge_impl != "dense":
+            raise NotImplementedError(
+                f"precision_mode {a.precision_mode!r} on the card: the edge kernel K1 computes "
+                "float32 (or bf16 operands in the mixed model, compute_dtype='bfloat16'), "
+                "ROADMAP.md section 3; configure the model with --model.edge_impl dense")
+
+    # ------------------------------------------------------------------ io
+
+    def _save_run_artifacts(self):
+        with open(os.path.join(self.save_dir_path, "training_args.json"), "w") as f:
+            json.dump({"args": namespace_to_dict(self.args)}, f, indent=4, default=str)
+        with open(os.path.join(self.save_dir_path, "model_params.json"), "w") as f:
+            attrs = {k: v for k, v in getattr(self.model, "init_kwargs", {}).items()
+                     if isinstance(v, (int, float, str, bool, tuple, list, type(None)))}
+            attrs["num_params"] = self.n_params
+            json.dump(attrs, f, indent=4, default=str)
+        ds_dir = os.path.join(self.save_dir_path, f"{self.args.dataset_name}_dataset")
+        os.makedirs(ds_dir, exist_ok=True)
+        with open(os.path.join(ds_dir, "metadata.json"), "w") as f:
+            json.dump(self.dataset.get_serializable_attributes(), f, indent=4)
+
+    def save_model(self, filename: str = "model.ckpt", final: bool = False):
+        names = [n for n, _ in self.model.named_parameters()]
+        exp_avg, exp_avg_sq = self.optim.moments()
+        opt_state = {"count": np.asarray(self.optim.count, dtype=np.int32),
+                     "mu": params_to_jax(dict(zip(names, exp_avg))),
+                     "nu": params_to_jax(dict(zip(names, exp_avg_sq)))}
+        path = save_checkpoint(
+            self.save_dir_path,
+            params_to_jax(self.model.state_dict()),
+            opt_state,
+            self.step_count,
+            self.best_metrics,
+            filename=filename,
+            backend=getattr(self.args, "checkpoint_backend", "pickle"),
+        )
+        if final:
+            print(f"To continue training: --trainer.model_path {path} "
+                  f"--config {os.path.join(self.save_dir_path, 'config.yaml')}")
+        return path
+
+    def _model_restoring_links(self, model_path: str) -> None:
+        """Cross-link the run dirs on resume: ``<new>/restored_from/<old>`` and
+        ``<old>/restoring/<new>`` (best effort)."""
+        try:
+            restored_dir = os.path.abspath(os.path.dirname(model_path))
+            name = os.path.basename(os.path.normpath(restored_dir))
+            link1 = os.path.join(self.save_dir_path, "restored_from", name)
+            os.makedirs(os.path.dirname(link1), exist_ok=True)
+            if not os.path.exists(link1):
+                os.symlink(restored_dir, link1, target_is_directory=True)
+            link2 = os.path.join(restored_dir, "restoring", os.path.basename(self.save_dir_path))
+            os.makedirs(os.path.dirname(link2), exist_ok=True)
+            if not os.path.exists(link2):
+                os.symlink(os.path.abspath(self.save_dir_path), link2, target_is_directory=True)
+        except OSError:
+            pass
+
+    def load_model_from_checkpoint(self, path: str):
+        """Parameters, AdamW's count and moments (and with the count the Noam
+        schedule), the epoch count and best metrics of a checkpoint, the JAX
+        package's or the port's."""
+        self._model_restoring_links(path)
+        ckpt = load_checkpoint(path)
+        load_training_state(self.model, self.optim, ckpt)
+        self.step_count = ckpt.get("step_count", 0)
+        self.best_metrics = ckpt.get("best_metrics", {})
+        print(f"Loaded model and optimizer state from {path}")
+
+    # ---------------------------------------------------------------- train
+
+    def train_one_epoch(self) -> Dict[str, float]:
+        n_steps = self.args.steps_per_epoch
+        t_epoch = time.time()
+        examples = 0
+        vecs = []  # per-step metric vectors, on the device until the epoch ends
+        for _ in range(n_steps):
+            scene, y = self.dataset.get_batch()
+            vecs.append(self._train_step(scene, y))
+            examples += scene.pos.shape[0]
+        arr = torch.stack(vecs).cpu().numpy()  # the epoch's one fetch
+        dt = time.time() - t_epoch
+        epoch_means = np.nanmean(arr, axis=0)
+        log = {f"train/{k}": float(v) for k, v in zip(self._metric_names, epoch_means)}
+        log["train/step"] = self.step_count
+        log["train/steps_per_sec"] = n_steps / dt
+        log["train/examples_per_sec"] = examples / dt
+        self.logger.log(log)
+        msg = " | ".join(f"{k.split('/')[-1]}: {v:.5f}" for k, v in log.items())
+        print(f"Epoch {self.step_count} | {msg}")
+        return log
+
+    def _start_profile(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        """Stop a running trace and write it to ``<run>/profile/trace.json``."""
+        if prof is None:
+            return
+        prof.stop()
+        out = os.path.join(self.save_dir_path, "profile")
+        os.makedirs(out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out, "trace.json"))
+
+    def train(self):
+        start = time.time()
+        train_steps = self.args.train_steps
+        profile_epochs = getattr(self.args, "profile_epochs", None)
+        prof = self._start_profile() if profile_epochs else None
+        try:
+            while train_steps is None or self.step_count < train_steps:
+                self.train_one_epoch()
+                self.step_count += 1
+                if prof is not None and self.step_count == profile_epochs:
+                    self._stop_profile(prof)
+                    prof = None
+                if self.step_count % self.args.save_model_every == 0:
+                    self.save_model()
+                if self.step_count % self.args.test_macros_every == 0:
+                    try:
+                        self.run_self_feed_eval()
+                    except Exception as e:  # an evaluation failure does not stop training
+                        print(f"Couldn't run self-feed. Reason: {e}")
+                        traceback.print_exc()
+                if (getattr(self.args, "do_validation", False)
+                        and self.step_count % getattr(self.args, "validation_frequency", 1) == 0):
+                    self.validate_one_epoch()
+        except KeyboardInterrupt:
+            print("Training interrupted. Saving model...")
+            self._stop_profile(prof)
+            self.save_model(final=True)
+            return
+        except Exception as e:
+            self._stop_profile(prof)
+            self.save_model(final=True)
+            self.logger.alert("Training crashed", f"{self.args.model_type}: {e}")
+            raise
+        self._stop_profile(prof)
+        self.save_model(final=True)
+        print(f"Training for {self.step_count} steps took {time.time() - start:.2f} seconds")
+
+    # ------------------------------------------------------------ validation
+
+    @torch.no_grad()
+    def validate_one_epoch(self, num_batches: int = 10) -> Dict[str, float]:
+        """Loss and percentage errors over fresh batches of the valid stream;
+        saves ``model_best_valid_loss.ckpt`` on improvement."""
+        vds = self.valid_dataset if self.valid_dataset is not None else self.dataset
+        self.model.eval()
+        results = []
+        for _ in range(num_batches):
+            scene, y = vds.get_batch()
+            scene, y = _cast(scene, self.dtype), y.to(self.dtype)
+            pred = self.model(scene, G.knn_mask(scene.pos, self.num_neighbors))
+            total, terms = self.loss_fn(pred, scene, y)
+            results.append((total, {**terms, **percentage_errors(pred, y, self.targets)}))
+        # one device-to-host fetch for the whole epoch
+        keys = list(results[0][1])
+        arr = torch.stack([torch.stack([t] + [n[k] for k in keys]).float()
+                           for t, n in results]).cpu().numpy()
+        means: Dict[str, RunningMean] = {}
+        for row in arr:
+            for name, v in zip(["loss"] + keys, row):
+                means.setdefault(name, RunningMean()).update(float(v))
+        log = {f"valid/{k}": m.compute() for k, m in means.items()}
+        log["valid/step"] = self.step_count - 1
+        self.logger.log(log)
+        if log["valid/loss"] < self.best_metrics.get("valid_loss", float("inf")):
+            self.best_metrics["valid_loss"] = log["valid/loss"]
+            self.save_model(filename="model_best_valid_loss.ckpt")
+        return log
+
+    # ------------------------------------------------------------- self-feed
+
+    def run_self_feed_eval(self) -> int:
+        """Rollout against fresh GT, macro KS and energy KS of the current
+        parameters; writes the artifacts into ``checkpoints/<epoch>``."""
+        print(f"Running self feed (epoch {self.step_count - 1})")
+        save_dir = os.path.join(self.save_dir_path, "checkpoints", str(self.step_count))
+        if getattr(self.args, "save_checkpoint_params", False):
+            os.makedirs(save_dir, exist_ok=True)
+            self.save_model(filename=os.path.join("checkpoints", str(self.step_count), "model.ckpt"))
+        with matmul_precision(getattr(self.args, "self_feed_matmul_precision", None)):
+            loc_gt, vel_gt, loc_pred, vel_pred, survived = run_self_feed(
+                self.model,
+                self.dataset,
+                num_steps=self.args.self_feed_limit_steps,
+                num_neighbors=None,  # the rollout is fully connected
+                train_mode=getattr(self.args, "self_feed_train_mode", True),
+                rng=self.step_count,
+            )
+        per_macro, macro_combined, _, _ = artifacts.evaluate_rollout(
+            save_dir,
+            loc_gt,
+            vel_gt,
+            loc_pred,
+            vel_pred,
+            save_trajectory_npys=self.args.save_trajectory_npys,
+            plot=self.args.plot_macros,
+            extended=self.args.plot_macros,
+            interaction_strength=self.dataset.interaction_strength,
+            softening=self.dataset.softening,
+        )
+
+        G_ = self.dataset.interaction_strength
+        soft = self.dataset.softening
+        energies = {
+            "simulation": energy_series(loc_gt, vel_gt, G_, soft),
+            "self_feed": energy_series(loc_pred, vel_pred, G_, soft),
+        }
+        pvals = {
+            f"energy_{k}": ks_p(energies["simulation"][k], energies["self_feed"][k])
+            for k in ("total", "potential", "kinetic")
+        }
+        energy_combined = fisher_combine(list(pvals.values()))
+        artifacts.write_energy_metrics_json(save_dir, energies, pvals, energy_combined)
+
+        # steps within the energy-ratio band: the LAST in-band index, as the
+        # reference counts it (a rollout that leaves and re-enters counts to the re-entry)
+        sim_total = np.asarray(energies["simulation"]["total"]).reshape(-1)
+        sf_total = np.asarray(energies["self_feed"]["total"]).reshape(-1)
+        m = min(len(sim_total), len(sf_total))
+        ratio = np.abs(sim_total[:m] / (sf_total[:m] + 1e-12))
+        steps_metric = {}
+        for t in ENERGY_ERROR_THRESHOLDS:
+            ok = np.where((1.0 / t < ratio) & (ratio < t))[0]
+            steps_metric[t] = int(ok[-1] + 1) if ok.size else 0
+
+        primary = ENERGY_ERROR_THRESHOLDS[0]
+        if steps_metric[primary] >= self.best_metrics.get("self_feed_steps", 0):
+            self.best_metrics["self_feed_steps"] = steps_metric[primary]
+            self.save_model(filename="model_best_self_feed.ckpt")
+
+        payload = {
+            "self_feed/steps_survived": int(survived),
+            "self_feed/energy_steps_within_threshold": steps_metric[primary],
+            "self_feed/step": self.step_count - 1,
+        }
+
+        def _log_p(prefix: str, val: float):
+            if val != val:  # NaN means no data (no event in a short rollout): skip it
+                return
+            safe = max(float(val), 1e-300) if val > 0.0 else 1e-300
+            payload[prefix] = safe
+            payload[f"{prefix}_log10"] = float(np.log10(safe))
+            payload[f"{prefix}_neglog10"] = float(-np.log10(safe))
+
+        for key, val in pvals.items():
+            _log_p(f"self_feed/ks_{key}", val)
+        _log_p("self_feed/ks_combined", energy_combined)
+        for key, val in per_macro.items():
+            _log_p(f"self_feed/ks_macro_{key}", val)
+        _log_p("self_feed/ks_macros_combined", macro_combined)
+        _log_p(
+            "self_feed/ks_all_combined",
+            # energy and the reference's macro set, without the stuck_cluster_size extension
+            fisher_combine(list(pvals.values())
+                           + [v for k, v in per_macro.items() if k != "stuck_cluster_size"]),
+        )
+        self.logger.log(payload)
+        print(f"Self feed: survived={survived} "
+              f"macro_combined_p={macro_combined:.3e} energy_combined_p={energy_combined:.3e}")
+        return int(survived)
+
+
+def create_trainer_from_args(args, resolved_config=None, device="cuda") -> Trainer:
+    """The model, the dataloader ``args.dataloader_type`` names (and a valid
+    stream when ``do_validation`` is on) and the trainer, on ``device``."""
+    from ..data.dataloaders import create_dataloader
+
+    model = create_model(args.model_type, device=device, **args.model_kwargs)
+    dataset = create_dataloader(args, partition="train", device=device).dataset
+    valid_dataset = (
+        create_dataloader(args, partition="valid", device=device).dataset
+        if getattr(args, "do_validation", False)
+        else None
+    )
+    return Trainer(model, dataset, args, resolved_config=resolved_config,
+                   valid_dataset=valid_dataset, device=device)

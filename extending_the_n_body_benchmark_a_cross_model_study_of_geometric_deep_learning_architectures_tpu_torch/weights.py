@@ -3,21 +3,25 @@
 The JAX package's checkpoints (its ``train/checkpoint.py``) are pickles of
 ``{"params", "opt_state", "step_count", "best_metrics"}`` with host numpy
 leaves.  ``opt_state`` holds optax classes, so a plain ``pickle.load`` imports
-optax and with it JAX.  :func:`read_jax_checkpoint` reads the file with an
-unpickler that maps every JAX-side class to an inert stand-in, and returns the
-``params`` tree without importing any of them.
+optax and with it JAX.  :func:`read_checkpoint` reads the file with an
+unpickler that maps every JAX-side class to a stand-in that keeps what the
+pickle gives it (a namedtuple's fields), without importing any of them;
+:func:`read_jax_checkpoint` returns its ``params`` tree.
 
 :func:`params_from_jax` maps that flax tree onto the port's ``EGNNMC``
 ``state_dict``: flax ``Dense`` kernels are ``[in, out]`` (an ``nn.Linear``
 weight is ``[out, in]``), and the ``Scan_EGNNBlock_0/*`` leaves carry a
-leading layer axis.
+leading layer axis.  :func:`params_to_jax` is its inverse, for the port's
+own checkpoints.  :func:`opt_state_from_jax` finds AdamW's state (optax's
+``ScaleByAdamState(count, mu, nu)``, or the port's ``{"count", "mu", "nu"}``)
+and maps its moments the same way.
 """
 
 from __future__ import annotations
 
 import pickle
 from collections import OrderedDict
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,23 +29,26 @@ import torch
 _FOREIGN = ("jax", "jaxlib", "flax", "optax", "chex", "orbax")
 
 
-class _Inert:
-    """Stand-in for a JAX-side class met in a pickle: takes anything, keeps nothing."""
+class _Kept(tuple):
+    """Stand-in for a JAX-side class met in a pickle: a tuple of the positional
+    arguments it was rebuilt from (a namedtuple's fields, in order), with any
+    pickled state kept as attributes."""
 
     def __new__(cls, *args, **kwargs):
-        return super().__new__(cls)
+        return super().__new__(cls, args)
 
     def __init__(self, *args, **kwargs):
         pass
 
     def __setstate__(self, state):
-        pass
+        if isinstance(state, dict):
+            self.__dict__.update(state)
 
 
 class _ParamsUnpickler(pickle.Unpickler):
     def find_class(self, module: str, name: str):
         if module.split(".")[0] in _FOREIGN:
-            return type(name, (_Inert,), {"__module__": module})
+            return type(name, (_Kept,), {"__module__": module})
         try:
             return super().find_class(module, name)
         except ModuleNotFoundError:
@@ -50,12 +57,17 @@ class _ParamsUnpickler(pickle.Unpickler):
             raise
 
 
+def read_checkpoint(path: str) -> Dict[str, Any]:
+    """The whole payload of a pickle checkpoint, the JAX package's or the
+    port's, read without importing jax, flax or optax."""
+    with open(path, "rb") as f:
+        return _ParamsUnpickler(f).load()
+
+
 def read_jax_checkpoint(path: str) -> Dict[str, Any]:
     """The ``params`` tree (nested dicts of numpy arrays) of a JAX-package
     pickle checkpoint, read without importing jax, flax or optax."""
-    with open(path, "rb") as f:
-        payload = _ParamsUnpickler(f).load()
-    return payload["params"]
+    return read_checkpoint(path)["params"]
 
 
 def _tensor(a) -> torch.Tensor:
@@ -85,8 +97,8 @@ def params_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
                      "coord_w1", "coord_b1", "coord_w2"):
             sd[pre + name] = _tensor(scan[name][layer])
         # _finish creates the velocity gate (MLP_0) before the node model (MLP_1)
-        for flax_name, port_name in (("MLP_0", "vel_mlp"), ("MLP_1", "node_mlp")):
-            for k, dense in enumerate(_linears(scan[flax_name])):
+        for jax_name, port_name in (("MLP_0", "vel_mlp"), ("MLP_1", "node_mlp")):
+            for k, dense in enumerate(_linears(scan[jax_name])):
                 sd[f"{pre}{port_name}.layers.{k}.weight"] = _tensor(dense["kernel"][layer].T)
                 sd[f"{pre}{port_name}.layers.{k}.bias"] = _tensor(dense["bias"][layer])
 
@@ -97,3 +109,80 @@ def params_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
             sd[f"heads.{t}.layers.{k}.bias"] = _tensor(dense["bias"])
         t += 1
     return sd
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def _dense(weight: torch.Tensor, bias: torch.Tensor) -> Dict[str, Any]:
+    return {"Dense_0": {"kernel": _array(weight).T.copy(), "bias": _array(bias)}}
+
+
+def _mlp(sd, prefix: str) -> Dict[str, Any]:
+    """The flax ``MLP`` node of the port's ``MLP`` at ``prefix`` (one layer)."""
+    out, k = {}, 0
+    while f"{prefix}.layers.{k}.weight" in sd:
+        out[f"TorchLinear_{k}"] = _dense(sd[f"{prefix}.layers.{k}.weight"],
+                                         sd[f"{prefix}.layers.{k}.bias"])
+        k += 1
+    return out
+
+
+def params_to_jax(sd) -> Dict[str, Any]:
+    """The port's ``EGNNMC.state_dict()`` (or a dict of tensors on its keys) as
+    the JAX package's ``EGNNMC`` params tree of numpy arrays: the inverse of
+    :func:`params_from_jax`."""
+    p: Dict[str, Any] = {"TorchLinear_0": _dense(sd["embedding.weight"], sd["embedding.bias"])}
+    layers = 0
+    while f"layers.{layers}.edge_w1" in sd:
+        layers += 1
+    per_layer = [{name: _array(sd[f"layers.{i}.{name}"])
+                  for name in ("edge_w1", "edge_b1", "edge_w2", "edge_b2",
+                               "coord_w1", "coord_b1", "coord_w2")} for i in range(layers)]
+    scan: Dict[str, Any] = {name: np.stack([lay[name] for lay in per_layer])
+                            for name in per_layer[0]}
+    for jax_name, port_name in (("MLP_0", "vel_mlp"), ("MLP_1", "node_mlp")):
+        mlps = [_mlp(sd, f"layers.{i}.{port_name}") for i in range(layers)]
+        scan[jax_name] = {lin: {"Dense_0": {leaf: np.stack([m[lin]["Dense_0"][leaf] for m in mlps])
+                                             for leaf in ("kernel", "bias")}}
+                           for lin in mlps[0]}
+    p["Scan_EGNNBlock_0"] = scan
+    t = 0
+    while f"heads.{t}.layers.0.weight" in sd:
+        p[f"MLP_{t}"] = _mlp(sd, f"heads.{t}")
+        t += 1
+    return {"params": p}
+
+
+def _find_adam(node) -> Optional[Tuple[Any, Any, Any]]:
+    if isinstance(node, dict):
+        if {"count", "mu", "nu"} <= set(node):
+            return node["count"], node["mu"], node["nu"]
+        children = node.values()
+    elif isinstance(node, (tuple, list)):
+        if type(node).__name__ == "ScaleByAdamState":
+            return tuple(node)
+        children = node
+    else:
+        return None
+    for child in children:
+        found = _find_adam(child)
+        if found is not None:
+            return found
+    return None
+
+
+def opt_state_from_jax(opt_state) -> Optional[Tuple[int, "OrderedDict[str, torch.Tensor]",
+                                                    "OrderedDict[str, torch.Tensor]"]]:
+    """AdamW's state in a checkpoint's ``opt_state``: ``(count, exp_avg,
+    exp_avg_sq)`` with the moments on ``EGNNMC.state_dict()`` keys (the map and
+    transposes of :func:`params_from_jax`), or None if it holds none.  Reads
+    optax's ``ScaleByAdamState(count, mu, nu)`` wherever it sits in the chain
+    (under clipping or ``apply_if_finite`` too) and the port's ``{"count",
+    "mu", "nu"}``."""
+    found = _find_adam(opt_state)
+    if found is None:
+        return None
+    count, mu, nu = found
+    return int(np.asarray(count)), params_from_jax(mu), params_from_jax(nu)

@@ -248,3 +248,14 @@ def test_datagen_bench_needs_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert datagen_bench.main([]) == 1
     assert "needs a CUDA card" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("B,N", [(64, 5), (16, 5), (1, 5), (64, 2), (1, 2), (16, 100)])
+def test_cluster_rule_owns_every_receiver_once_at_the_training_shapes(B, N, sms):
+    """The trainer's GT shapes: N=5 (a cluster of 2 blocks a sim at B=64, so
+    each block owns 2 or 3 receivers and lanes past N carry nothing), N=2 and
+    the N=100 study run's B=16."""
+    test_cluster_rule_owns_every_receiver_once(B, N, sms)
+    c, _, _ = GK.leapfrog_launch(B, N, sms)
+    assert all(i1 > i0 for i0, i1 in GK.receiver_slices(N, c))
