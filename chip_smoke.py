@@ -69,17 +69,39 @@ bf16, coordinates, geometry and integration in f32):
                    step and its top kernels (torch.profiler)
  17. train-n5      the reference default (N=5, B=64, 10000 substeps) from a fresh
                    initialisation, 50 steps, every loss finite
- 18. bign          bign_bench rows: steps/s and peak memory, dense K1 against
+ 18. floor-n100    the GT-vs-GT floor (evaluation.studies.baseline_metamacros) at
+                   the committed N=100 protocol: B=16, 2500 substeps, 8 batches
+                   (one K2-leapfrog launch each), 28 pairs; per-macro and
+                   combined p beside the committed six-macro floor; the combined
+                   median at least 0.05
+ 19. floor-n512    the same at N=512: B=8, 1000 substeps, 6 batches, 15 pairs
+ 20. battery       `cli self-feed --draws 6 --seed 281` on a run dir of the study
+                   protocol around the committed checkpoint (its bytes unchanged):
+                   6 x 6 x 248 K1 launches; each draw's survived and combined p on
+                   the six-macro basis and the committed batteries' five-macro one,
+                   beside the committed battery; self_feed_draws.json has the JAX
+                   package's keys
+ 21. validate      `cli validate --batches 2` on that run dir, every loss finite
+ 22. ks-test       `cli ks-test` on [train]'s run dir: its best checkpoint's
+                   combined p equals the one [train] scored, to 1e-12
+ 23. inferencer    Inferencer on the battery's run dir: predict through K1
+                   against the plain path, and a 20-step rollout bitwise equal to
+                   run_self_feed's from the same scene
+ 24. hpo           hpo.run_study("egnn_mc", 2 trials, param_small) at the
+                   reference default (N=5, B=64): one epoch of 10 steps and a
+                   20-step evaluation through K1 a trial, finite values, parameter
+                   counts within the budget
+ 25. bign          bign_bench rows: steps/s and peak memory, dense K1 against
                    streaming K3, at (N,B) = (256,16), (512,8), (1024,2), (4096,1)
 
 Each phase prints one line with its result and elapsed seconds.  Any failed
 check exits non-zero before the result is printed.  The second-to-last line
-is a JSON object with every kernel's launches on its path (and on the two
-training paths), its error against the plain version, its time, the plain
-version's time and its bound; the last line is ``{"ok": true, "device":
-{...}}``.  The script writes only into the package's ignored build directory
-and, for the training phases, into a temporary working directory that it
-removes.  It sets ``CUBLAS_WORKSPACE_CONFIG`` so that
+is a JSON object with every kernel's launches on its path (and on the
+training and evaluation paths), its error against the plain version, its
+time, the plain version's time and its bound; the last line is ``{"ok":
+true, "device": {...}}``.  The script writes only into the package's ignored
+build directory and, for the training and evaluation phases, into temporary
+working directories that it removes.  It sets ``CUBLAS_WORKSPACE_CONFIG`` so that
 the cuBLAS products around the kernels are reproducible too.
 """
 
@@ -185,6 +207,24 @@ N5_EPOCHS, N5_STEPS = 5, 10
 TRAIN_CMP_B, TRAIN_PARAM_RTOL, TRAIN_UPDATE_RTOL = 4, 1e-4, 2e-2
 TIMED_STEPS = 10
 
+# the evaluation layer.  The GT-vs-GT floors at the committed protocols
+# (docs/results/fidelity_n100/README.md sections 1, 2 and 4): tag -> (B, N,
+# sim_length, batches, the committed six-macro floor); under the null a median
+# combined p of the pairs below 0.05 means the datagen or the scoring is broken
+FIDELITY = os.path.join(REPO, "docs", "results", "fidelity_n100")
+FLOORS = {"floor-n100": (16, 100, 2500, 8, "gtgt_n100_sixbasis_baseline_metamacros.json"),
+          "floor-n512": (8, 512, 1000, 6, "gtgt_n512_sixbasis_baseline_metamacros.json")}
+FLOOR_SEED, FLOOR_MEDIAN_MIN = 0, 0.05
+# the battery of the committed checkpoint (README section 3's first seed)
+BATTERY_DRAWS, BATTERY_SEED = 6, 281
+VALIDATE_BATCHES = 2
+# ks-test ranks [train]'s checkpoint from the JSONs [train] scored: the same
+# p-values, combined in another order
+KS_RTOL = 1e-12
+INF_STEPS = 20
+# HPO at the reference default: trials of one epoch of 10 steps, 20-step evaluations
+HPO_TRIALS, HPO_EVAL_STEPS = 2, 20
+
 # H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, dense bf16 on the tensor
 # cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -242,6 +282,10 @@ def main() -> None:
         config_mod = importlib.import_module(f"{PKG}.utils.config")
         artifacts = importlib.import_module(f"{PKG}.metrics.artifacts")
         cli = importlib.import_module(f"{PKG}.cli")
+        studies = importlib.import_module(f"{PKG}.evaluation.studies")
+        battery = importlib.import_module(f"{PKG}.battery")
+        inferencer = importlib.import_module(f"{PKG}.rollout.inferencer")
+        hpo = importlib.import_module(f"{PKG}.hpo.hpo")
     except ImportError as e:
         fail(f"the port's package is not importable from {REPO}: {e}")
     if not os.path.exists(CKPT):
@@ -1060,7 +1104,10 @@ def main() -> None:
 
     t0 = time.perf_counter()
     train_counts = {}
-    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+    # kept until [ks-test] has ranked the run's checkpoint
+    study_tmp = tempfile.TemporaryDirectory()
+    with contextlib.chdir(study_tmp.name):
+        tmp = study_tmp.name
         resume = ["--trainer.model_path", shutil.copy(CKPT, tmp)]
         run = train_run(resume + STUDY_ARGV, "train", STUDY_EPOCHS, STUDY_STEPS)
         trainer = run["trainer"]
@@ -1111,6 +1158,8 @@ def main() -> None:
             energy_p = json.load(f)["ks_pvalues"]["combined"]
         if not (0 <= survived <= frames - 1 and 0 < macro_p <= 1 and 0 < energy_p <= 1):
             fail(f"train: survived {survived}, macro combined p {macro_p}, energy p {energy_p}")
+        study_run = dict(dir=os.path.abspath(trainer.save_dir_path), epoch=trainer.step_count,
+                         macro_p=macro_p)
         rollout_s = roll_s[0] - gt_s[0]
         # one fixed batch for the timings and the card-against-CPU step
         scene, y = trainer.dataset.get_batch()
@@ -1198,7 +1247,201 @@ def main() -> None:
            peak_mib=f"{timing_n5['peak_mib']:.1f}",
            peak_above_start_mib=f"{timing_n5['peak_above_start_mib']:.1f}")
 
-    # --------------------------------------------------------------- 18. bign
+    # ------------------------------------------- 18-19. floor-n100, floor-n512
+    # the GT-vs-GT floor at the committed protocols, beside the committed
+    # six-macro floors: datagen and scoring alone, no model
+    eval_counts = {}
+
+    def counted(want: dict, tag: str) -> dict:
+        got = counts()
+        full = dict.fromkeys(counters, 0)
+        full.update(want)
+        if got != full:
+            fail(f"{tag} launched {got}, want {full}")
+        return got
+
+    for tag, (fb, fn_, flen, fbatches, committed) in FLOORS.items():
+        t0 = time.perf_counter()
+        with open(os.path.join(FIDELITY, committed)) as f:
+            ref = json.load(f)
+        reset_counts()
+        ds = otf.GravityDatasetOtf(batch_size=fb, num_nodes=fn_, sim_length=flen,
+                                   cache_data=False, seed=FLOOR_SEED, device=dev)
+        floor = studies.baseline_metamacros(ds, num_batches=fbatches)
+        sync()
+        eval_counts[tag] = counted({"leapfrog": fbatches}, tag)
+        comb = np.asarray(floor["combined_pvalues"])
+        pairs = fbatches * (fbatches - 1) // 2
+        if len(comb) != pairs or not np.all((comb > 0) & (comb <= 1)):
+            fail(f"{tag}: {len(comb)} combined p-values (want {pairs}), range "
+                 f"[{comb.min()}, {comb.max()}]")
+        if not np.median(comb) >= FLOOR_MEDIAN_MIN:
+            fail(f"{tag}: GT-vs-GT combined median {np.median(comb):.4g} below "
+                 f"{FLOOR_MEDIAN_MIN}: the datagen or the scoring is broken")
+        rc = np.asarray(ref["combined_pvalues"])
+        for k, v in floor["per_macro"].items():
+            r = ref["per_macro"][k]
+            print(f"  {tag}: {k:22s} ks_p median {v['ks_p_median']:.4g} min {v['ks_p_min']:.4g}"
+                  f" (committed {r['ks_p_median']:.4g} / {r['ks_p_min']:.4g})", flush=True)
+        report(tag, t0, B=fb, N=fn_, sim_length=flen, batches=fbatches, pairs=pairs,
+               combined_median=f"{np.median(comb):.4g}", combined_min=f"{comb.min():.4g}",
+               combined_max=f"{comb.max():.4g}",
+               committed_median=f"{np.median(rc):.4g}", committed_min=f"{rc.min():.4g}",
+               committed_max=f"{rc.max():.4g}", leapfrog_launches=eval_counts[tag]["leapfrog"])
+
+    # ----------------------------------------------- 20. battery (self-feed)
+    # the committed checkpoint, untouched, in a run dir of the study protocol:
+    # `cli self-feed --draws 6 --seed 281` in f32, each draw on the six-macro
+    # basis (the JSON's) and the five-macro one of the committed batteries
+    eval_tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    run_dir = battery.make_study_run_dir(os.path.join(eval_tmp.name, "egnn_n100"))
+    with open(CKPT, "rb") as f:
+        ckpt_bytes = f.read()
+    reset_counts()
+    summary = cli.main(["self-feed", "--run_dir", run_dir, "--draws", str(BATTERY_DRAWS),
+                        "--seed", str(BATTERY_SEED)])
+    sync()
+    battery_s = time.perf_counter() - t0
+    rollout_steps = int(battery.STUDY_RUN_ARGV[-1]) - 1
+    eval_counts["battery"] = counted({"k1": BATTERY_DRAWS * LAYERS * rollout_steps,
+                                      "leapfrog": BATTERY_DRAWS}, "battery")
+    with open(os.path.join(run_dir, "model.ckpt"), "rb") as f:
+        if f.read() != ckpt_bytes:
+            fail("battery: the run dir's model.ckpt is not the committed checkpoint's bytes")
+    with open(os.path.join(run_dir, "generated_trajectories", "self_feed_draws.json")) as f:
+        written = json.load(f)
+    with open(battery.COMMITTED[BATTERY_SEED]) as f:
+        ref = json.load(f)
+    if set(written) != set(ref) or any(set(d) != set(ref["draws"][0]) for d in written["draws"]):
+        fail(f"battery: self_feed_draws.json keys {sorted(written)} / "
+             f"{sorted(written['draws'][0])}, the JAX package's {sorted(ref)} / "
+             f"{sorted(ref['draws'][0])}")
+    b = battery.bases(written["draws"])
+    if not all(0 <= p <= 1 for p in b["six"] + b["five"]):
+        fail(f"battery: combined p outside [0, 1]: six {b['six']}, five {b['five']}")
+    for i, (surv, six, five) in enumerate(zip(b["survived"], b["six"], b["five"])):
+        print(f"  battery: draw {i} survived={surv} six-macro p={six:.4g} "
+              f"five-macro p={five:.4g}", flush=True)
+    port6, port5 = battery.spread(b["six"]), battery.spread(b["five"])
+    ref5 = battery.spread(battery.committed(BATTERY_SEED)["five"])
+    report("battery", t0, battery_s, draws=BATTERY_DRAWS, seed=BATTERY_SEED, B=16, N=N,
+           steps=rollout_steps, s_per_draw=f"{battery_s / BATTERY_DRAWS:.3f}",
+           six_best=f"{port6['best']:.4g}", six_median=f"{port6['median']:.4g}",
+           six_worst=f"{port6['worst']:.4g}", five_best=f"{port5['best']:.4g}",
+           five_median=f"{port5['median']:.4g}", five_worst=f"{port5['worst']:.4g}",
+           survived=",".join(map(str, b["survived"])),
+           committed_five_best=f"{ref5['best']:.4g}",
+           committed_five_median=f"{ref5['median']:.4g}",
+           committed_five_worst=f"{ref5['worst']:.4g}",
+           committed_survived=",".join(str(d["steps_survived"]) for d in ref["draws"]),
+           k1_launches=eval_counts["battery"]["k1"])
+
+    # ----------------------------------------------------------- 21. validate
+    t0 = time.perf_counter()
+    reset_counts()
+    valid = cli.main(["validate", "--run_dir", run_dir, "--batches", str(VALIDATE_BATCHES)])
+    sync()
+    eval_counts["validate"] = counted({"k1": VALIDATE_BATCHES * LAYERS, "leapfrog": 1},
+                                      "validate")
+    if not all(np.isfinite(v) for v in valid.values()):
+        fail(f"validate: {valid}")
+    report("validate", t0, batches=VALIDATE_BATCHES,
+           **{k.replace(" ", "_"): f"{v:.6g}" for k, v in valid.items()},
+           k1_launches=eval_counts["validate"]["k1"])
+
+    # ---------------------------------------------------------- 22. ks-test
+    t0 = time.perf_counter()
+    ranked = cli.main(["ks-test", study_run["dir"]])
+    written = [f for f in ("ks_results.csv", "ks_summary.json")
+               if os.path.exists(os.path.join(study_run["dir"], f))]
+    study_tmp.cleanup()
+    if len(written) != 2:
+        fail(f"ks-test: wrote {written} into the run dir, want ks_results.csv and ks_summary.json")
+    rel = abs(ranked["best_combined_pvalue"] - study_run["macro_p"]) / study_run["macro_p"]
+    if ranked["best_checkpoint"] != study_run["epoch"] or not rel <= KS_RTOL:
+        fail(f"ks-test: best checkpoint {ranked['best_checkpoint']} p "
+             f"{ranked['best_combined_pvalue']}, [train] scored checkpoint {study_run['epoch']} "
+             f"at {study_run['macro_p']} (relative difference {rel:.3e}, limit {KS_RTOL})")
+    report("ks-test", t0, checkpoints=ranked["num_checkpoints"],
+           best_checkpoint=ranked["best_checkpoint"],
+           best_combined_p=f"{ranked['best_combined_pvalue']:.6e}",
+           train_macro_p=f"{study_run['macro_p']:.6e}", rel_diff=f"{rel:.3e}", limit=KS_RTOL)
+
+    # ------------------------------------------------------- 23. inferencer
+    t0 = time.perf_counter()
+    reset_counts()
+    inf = inferencer.Inferencer(run_dir)
+    scene_i, _ = inf.dataset.get_batch()
+    out_k = inf.predict(scene_i)
+    with torch.no_grad():
+        out_p = inf.model(scene_i, graph.knn_mask(scene_i.pos, inf.num_neighbors),
+                          edge_impl="dense")
+    err, scale = (out_k - out_p).abs().max().item(), out_p.abs().max().item()
+    if not err <= K1_ATOL + K1_RTOL * scale:
+        fail(f"inferencer: predict differs from the plain path by {err} (max |out| {scale})")
+    gt_i = inf.dataset.get_ground_truth_trajectories()
+
+    class Served:
+        target = inf.dataset.target
+
+        def get_ground_truth_trajectories(self, batch_size=None):
+            return gt_i
+
+    _, _, loc_sf, vel_sf, surv_sf = self_feed.run_self_feed(inf.model, Served(),
+                                                            num_steps=INF_STEPS)
+    scene0 = Scene(pos=gt_i[0][:, 0], vel=gt_i[1][:, 0], force=gt_i[2][:, 0], mass=gt_i[3])
+    loc_i, vel_i, surv_i = inf.rollout(scene0, INF_STEPS)
+    sync()
+    if not (torch.equal(loc_i, loc_sf) and torch.equal(vel_i, vel_sf) and surv_i == surv_sf):
+        fail(f"inferencer: its {INF_STEPS}-step rollout is not run_self_feed's on the same "
+             f"scene0 (max |dpos| {(loc_i - loc_sf).abs().max().item()})")
+    # predict, then two rollouts of INF_STEPS - 1 steps; GT for the batch and for the rollouts
+    eval_counts["inferencer"] = counted(
+        {"k1": LAYERS * (1 + 2 * (INF_STEPS - 1)), "leapfrog": 2}, "inferencer")
+    report("inferencer", t0, predict_max_abs_err=f"{err:.3e}", max_abs_out=f"{scale:.3e}",
+           rtol=K1_RTOL, atol=K1_ATOL, rollout_steps=INF_STEPS, rollout="bitwise",
+           survived=surv_i, k1_launches=eval_counts["inferencer"]["k1"])
+    del inf
+    eval_tmp.cleanup()
+
+    # ---------------------------------------------------------------- 24. hpo
+    # two param_small trials at the reference default (N=5, B=64), each one
+    # epoch of 10 steps and a 20-step evaluation through K1
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        reset_counts()
+        best = hpo.run_study("egnn_mc", trials=HPO_TRIALS, mode="param_small", study_dir="hpo",
+                             train_epochs=1, steps_per_epoch=10,
+                             self_feed_limit_steps=HPO_EVAL_STEPS, device=dev)
+        sync()
+        got = counts()
+        with open(os.path.join("hpo", "egnn_mc_param_small_trials.jsonl")) as f:
+            trials = [json.loads(line) for line in f]
+        if not os.path.exists(os.path.join("hpo", "egnn_mc_param_small_summary.json")):
+            fail("hpo: no study summary written")
+    target = hpo.PARAM_TARGETS["param_small"]
+    for t in trials:
+        if not (t["status"] == "done" and np.isfinite(t["value"])
+                and abs(t["n_params"] - target) <= hpo.PARAM_TOLERANCE * target):
+            fail(f"hpo: trial {t}")
+    k1_hpo = sum(t["model_kwargs"]["num_layers"] * (HPO_EVAL_STEPS - 1) for t in trials)
+    others = {k: v for k, v in got.items() if k not in ("k1", "leapfrog")}
+    # each trial draws its evaluation GT, and a training batch unless the
+    # shared cache of the default config serves it
+    if (len(trials) != HPO_TRIALS or got["k1"] != k1_hpo or any(others.values())
+            or not HPO_TRIALS <= got["leapfrog"] <= 2 * HPO_TRIALS):
+        fail(f"hpo: {len(trials)} trials launched {got}, want {k1_hpo} K1 launches")
+    eval_counts["hpo"] = got
+    for t in trials:
+        print(f"  hpo: trial {t['number']} {t['model_kwargs']} n_params={t['n_params']} "
+              f"value={t['value']:.4f} {t['seconds']:.2f} s steps_per_min="
+              f"{t['steps_per_min']:.1f} peak_hbm_mb={t.get('peak_hbm_mb', float('nan')):.1f}",
+              flush=True)
+    report("hpo", t0, trials=len(trials), mode="param_small", best_value=f"{best['value']:.4f}",
+           k1_launches=got["k1"], leapfrog_launches=got["leapfrog"])
+
+    # --------------------------------------------------------------- 25. bign
     t0 = time.perf_counter()
     state = bign_bench.seeded_state(2)
     rows = []
@@ -1318,6 +1561,9 @@ def main() -> None:
     for entry in kernels:
         entry["launches_train"] = {path: c[counter_of[entry["name"]]]
                                    for path, c in train_counts.items()}
+        # ... and on the evaluation layer's paths
+        entry["launches_eval"] = {path: c[counter_of[entry["name"]]]
+                                  for path, c in eval_counts.items()}
     print(f"total {time.perf_counter() - T_START:.2f} s on {card}", flush=True)
     print(json.dumps({"bign": rows}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

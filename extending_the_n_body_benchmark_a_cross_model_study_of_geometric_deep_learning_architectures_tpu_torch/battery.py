@@ -1,0 +1,185 @@
+"""The self-feed battery of the committed N=100 checkpoint, on both scoring
+bases, through the ``self-feed`` main.
+
+    python -m extending_the_n_body_benchmark_a_cross_model_study_of_geometric_deep_learning_architectures_tpu_torch.battery \\
+        [--seeds 281 9272] [--compute-dtypes float32 bfloat16] [--draws 6] [--batch-size B] \\
+        [--checkpoint PATH] [--device cuda] [--out DIR]
+
+For each compute dtype it builds a run dir around the checkpoint (by default
+the committed ``docs/results/fidelity_n100/egnn_n100_ckpt_30_model.ckpt``;
+``train.restore.make_run_dir``) with the study protocol that trained it
+(``docs/results/fidelity_n100/README.md`` section 3: EGNN-MC 6 x 128, N=100,
+B=16, sim_length 2500, T=250, ``self_feed_limit_steps`` 249; and
+``--model.compute_dtype bfloat16`` for the mixed model), then runs
+``cli self-feed --draws D --seed S [--batch_size B]`` for each seed.  Nothing
+is trained.
+
+Each draw is scored on two bases:
+
+* six macros: the ``combined_pvalue`` of ``self_feed_draws.json``, the
+  basis both packages score N=100 on today (``metrics.ks.combine_scored``:
+  ``stuck_cluster_size`` in place of the NaN-gated group macro);
+* five macros: a Fisher combine of the same ``per_macro`` over the five
+  reference macros, ``stuck_cluster_size`` left out, the basis of the
+  committed batteries (``egnn_n100_draws{,2}_ckpt30.json``), which predate
+  the sixth.
+
+It prints one line a draw, one a battery (best / median / worst on both
+bases, beside the committed battery of the same seed where there is one) and
+a last JSON line with everything.  On the card unless ``--device`` says
+otherwise.  ``--rescore FILE ...`` runs nothing and scores batteries already
+written (either package's ``self_feed_draws.json``) on both bases.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import tempfile
+import time
+
+from .metrics.ks import SCORED_MACROS, fisher_combine
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIDELITY = os.path.join(REPO, "docs", "results", "fidelity_n100")
+CKPT = os.path.join(FIDELITY, "egnn_n100_ckpt_30_model.ckpt")
+# the committed batteries of the checkpoint, by seed
+COMMITTED = {281: os.path.join(FIDELITY, "egnn_n100_draws_ckpt30.json"),
+             9272: os.path.join(FIDELITY, "egnn_n100_draws2_ckpt30.json")}
+# the study protocol that trained the checkpoint (README section 3)
+STUDY_RUN_ARGV = ["--dataloader.batch_size", "16",
+                  "--dataloader.gravity_dataset.num_atoms", "100",
+                  "--dataloader.gravity_dataset.sim_length", "2500",
+                  "--trainer.self_feed_limit_steps", "249"]
+
+
+def five_macro_p(per: dict) -> float:
+    """Fisher over the five reference macros of a ``per_macro`` dict (its
+    NaN-gated group macro dropped, ``stuck_cluster_size`` left out): the basis
+    of the batteries committed before the sixth macro."""
+    return fisher_combine([per.get(k, float("nan")) for k in SCORED_MACROS])
+
+
+def bases(draws) -> dict:
+    """``{"six": [...], "five": [...], "survived": [...]}`` of a battery's
+    draws; six is NaN for a draw scored before the sixth macro existed."""
+    nan = float("nan")
+    return {"six": [d["combined_pvalue"] if "stuck_cluster_size" in d["per_macro"] else nan
+                    for d in draws],
+            "five": [five_macro_p(d["per_macro"]) for d in draws],
+            "survived": [d["steps_survived"] for d in draws]}
+
+
+def spread(ps) -> dict:
+    """Best, median and worst of finite p-values (NaN where there are none)."""
+    ok = sorted(p for p in ps if p == p)
+    nan = float("nan")
+    return {"best": ok[-1] if ok else nan, "median": statistics.median(ok) if ok else nan,
+            "worst": ok[0] if ok else nan}
+
+
+def committed(seed: int):
+    """The committed battery of ``seed`` (five-macro, as it was scored) and
+    each draw's survived, or None."""
+    path = COMMITTED.get(seed)
+    if path is None or not os.path.exists(path):
+        return None
+    with open(path) as f:
+        b = bases(json.load(f)["draws"])
+    return {"five": b["five"], "survived": b["survived"]}
+
+
+def make_study_run_dir(run_dir: str, compute_dtype: str = "float32", checkpoint: str = CKPT) -> str:
+    """A run dir of the study protocol around ``checkpoint`` (the committed
+    one by default)."""
+    from .train.restore import make_run_dir
+
+    argv = list(STUDY_RUN_ARGV)
+    if compute_dtype != "float32":
+        argv += ["--model.compute_dtype", compute_dtype]
+    return make_run_dir(run_dir, argv, checkpoint)
+
+
+def _fmt(s: dict) -> str:
+    return " ".join(f"{k}={v:.3e}" for k, v in s.items())
+
+
+def run_battery(run_dir: str, seed: int, draws: int, device: str, out: str,
+                batch_size=None) -> dict:
+    """``cli self-feed`` on ``run_dir``; the battery on both bases."""
+    from .cli import self_feed_main
+
+    t0 = time.perf_counter()
+    argv = ["--run_dir", run_dir, "--draws", str(draws), "--seed", str(seed), "--out", out,
+            "--device", device]
+    summary = self_feed_main(argv + (["--batch_size", str(batch_size)] if batch_size else []))
+    seconds = time.perf_counter() - t0
+    b = bases(summary["draws"])
+    return {"seed": seed, "draws": draws, "seconds": seconds, **b,
+            "six_spread": spread(b["six"]), "five_spread": spread(b["five"]),
+            "committed": committed(seed)}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--seeds", type=int, nargs="+", default=[281, 9272])
+    p.add_argument("--compute-dtypes", nargs="+", default=["float32", "bfloat16"],
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--draws", type=int, default=6)
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="sims a draw (default: the protocol's 16)")
+    p.add_argument("--checkpoint", default=CKPT,
+                   help="the checkpoint to score (default: the committed one, whose committed "
+                   "batteries are printed beside)")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--out", default=None, help="where the run dirs go (default: a temporary "
+                   "directory, removed at the end)")
+    p.add_argument("--rescore", nargs="+", default=None, metavar="JSON",
+                   help="score these self_feed_draws.json files on both bases, and run nothing")
+    args = p.parse_args(argv)
+
+    if args.rescore:
+        results = []
+        for path in args.rescore:
+            with open(path) as f:
+                b = bases(json.load(f)["draws"])
+            for i, (surv, six, five) in enumerate(zip(b["survived"], b["six"], b["five"])):
+                print(f"  {path} draw {i}: survived={surv} six-macro p={six:.3e} "
+                      f"five-macro p={five:.3e}", flush=True)
+            print(f"[rescore {path}] six-macro {_fmt(spread(b['six']))}; five-macro "
+                  f"{_fmt(spread(b['five']))}", flush=True)
+            results.append({"file": path, **b})
+        print(json.dumps({"rescore": results}), flush=True)
+        return results
+
+    results = []
+    with tempfile.TemporaryDirectory() as tmp:
+        root = args.out or tmp
+        for dtype in args.compute_dtypes:
+            run_dir = make_study_run_dir(os.path.join(root, f"egnn_n100_{dtype}"), dtype,
+                                         args.checkpoint)
+            for seed in args.seeds:
+                r = run_battery(run_dir, seed, args.draws, args.device,
+                                os.path.join(run_dir, f"battery_seed{seed}"), args.batch_size)
+                r.update(compute_dtype=dtype, checkpoint=args.checkpoint,
+                         batch_size=args.batch_size or 16)
+                if os.path.abspath(args.checkpoint) != CKPT or r["batch_size"] != 16:
+                    r["committed"] = None  # the committed batteries scored another run
+                for i, (surv, six, five) in enumerate(zip(r["survived"], r["six"], r["five"])):
+                    print(f"  {dtype} seed {seed} draw {i}: survived={surv} six-macro p={six:.3e} "
+                          f"five-macro p={five:.3e}", flush=True)
+                line = (f"[battery {dtype} seed {seed}] {r['seconds']:.2f} s; six-macro "
+                        f"{_fmt(r['six_spread'])}; five-macro {_fmt(r['five_spread'])}")
+                if r["committed"]:
+                    line += (f"; committed five-macro {_fmt(spread(r['committed']['five']))}, "
+                             f"survived {r['committed']['survived']}")
+                print(line, flush=True)
+                results.append(r)
+    print(json.dumps({"battery": results}), flush=True)
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -128,9 +128,10 @@ def refuse_grad(name: str, tensors) -> None:
     differentiate raises instead of dropping the gradient."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward yet, and an input requires grad; "
-            "run it under torch.no_grad() (ROADMAP.md, queue 1: training and the plain "
-            "edge path)")
+            f"{name}: the CUDA kernel has no backward, and an input requires grad; "
+            "run it under torch.no_grad(), or differentiate the plain edge stage: "
+            "EGNNMC(edge_impl=\"dense\") (or forward(..., edge_impl=\"dense\")), as the "
+            "trainer does")
 
 
 def launch_blocks(B: int, N: int, sms: int) -> int:

@@ -12,10 +12,11 @@ the model's configured edge stage (kernel K1 on the card) under
 ``torch.no_grad()``, then the macro and energy KS tests, with the JAX
 package's run-dir artifacts.
 
-Epochs, metric names, checkpoints, crash handling and the run-dir layout
-(``runs/<model>/<timestamp>[__<run_name>]``) are the JAX trainer's.  Not ported
-yet, and refused: the multi-device mesh, PONITA's calibration and the
-per-layer debug statistics.  On the card the edge kernel K1 and the GT
+Epochs, metric names, checkpoints, crash handling, the run-dir layout
+(``runs/<model>/<timestamp>[__<run_name>]``) and the per-layer debug statistics
+(``debug_layer_stats_every``, ``evaluation.layer_stats``) are the JAX
+trainer's.  Not ported yet, and refused: the multi-device mesh and PONITA's
+calibration.  On the card the edge kernel K1 and the GT
 integrator compute float32 (K1 also bf16 operands in the mixed model), so a
 ``double``, ``bfloat16`` or ``autocast`` run there needs the model's
 ``edge_impl="dense"``.
@@ -38,17 +39,19 @@ from ..core import graph as G
 from ..core.physics import energy_series
 from ..core.scene import Scene
 from ..data.gravity_otf import GravityDatasetOtf
+from ..evaluation import layer_stats
 from ..metrics import artifacts
 from ..metrics.ks import fisher_combine, ks_p
 from ..models import create_model
 from ..ops import _build
 from ..rollout.self_feed import run_self_feed
-from ..utils.config import namespace_to_dict, save_config
+from ..utils.config import save_config
 from ..weights import opt_state_from_jax, params_from_jax, params_to_jax
 from .checkpoint import load_checkpoint, save_checkpoint
 from .logging_utils import MetricsLogger, RunningMean
 from .losses import build_loss_fn, percentage_errors
 from .optim import NoamAdamW, create_optimizer
+from .restore import write_run_files
 
 ENERGY_ERROR_THRESHOLDS = [2.5, 5]
 
@@ -189,9 +192,6 @@ class Trainer:
 
     def _refuse_what_is_not_ported(self) -> None:
         a = self.args
-        if getattr(a, "debug_layer_stats_every", None):
-            raise NotImplementedError("debug_layer_stats_every needs evaluation/layer_stats.py, "
-                                      "not ported yet: ROADMAP.md, queue 1 item 8")
         if a.model_type == "ponita":
             raise NotImplementedError("PONITA (and its calibration) is not ported yet: "
                                       "ROADMAP.md, queue 1 item 6")
@@ -210,17 +210,7 @@ class Trainer:
     # ------------------------------------------------------------------ io
 
     def _save_run_artifacts(self):
-        with open(os.path.join(self.save_dir_path, "training_args.json"), "w") as f:
-            json.dump({"args": namespace_to_dict(self.args)}, f, indent=4, default=str)
-        with open(os.path.join(self.save_dir_path, "model_params.json"), "w") as f:
-            attrs = {k: v for k, v in getattr(self.model, "init_kwargs", {}).items()
-                     if isinstance(v, (int, float, str, bool, tuple, list, type(None)))}
-            attrs["num_params"] = self.n_params
-            json.dump(attrs, f, indent=4, default=str)
-        ds_dir = os.path.join(self.save_dir_path, f"{self.args.dataset_name}_dataset")
-        os.makedirs(ds_dir, exist_ok=True)
-        with open(os.path.join(ds_dir, "metadata.json"), "w") as f:
-            json.dump(self.dataset.get_serializable_attributes(), f, indent=4)
+        write_run_files(self.save_dir_path, self.args, self.model, self.dataset)
 
     def save_model(self, filename: str = "model.ckpt", final: bool = False):
         names = [n for n, _ in self.model.named_parameters()]
@@ -272,13 +262,25 @@ class Trainer:
 
     # ---------------------------------------------------------------- train
 
+    def log_layer_stats(self, scene: Scene) -> Dict[str, float]:
+        """Append the model's per-layer statistics on ``scene`` (on its
+        training graph) to ``layer_stats.jsonl``; one fetch."""
+        stats = layer_stats.capture(self.model, scene, G.knn_mask(scene.pos, self.num_neighbors))
+        record = layer_stats.record(self.step_count, stats)
+        with open(os.path.join(self.save_dir_path, "layer_stats.jsonl"), "a") as f:
+            f.write(json.dumps(record) + "\n")
+        return record
+
     def train_one_epoch(self) -> Dict[str, float]:
         n_steps = self.args.steps_per_epoch
         t_epoch = time.time()
         examples = 0
+        stats_every = getattr(self.args, "debug_layer_stats_every", None)
         vecs = []  # per-step metric vectors, on the device until the epoch ends
-        for _ in range(n_steps):
+        for step_i in range(n_steps):
             scene, y = self.dataset.get_batch()
+            if stats_every and step_i % int(stats_every) == 0:
+                self.log_layer_stats(_cast(scene, self.dtype))
             vecs.append(self._train_step(scene, y))
             examples += scene.pos.shape[0]
         arr = torch.stack(vecs).cpu().numpy()  # the epoch's one fetch

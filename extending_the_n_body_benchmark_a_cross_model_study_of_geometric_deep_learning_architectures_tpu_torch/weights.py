@@ -70,13 +70,40 @@ def read_jax_checkpoint(path: str) -> Dict[str, Any]:
     return read_checkpoint(path)["params"]
 
 
+# the flax names of the JAX EGNNMC's top-level modules, which the maps below
+# follow: the embedding, and per target t a head ``MLP_t`` of ``TorchLinear_k``
+LINEAR = "TorchLinear_"
+EMBEDDING = f"{LINEAR}0"
+
+
+def head_name(t: int) -> str:
+    return f"MLP_{t}"
+
+
+def linear_name(k: int) -> str:
+    return f"{LINEAR}{k}"
+
+
+def flax_layer_paths(model) -> list:
+    """``[(module, [flax path, ...])]``: the port's ``EGNNMC`` modules under the
+    paths the JAX package's flax model gives their outputs, its top-level
+    layers only (what its ``capture_intermediates`` sees at depth <= 3):
+    the embedding (``TorchLinear_0`` and its ``Dense_0``), each head ``MLP_t``
+    and its layers ``MLP_t/TorchLinear_k``, and the model's own output ``""``."""
+    out = [(model.embedding, [EMBEDDING, f"{EMBEDDING}/Dense_0"])]
+    for t, head in enumerate(model.heads):
+        out.append((head, [head_name(t)]))
+        out += [(lin, [f"{head_name(t)}/{linear_name(k)}"]) for k, lin in enumerate(head.layers)]
+    return out + [(model, [""])]
+
+
 def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C"))  # a writable copy
 
 
 def _linears(node: Dict[str, Any]) -> list:
     """The ``TorchLinear_k`` children of a flax ``MLP`` node, in order."""
-    keys = sorted((k for k in node if k.startswith("TorchLinear_")),
+    keys = sorted((k for k in node if k.startswith(LINEAR)),
                   key=lambda k: int(k.rsplit("_", 1)[1]))
     return [node[k]["Dense_0"] for k in keys]
 
@@ -86,7 +113,7 @@ def params_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
     ``EGNNMC.state_dict()`` keys."""
     p = params.get("params", params)
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-    emb = p["TorchLinear_0"]["Dense_0"]
+    emb = p[EMBEDDING]["Dense_0"]
     sd["embedding.weight"] = _tensor(emb["kernel"].T)
     sd["embedding.bias"] = _tensor(emb["bias"])
 
@@ -103,8 +130,8 @@ def params_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
                 sd[f"{pre}{port_name}.layers.{k}.bias"] = _tensor(dense["bias"][layer])
 
     t = 0
-    while f"MLP_{t}" in p:
-        for k, dense in enumerate(_linears(p[f"MLP_{t}"])):
+    while head_name(t) in p:
+        for k, dense in enumerate(_linears(p[head_name(t)])):
             sd[f"heads.{t}.layers.{k}.weight"] = _tensor(dense["kernel"].T)
             sd[f"heads.{t}.layers.{k}.bias"] = _tensor(dense["bias"])
         t += 1
@@ -123,7 +150,7 @@ def _mlp(sd, prefix: str) -> Dict[str, Any]:
     """The flax ``MLP`` node of the port's ``MLP`` at ``prefix`` (one layer)."""
     out, k = {}, 0
     while f"{prefix}.layers.{k}.weight" in sd:
-        out[f"TorchLinear_{k}"] = _dense(sd[f"{prefix}.layers.{k}.weight"],
+        out[linear_name(k)] = _dense(sd[f"{prefix}.layers.{k}.weight"],
                                          sd[f"{prefix}.layers.{k}.bias"])
         k += 1
     return out
@@ -133,7 +160,7 @@ def params_to_jax(sd) -> Dict[str, Any]:
     """The port's ``EGNNMC.state_dict()`` (or a dict of tensors on its keys) as
     the JAX package's ``EGNNMC`` params tree of numpy arrays: the inverse of
     :func:`params_from_jax`."""
-    p: Dict[str, Any] = {"TorchLinear_0": _dense(sd["embedding.weight"], sd["embedding.bias"])}
+    p: Dict[str, Any] = {EMBEDDING: _dense(sd["embedding.weight"], sd["embedding.bias"])}
     layers = 0
     while f"layers.{layers}.edge_w1" in sd:
         layers += 1
@@ -150,7 +177,7 @@ def params_to_jax(sd) -> Dict[str, Any]:
     p["Scan_EGNNBlock_0"] = scan
     t = 0
     while f"heads.{t}.layers.0.weight" in sd:
-        p[f"MLP_{t}"] = _mlp(sd, f"heads.{t}")
+        p[head_name(t)] = _mlp(sd, f"heads.{t}")
         t += 1
     return {"params": p}
 

@@ -409,8 +409,11 @@ def test_wrappers_refuse_to_drop_gradients(fake_card, kernel, op):
     args[w2] = args[w2].clone().requires_grad_(True)
     fn = EM.fused_egnn_messages if kernel == "k1" else ES.streaming_egnn_messages
     before = _counts()
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(RuntimeError, match="no backward") as refused:
         fn(*args)
+    # the remedy it names is the dense edge stage that training differentiates
+    assert 'edge_impl="dense"' in str(refused.value)
+    assert "ROADMAP" not in str(refused.value)
     assert _counts() == before and not fake_card.calls
     with torch.no_grad():
         fn(*args)
