@@ -7,7 +7,8 @@ Builds the port's CUDA kernels (nvcc, one process per source, in parallel)
 and its C++ macro library (g++) from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, then drives the port's
 paths through ``rollout.self_feed.run_self_feed`` with the committed N=100
-checkpoint of EGNN-MC (6 layers, width 128, fully connected): the bench
+checkpoint of EGNN-MC (6 layers, width 128, fully connected), and PONITA's
+paths with its committed 10M checkpoint (phases 25-29): the bench
 workload (B=64 sims of N=100 bodies, dense edge stage K1) and the big-N path
 (B=8 sims of N=512 bodies, streaming edge stage K3), each in f32 and in the
 mixed-bf16 model (``compute_dtype="bfloat16"``: hidden and message stack in
@@ -91,7 +92,31 @@ bf16, coordinates, geometry and integration in f32):
                    reference default (N=5, B=64): one epoch of 10 steps and a
                    20-step evaluation through K1 a trial, finite values, parameter
                    counts within the budget
- 25. bign          bign_bench rows: steps/s and peak memory, dense K1 against
+ 25. ponita        the committed PONITA checkpoint (docs/results/ponita10m_r5_partial:
+                   5 layers, width 480, 20 orientations) through the converter: a
+                   forward at B=64, N=5 on a fresh GT frame against the same model
+                   in float64 on the CPU; a fresh L5 h480 model calibrated on the
+                   card against the CPU's float64 calibration (15 statistics); the
+                   parameter count 9,990,041 (parameters and calibration statistics)
+ 26. ponita-rollout  GT at the reference workload (B=64, N=5, 10000 substeps,
+                   T=1000) through one K2-leapfrog launch, 999 self-feed steps (no
+                   kernel), six-macro KS score; 20 steps on the card against the CPU's
+                   float64 on 4 sims; the rollout repeated from the same GT bitwise
+                   equal, and its steps/s warm
+ 27. train-ponita  the train command with the queue's argv (--main.model_type ponita
+                   --model.num_layers 5 --model.hidden_features 480, B=64, N=5)
+                   resumed from the committed checkpoint and its AdamW state: 2
+                   epochs of 20 steps, its 999-step evaluation and KS score, the
+                   checkpoint read back bitwise in the JAX layout (calib included);
+                   step ms, busy share, peak memory; then a fresh initialisation
+                   that calibrates on its first batch, 10 steps, losses finite
+ 28. battery-ponita  `cli self-feed --draws 4 --seed 281` on a run dir of the queue's
+                   argv around the committed checkpoint (its bytes unchanged): 4
+                   K2-leapfrog launches; six- and five-macro p a draw, beside the
+                   checkpoint's recorded best survival (633 steps)
+ 29. hpo-ponita    hpo.run_study("ponita", 2 trials, param_small) at the reference
+                   default: one epoch of 10 steps and a 20-step evaluation a trial
+ 30. bign          bign_bench rows: steps/s and peak memory, dense K1 against
                    streaming K3, at (N,B) = (256,16), (512,8), (1024,2), (4096,1)
 
 Each phase prints one line with its result and elapsed seconds.  Any failed
@@ -225,6 +250,30 @@ INF_STEPS = 20
 # HPO at the reference default: trials of one epoch of 10 steps, 20-step evaluations
 HPO_TRIALS, HPO_EVAL_STEPS = 2, 20
 
+# PONITA: the committed 10M checkpoint (L5 h480, 20 orientations, epoch 90),
+# trained by the queue step scripts/queues/tpu_queue48.sh:63-64 at the
+# reference workload (N=5, B=64, sim_length 10000: T=1000, 999 rollout steps)
+PONITA_CKPT = os.path.join(REPO, "docs", "results", "ponita10m_r5_partial", "model.ckpt")
+PONITA_KW = dict(num_layers=5, hidden_features=480)
+PONITA_ARGV = ["--main.model_type", "ponita", "--model.num_layers", "5",
+               "--model.hidden_features", "480"]
+PONITA_PARAMS = 9_990_041  # 9,990,026 parameters and 15 calibration statistics
+PONITA_B, PONITA_N, PONITA_SUBSTEPS = 64, 5, 10000
+PONITA_FRAMES = PONITA_SUBSTEPS // SAMPLE_FREQ
+PONITA_EPOCH, PONITA_COUNT = 90, 90000  # the checkpoint's epoch and AdamW count
+# the card's f32 forward against the CPU's float64 one: 5 layers of f32 sums
+# (over 4 senders, 480 and 1920 channels, 20 orientations) hold ~1e-6 of the
+# largest output; 1e-4 of it is the gate.  The calibration's 15 statistics:
+# 1e-5 relative (population stds of f32 tensors of 3-15M elements)
+PONITA_FWD_RTOL, PONITA_CALIB_RTOL = 1e-4, 1e-5
+# the card's 20 closed-loop steps against the CPU's float64 ones, on the first
+# PONITA_CMP_B sims: within 1e-3 of the largest position, or 100 times the
+# spread a 1e-7 nudge of frame 0 gives the CPU alone where that is larger
+PONITA_CMP_B, PONITA_ROLL_RTOL, PONITA_NUDGE_FACTOR = 4, 1e-3, 100.0
+PONITA_TRAIN_EPOCHS, PONITA_TRAIN_STEPS, PONITA_FRESH_STEPS = 2, 20, 10
+# the checkpoint's battery: seed 281, as the queue's pipeline drew it
+PONITA_DRAWS, PONITA_BEST_STEPS = 4, 633  # best_metrics {"self_feed_steps": 633}
+
 # H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, dense bf16 on the tensor
 # cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -286,6 +335,8 @@ def main() -> None:
         battery = importlib.import_module(f"{PKG}.battery")
         inferencer = importlib.import_module(f"{PKG}.rollout.inferencer")
         hpo = importlib.import_module(f"{PKG}.hpo.hpo")
+        restore = importlib.import_module(f"{PKG}.train.restore")
+        ponita = importlib.import_module(f"{PKG}.models.ponita")
     except ImportError as e:
         fail(f"the port's package is not importable from {REPO}: {e}")
     if not os.path.exists(CKPT):
@@ -719,10 +770,11 @@ def main() -> None:
             self.t_end = time.perf_counter()
             return self.gt
 
-    def drive(model_, bb: int, nn_: int, substeps: int, seed: int, edge_kernel: str) -> dict:
+    def drive(model_, bb: int, nn_: int, substeps: int, seed: int, edge_kernel) -> dict:
         """One counted run of a path: fresh GT through K2, then the self-feed
-        rollout, which must launch ``edge_kernel`` once per layer and step and
-        no other kernel."""
+        rollout, which must launch ``edge_kernel`` once per layer and step (a
+        model without an edge stage: None, no kernel at all) and no other
+        kernel."""
         frames = substeps // SAMPLE_FREQ
         ds = TimedDataset(otf.GravityDatasetOtf(
             batch_size=bb, sim_length=substeps, sample_freq=SAMPLE_FREQ, num_nodes=nn_,
@@ -741,7 +793,8 @@ def main() -> None:
                  "no K2, no edge kernel)")
         rolled = {k: total[k] - ds.counts[k] for k in total}
         want = dict.fromkeys(counters, 0)
-        want[edge_kernel] = LAYERS * (frames - 1)
+        if edge_kernel is not None:
+            want[edge_kernel] = LAYERS * (frames - 1)
         if rolled != want:
             fail(f"the rollout at N={nn_} launched {rolled}, want {want}")
         if tuple(loc_pred.shape) != (bb, frames, nn_, 3) or not torch.isfinite(loc_pred).all():
@@ -1060,11 +1113,12 @@ def main() -> None:
         update, by CUDA events around each, averaged over TIMED_STEPS steps."""
         model, optim, loss_fn = trainer.model, trainer.optim, trainer.loss_fn
         mask = graph.knn_mask(scene.pos, trainer.num_neighbors)
+        dense = {"edge_impl": "dense"} if models.has_edge_stage(model) else {}
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         split = np.zeros(3)
         for _ in range(TIMED_STEPS):
             ev[0].record()
-            loss, _ = loss_fn(model(scene, mask, edge_impl="dense"), scene, y)
+            loss, _ = loss_fn(model(scene, mask, **dense), scene, y)
             ev[1].record()
             optim.optimizer.zero_grad(set_to_none=True)
             loss.backward()
@@ -1075,15 +1129,15 @@ def main() -> None:
             split += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
         return dict(zip(("forward_ms", "backward_ms", "update_ms"), split / TIMED_STEPS))
 
-    def top_kernels(trainer, scene, y, n: int = 6):
-        """``(device busy ms a step, its top kernels)`` over 3 steps, from
-        torch.profiler's kernel events (user annotations left out), or None and
-        why there is no such list."""
+    def top_kernels(step, n: int = 6):
+        """``(device busy ms a call of step(), its top kernels)`` over 3 calls,
+        from torch.profiler's kernel events (user annotations left out), or
+        None and why there is no such list."""
         try:
             acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
             with torch.profiler.profile(activities=acts) as prof:
                 for _ in range(3):
-                    trainer._train_step(scene, y)
+                    step()
                 sync()
             by_name = collections.Counter()
             for e in prof.events():
@@ -1165,7 +1219,7 @@ def main() -> None:
         scene, y = trainer.dataset.get_batch()
         timing = time_steps(trainer, scene, y)
         split = step_split(trainer, scene, y)
-        busy_ms, kernels_top = top_kernels(trainer, scene, y)
+        busy_ms, kernels_top = top_kernels(lambda: trainer._train_step(scene, y))
 
         # one step on the card against the same step on the CPU in float64
         payload = weights.read_checkpoint(CKPT)
@@ -1233,7 +1287,7 @@ def main() -> None:
         scene, y = trainer.dataset.get_batch()
         timing_n5 = time_steps(trainer, scene, y)
         split_n5 = step_split(trainer, scene, y)
-        busy_n5, top_n5 = top_kernels(trainer, scene, y)
+        busy_n5, top_n5 = top_kernels(lambda: trainer._train_step(scene, y))
         del trainer, run["trainer"]
     print(f"  train-n5: step split {' '.join(f'{k}={v:.3f}' for k, v in split_n5.items())}; "
           f"device busy {busy_share(busy_n5, timing_n5['ms'])}; top kernels: {top_n5}",
@@ -1441,7 +1495,301 @@ def main() -> None:
     report("hpo", t0, trials=len(trials), mode="param_small", best_value=f"{best['value']:.4f}",
            k1_launches=got["k1"], leapfrog_launches=got["leapfrog"])
 
-    # --------------------------------------------------------------- 25. bign
+    # ------------------------------------------------------------- 25. ponita
+    # the committed PONITA checkpoint through the converter, on the card: a
+    # forward on a fresh GT frame against the same model in float64 on the CPU;
+    # the calibration of a fresh L5 h480 model, card against CPU float64; the
+    # parameter count.  PONITA is plain PyTorch: no kernel but the GT's
+    t0 = time.perf_counter()
+    payload_p = weights.read_checkpoint(PONITA_CKPT)
+    pmodel = models.create_model("ponita", device=dev, **PONITA_KW)
+    pmodel.load_state_dict(weights.params_from_jax(payload_p["params"], "ponita"))
+    pmodel.eval()
+    pcpu = models.create_model("ponita", device="cpu", dtype=torch.float64, **PONITA_KW)
+    pcpu.load_state_dict(pmodel.state_dict())
+    pcpu.eval()
+    n_params_p = models.count_params(pmodel)
+    n_params_hpo = hpo._count_params("ponita", PONITA_KW, PONITA_N)
+    if n_params_p != PONITA_PARAMS or n_params_hpo != PONITA_PARAMS:
+        fail(f"ponita: {n_params_p} parameters ({n_params_hpo} by hpo), want {PONITA_PARAMS}")
+    reset_counts()
+    gt_p = otf.GravityDatasetOtf(
+        batch_size=PONITA_B, sim_length=PONITA_SUBSTEPS, sample_freq=SAMPLE_FREQ,
+        num_nodes=PONITA_N, interaction_strength=G_CONST, softening=SOFTENING, seed=20,
+        device=dev).get_ground_truth_trajectories()
+    sync()
+    eval_counts["ponita"] = counted({"leapfrog": 1}, "ponita")
+
+    def cpu64(s):
+        return Scene(*(t_.detach().cpu().double() for t_ in (s.pos, s.vel, s.force, s.mass)))
+
+    def fc(s):
+        return graph.knn_mask(s.pos, s.pos.shape[1] - 1)
+
+    scene_p = Scene(pos=gt_p[0][:, 0], vel=gt_p[1][:, 0], force=gt_p[2][:, 0], mass=gt_p[3])
+    scene_c = cpu64(scene_p)
+    with torch.no_grad():
+        out_card = pmodel(scene_p, fc(scene_p))
+        out_cpu = pcpu(scene_c, fc(scene_c))
+        fwd_ms = cuda_ms(lambda: pmodel(scene_p, fc(scene_p)), iters=20)
+        busy_fwd, top_fwd = top_kernels(lambda: pmodel(scene_p, fc(scene_p)), n=8)
+    fwd_err = (out_card.double().cpu() - out_cpu).abs().max().item()
+    fwd_scale = out_cpu.abs().max().item()
+    if not (torch.isfinite(out_card).all() and fwd_err <= PONITA_FWD_RTOL * fwd_scale):
+        fail(f"ponita: the card's forward differs from the CPU's float64 one by {fwd_err} "
+             f"(max |out| {fwd_scale}, rtol {PONITA_FWD_RTOL})")
+    # the forward's operations (multiply-adds count 2) and its bound: rows of
+    # edge-orientations and of node-orientations, f32 at the card's peak
+    O_, H_, Kb = pmodel.num_ori, pmodel.hidden_features, 128
+    e_rows, n_rows = PONITA_B * PONITA_N * PONITA_N * O_, PONITA_B * PONITA_N * O_
+    fwd_flops = 2.0 * e_rows * (14 * H_ + H_ * Kb) + PONITA_KW["num_layers"] * (
+        2.0 * e_rows * Kb * H_ + 3.0 * e_rows * H_ + 2.0 * PONITA_B * PONITA_N * O_ * O_ * H_
+        + 2.0 * n_rows * 8 * H_ * H_ + 2.0 * n_rows * H_ * 2)
+    fwd_bound = fwd_flops / PEAK_F32_FLOPS * 1e3
+    # a fresh initialisation calibrated on the card and on the CPU in float64
+    torch.manual_seed(12)
+    fresh_cpu = models.create_model("ponita", device="cpu", dtype=torch.float64, **PONITA_KW)
+    fresh_card = models.create_model("ponita", device=dev, **PONITA_KW)
+    fresh_card.load_state_dict(fresh_cpu.state_dict())
+    ponita.calibrate_params(fresh_card, scene_p, fc(scene_p))
+    ponita.calibrate_params(fresh_cpu, scene_c, fc(scene_c))
+    calib_err = 0.0
+    for k, (bc, bf) in enumerate(zip(fresh_card.blocks, fresh_cpu.blocks)):
+        for stat in ponita.CALIB_STATS:
+            got, want = float(getattr(bc.conv, stat)), float(getattr(bf.conv, stat))
+            rel = abs(got - want) / abs(want)
+            if not (want > 0 and rel <= PONITA_CALIB_RTOL):
+                fail(f"ponita: calibration {stat} of block {k}: card {got}, CPU f64 {want}")
+            calib_err = max(calib_err, rel)
+    del fresh_cpu, fresh_card
+    print(f"  ponita: forward, device busy {busy_share(busy_fwd, fwd_ms)}; top kernels: "
+          f"{top_fwd}", flush=True)
+    report("ponita", t0, B=PONITA_B, N=PONITA_N, layers=PONITA_KW["num_layers"], width=H_,
+           num_ori=O_, n_params=n_params_p, fwd_max_abs_err=f"{fwd_err:.3e}",
+           max_abs_out=f"{fwd_scale:.3e}", rtol=PONITA_FWD_RTOL, fwd_ms=f"{fwd_ms:.4f}",
+           fwd_bound_ms=f"{fwd_bound:.4f}", fwd_gflop=f"{fwd_flops / 1e9:.2f}",
+           calib_stats=3 * len(pmodel.blocks), calib_max_rel_err=f"{calib_err:.3e}",
+           calib_rtol=PONITA_CALIB_RTOL, leapfrog_launches=eval_counts["ponita"]["leapfrog"])
+
+    # ----------------------------------------------------- 26. ponita-rollout
+    # GT at the reference workload through one K2-leapfrog launch, 999 counted
+    # self-feed steps (no kernel), the six-macro score; 20 steps on the card
+    # against the CPU's float64; the rollout repeated bitwise, and timed warm
+    t0 = time.perf_counter()
+    run_p = drive(pmodel, PONITA_B, PONITA_N, PONITA_SUBSTEPS, 21, None)
+    eval_counts["ponita_rollout"] = run_p["counts"]
+    score("ponita-score", run_p["loc_gt"], run_p["vel_gt"], run_p["loc_pred"], run_p["vel_pred"])
+    loc0, vel0, force0, mass0 = run_p["gt"]
+    sub = Scene(pos=loc0[:PONITA_CMP_B, 0], vel=vel0[:PONITA_CMP_B, 0],
+                force=force0[:PONITA_CMP_B, 0], mass=mass0[:PONITA_CMP_B])
+    sub_c = cpu64(sub)
+    nudged = Scene(pos=sub_c.pos * (1 + 1e-7), vel=sub_c.vel, force=sub_c.force, mass=sub_c.mass)
+    loc_k, _, surv_k = self_feed.make_rollout_fn(pmodel, COMPARE_STEPS + 1)(sub)
+    short_c = self_feed.make_rollout_fn(pcpu, COMPARE_STEPS + 1)
+    loc_c, _, surv_c = short_c(sub_c)
+    loc_n, _, _ = short_c(nudged)
+    d_kc = (loc_k.double().cpu() - loc_c).abs().max().item()
+    d_nc = (loc_n - loc_c).abs().max().item()
+    pos_scale = loc_c.abs().max().item()
+    roll_limit = max(PONITA_ROLL_RTOL * pos_scale, PONITA_NUDGE_FACTOR * d_nc)
+    if not (torch.isfinite(loc_k).all() and d_kc <= roll_limit):
+        fail(f"ponita-rollout: {COMPARE_STEPS} steps on the card differ from the CPU's float64 "
+             f"ones by {d_kc} (limit {roll_limit}; max |pos| {pos_scale}, nudged spread {d_nc})")
+    del pcpu, short_c
+    rollout_p = self_feed.make_rollout_fn(pmodel, PONITA_FRAMES, target=run_p["target"])
+    scene0_p = Scene(pos=loc0[:, 0], vel=vel0[:, 0], force=force0[:, 0], mass=mass0)
+    reset_counts()
+    t = time.perf_counter()
+    loc2, vel2, surv2 = rollout_p(scene0_p)
+    sync()
+    warm_s = time.perf_counter() - t
+    counted({}, "ponita-rollout (repeated)")
+    if not (torch.equal(loc2, run_p["loc_pred"]) and torch.equal(vel2, run_p["vel_pred"])
+            and int(surv2.min()) == run_p["survived_min"]):
+        fail("ponita-rollout: the rollout repeated from the same GT differs")
+    survived_p = surv2.float().cpu()
+    del loc2, vel2
+    report("ponita-rollout", t0, B=PONITA_B, N=PONITA_N, steps=PONITA_FRAMES - 1,
+           leapfrog_launches=run_p["counts"]["leapfrog"], rollout_s=f"{run_p['seconds']:.3f}",
+           survived_min=run_p["survived_min"],
+           survived_median=f"{survived_p.median().item():.0f}",
+           survived_max=f"{survived_p.max().item():.0f}",
+           steps_per_s_first=f"{(PONITA_FRAMES - 1) / run_p['seconds']:.2f}",
+           steps_per_s_warm=f"{(PONITA_FRAMES - 1) / warm_s:.2f}",
+           ms_per_step_warm=f"{warm_s * 1e3 / (PONITA_FRAMES - 1):.3f}",
+           rollout_bitwise_equal=True,
+           **{f"max_dpos_{COMPARE_STEPS}_steps_card_vs_cpu64": f"{d_kc:.3e}",
+              "max_dpos_nudged_cpu64": f"{d_nc:.3e}", "cmp_sims": PONITA_CMP_B,
+              "survived_min_card/cpu64": f"{int(surv_k.min())}/{int(surv_c.min())}"})
+    del run_p
+
+    # ------------------------------------------------------- 27. train-ponita
+    # the train command with the queue's argv at the reference workload,
+    # resumed from the committed checkpoint and its AdamW state: 2 epochs of 20
+    # steps, its self-feed evaluation (999 steps) and KS score, the checkpoint
+    # read back bitwise in the JAX layout; step ms, busy share, peak memory.
+    # Then a fresh initialisation that calibrates on its first batch, 10 steps
+    def key_shapes(tree, prefix=()) -> set:
+        if isinstance(tree, dict):
+            return set().union(*(key_shapes(v, prefix + (k,)) for k, v in tree.items()))
+        if type(tree) is tuple:
+            return set().union(*(key_shapes(v, prefix + (i,)) for i, v in enumerate(tree)))
+        return {(prefix, np.shape(tree))}
+
+    t0 = time.perf_counter()
+    ponita_train_argv = PONITA_ARGV + [
+        "--trainer.steps_per_epoch", str(PONITA_TRAIN_STEPS),
+        "--trainer.train_steps", str(PONITA_EPOCH + PONITA_TRAIN_EPOCHS),
+        "--trainer.save_model_every", "1", "--trainer.test_macros_every", "1000",
+        "--dataloader.seed", "0", "--trainer.run_name", "ponita10m"]
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        resume = ["--trainer.model_path", shutil.copy(PONITA_CKPT, tmp)]
+        run = train_run(resume + ponita_train_argv, "train-ponita", PONITA_TRAIN_EPOCHS,
+                        PONITA_TRAIN_STEPS)
+        trainer = run["trainer"]
+        if (run["count0"] != PONITA_COUNT
+                or trainer.step_count != PONITA_EPOCH + PONITA_TRAIN_EPOCHS):
+            fail(f"train-ponita: resumed at count {run['count0']}, epoch {trainer.step_count}")
+        if trainer.n_params != PONITA_PARAMS:
+            fail(f"train-ponita: n_params {trainer.n_params}, want {PONITA_PARAMS}")
+        train_counts["train_ponita"] = run["counts"]
+        written = weights.read_checkpoint(os.path.join(trainer.save_dir_path, "model.ckpt"))
+        layout = key_shapes(payload_p["params"])
+        if not (key_shapes(written["params"]) == layout
+                and key_shapes(written["opt_state"]["mu"]) == layout
+                and key_shapes(written["opt_state"]["nu"]) == layout):
+            fail("train-ponita: the written checkpoint's params / mu / nu leave the JAX layout "
+                 "of the committed checkpoint (calib included)")
+        reset_counts()
+        t = time.perf_counter()
+        survived_t = trainer.run_self_feed_eval()
+        sync()
+        eval_s_p = time.perf_counter() - t
+        train_counts["train_ponita_eval"] = counted({"leapfrog": 1}, "train-ponita evaluation")
+        eval_dir = os.path.join(trainer.save_dir_path, "checkpoints", str(trainer.step_count))
+        read = artifacts.read_macro_jsons(eval_dir)
+        per_t, macro_p_t = ks.macro_ks_pvalues({k: v["ground truth"] for k, v in read.items()},
+                                               {k: v["predicted"] for k, v in read.items()})
+        with open(os.path.join(eval_dir, "nbody_macro_metrics.json")) as f:
+            energy_ps = json.load(f)["ks_pvalues"]
+        energy_p_t = energy_ps.pop("combined")
+        # an energy series whose values never meet GT's gives a KS p that
+        # underflows to 0; Fisher drops p = 0, so the combine of three such p
+        # is NaN ("no data"), in the JAX trainer too
+        energy_ok = all(0 <= p <= 1 for p in energy_ps.values()) and (
+            0 < energy_p_t <= 1 or (energy_p_t != energy_p_t and not any(energy_ps.values())))
+        if not (0 <= survived_t <= PONITA_FRAMES - 1 and 0 < macro_p_t <= 1 and energy_ok):
+            fail(f"train-ponita: survived {survived_t}, macro p {macro_p_t}, energy p "
+                 f"{energy_p_t} ({energy_ps})")
+        scene, y = trainer.dataset.get_batch()
+        timing_p = time_steps(trainer, scene, y)
+        split_p = step_split(trainer, scene, y)
+        busy_p, top_p = top_kernels(lambda: trainer._train_step(scene, y))
+        del trainer, run["trainer"]
+    ponita_train = run
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        run = train_run(PONITA_ARGV + [
+            "--trainer.steps_per_epoch", str(PONITA_FRESH_STEPS), "--trainer.train_steps", "1",
+            "--trainer.save_model_every", "1", "--trainer.test_macros_every", "1000",
+            "--trainer.seed", "0", "--dataloader.seed", "0", "--trainer.run_name", "fresh"],
+            "train-ponita-fresh", 1, PONITA_FRESH_STEPS)
+        convs = [blk.conv for blk in run["trainer"].model.blocks]
+        if any(float(getattr(c, s_)) == 1.0 for c in convs for s_ in ponita.CALIB_STATS):
+            fail("train-ponita: the fresh run's model was not calibrated on its first batch")
+        train_counts["train_ponita_fresh"] = run["counts"]
+        fresh_losses = run["losses"]
+        del run["trainer"]
+    print(f"  train-ponita: losses {' '.join(f'{x:.5f}' for x in ponita_train['epoch_losses'])}; "
+          f"AdamW count {ponita_train['count0']} -> {ponita_train['count']}, lr "
+          f"{ponita_train['lr']:.6e} (Noam {ponita_train['noam']:.6e}); step split "
+          f"{' '.join(f'{k}={v:.3f}' for k, v in split_p.items())}; device busy "
+          f"{busy_share(busy_p, timing_p['ms'])}; top kernels: {top_p}", flush=True)
+    report("train-ponita", t0, B=PONITA_B, N=PONITA_N,
+           steps=PONITA_TRAIN_EPOCHS * PONITA_TRAIN_STEPS,
+           leapfrog_launches_training=train_counts["train_ponita"]["leapfrog"],
+           train_s=f"{ponita_train['train_s']:.3f}", ms_per_step=f"{timing_p['ms']:.3f}",
+           steps_per_s=f"{timing_p['steps_per_s']:.2f}", peak_mib=f"{timing_p['peak_mib']:.1f}",
+           peak_above_start_mib=f"{timing_p['peak_above_start_mib']:.1f}",
+           busy_ms=("not measured" if busy_p is None else f"{busy_p:.3f}"),
+           eval_s=f"{eval_s_p:.3f}", eval_rollout_steps=PONITA_FRAMES - 1, survived=survived_t,
+           macro_combined_p=f"{macro_p_t:.3e}", energy_combined_p=f"{energy_p_t:.3e}",
+           energy_p="[" + " ".join(f"{k}={v:.3e}" for k, v in energy_ps.items()) + "]",
+           checkpoint="bitwise, JAX layout with calib",
+           fresh_steps=PONITA_FRESH_STEPS, fresh_calibrated=True,
+           fresh_loss_first=f"{fresh_losses[0].item():.5f}",
+           fresh_loss_last=f"{fresh_losses[-1].item():.5f}")
+
+    # ----------------------------------------------------- 28. battery-ponita
+    # `cli self-feed --draws 4 --seed 281` on a run dir of the queue's argv
+    # around the committed checkpoint (its bytes unchanged), each draw on the
+    # six-macro and the five-macro basis; the checkpoint's own record beside
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir_p = restore.make_run_dir(os.path.join(tmp, "ponita10m"), PONITA_ARGV, PONITA_CKPT)
+        with open(PONITA_CKPT, "rb") as f:
+            ckpt_bytes = f.read()
+        reset_counts()
+        cli.main(["self-feed", "--run_dir", run_dir_p, "--draws", str(PONITA_DRAWS),
+                  "--seed", str(BATTERY_SEED)])
+        sync()
+        battery_p_s = time.perf_counter() - t0
+        eval_counts["battery_ponita"] = counted({"leapfrog": PONITA_DRAWS}, "battery-ponita")
+        with open(os.path.join(run_dir_p, "model.ckpt"), "rb") as f:
+            if f.read() != ckpt_bytes:
+                fail("battery-ponita: the run dir's model.ckpt is not the committed bytes")
+        del ckpt_bytes
+        with open(os.path.join(run_dir_p, "generated_trajectories", "self_feed_draws.json")) as f:
+            draws_p = json.load(f)["draws"]
+    b = battery.bases(draws_p)
+    if len(draws_p) != PONITA_DRAWS or not all(0 <= p <= 1 for p in b["six"] + b["five"]):
+        fail(f"battery-ponita: {len(draws_p)} draws, six {b['six']}, five {b['five']}")
+    for i, (surv, six, five) in enumerate(zip(b["survived"], b["six"], b["five"])):
+        print(f"  battery-ponita: draw {i} survived={surv} six-macro p={six:.4g} "
+              f"five-macro p={five:.4g}", flush=True)
+    p6, p5 = battery.spread(b["six"]), battery.spread(b["five"])
+    report("battery-ponita", t0, battery_p_s, draws=PONITA_DRAWS, seed=BATTERY_SEED,
+           B=PONITA_B, N=PONITA_N, steps=PONITA_FRAMES - 1,
+           s_per_draw=f"{battery_p_s / PONITA_DRAWS:.3f}",
+           six_best=f"{p6['best']:.4g}", six_median=f"{p6['median']:.4g}",
+           six_worst=f"{p6['worst']:.4g}", five_best=f"{p5['best']:.4g}",
+           five_median=f"{p5['median']:.4g}", five_worst=f"{p5['worst']:.4g}",
+           survived=",".join(map(str, b["survived"])),
+           checkpoint_best_self_feed_steps=payload_p["best_metrics"].get("self_feed_steps"),
+           leapfrog_launches=eval_counts["battery_ponita"]["leapfrog"])
+    del payload_p, pmodel
+
+    # --------------------------------------------------------- 29. hpo-ponita
+    # two param_small trials of PONITA at the reference default, each one
+    # epoch of 10 steps and a 20-step evaluation
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        reset_counts()
+        best = hpo.run_study("ponita", trials=HPO_TRIALS, mode="param_small", study_dir="hpo",
+                             train_epochs=1, steps_per_epoch=10,
+                             self_feed_limit_steps=HPO_EVAL_STEPS, device=dev)
+        sync()
+        got = counts()
+        with open(os.path.join("hpo", "ponita_param_small_trials.jsonl")) as f:
+            trials = [json.loads(line) for line in f]
+    target = hpo.PARAM_TARGETS["param_small"]
+    for t in trials:
+        if not (t["status"] == "done" and np.isfinite(t["value"])
+                and abs(t["n_params"] - target) <= hpo.PARAM_TOLERANCE * target):
+            fail(f"hpo-ponita: trial {t}")
+    others = {k: v for k, v in got.items() if k != "leapfrog"}
+    if (len(trials) != HPO_TRIALS or any(others.values())
+            or not HPO_TRIALS <= got["leapfrog"] <= 2 * HPO_TRIALS):
+        fail(f"hpo-ponita: {len(trials)} trials launched {got}")
+    eval_counts["hpo_ponita"] = got
+    for t in trials:
+        print(f"  hpo-ponita: trial {t['number']} {t['model_kwargs']} n_params={t['n_params']} "
+              f"value={t['value']:.4f} {t['seconds']:.2f} s steps_per_min="
+              f"{t['steps_per_min']:.1f} peak_hbm_mb={t.get('peak_hbm_mb', float('nan')):.1f}",
+              flush=True)
+    report("hpo-ponita", t0, trials=len(trials), mode="param_small",
+           best_value=f"{best['value']:.4f}", leapfrog_launches=got["leapfrog"])
+
+    # --------------------------------------------------------------- 30. bign
     t0 = time.perf_counter()
     state = bign_bench.seeded_state(2)
     rows = []
@@ -1552,7 +1900,8 @@ def main() -> None:
             "library_ms": None,
         })
     # each kernel's launches on the training paths: [train]'s training (its
-    # first GT batch included), [train]'s evaluation, and [train-n5]
+    # first GT batch included), [train]'s evaluation, [train-n5], and
+    # [train-ponita]'s resumed training, its evaluation and its fresh run
     counter_of = {"egnn_messages (K1)": "k1", "gravity (K2)": "k2",
                   "gravity leapfrog (K2-leapfrog)": "leapfrog", "egnn_stream (K3)": "k3",
                   "egnn_messages bf16 (K1-bf16)": "k1_bf16",
@@ -1561,7 +1910,8 @@ def main() -> None:
     for entry in kernels:
         entry["launches_train"] = {path: c[counter_of[entry["name"]]]
                                    for path, c in train_counts.items()}
-        # ... and on the evaluation layer's paths
+        # ... and on the evaluation layer's paths and PONITA's ([ponita],
+        # [ponita-rollout], [battery-ponita], [hpo-ponita])
         entry["launches_eval"] = {path: c[counter_of[entry["name"]]]
                                   for path, c in eval_counts.items()}
     print(f"total {time.perf_counter() - T_START:.2f} s on {card}", flush=True)

@@ -2,8 +2,8 @@
 bases, through the ``self-feed`` main.
 
     python -m extending_the_n_body_benchmark_a_cross_model_study_of_geometric_deep_learning_architectures_tpu_torch.battery \\
-        [--seeds 281 9272] [--compute-dtypes float32 bfloat16] [--draws 6] [--batch-size B] \\
-        [--checkpoint PATH] [--device cuda] [--out DIR]
+        [--family egnn_mc|ponita] [--seeds 281 9272] [--compute-dtypes float32 bfloat16] \\
+        [--draws 6] [--batch-size B] [--checkpoint PATH] [--device cuda] [--out DIR]
 
 For each compute dtype it builds a run dir around the checkpoint (by default
 the committed ``docs/results/fidelity_n100/egnn_n100_ckpt_30_model.ckpt``;
@@ -12,7 +12,11 @@ the committed ``docs/results/fidelity_n100/egnn_n100_ckpt_30_model.ckpt``;
 B=16, sim_length 2500, T=250, ``self_feed_limit_steps`` 249; and
 ``--model.compute_dtype bfloat16`` for the mixed model), then runs
 ``cli self-feed --draws D --seed S [--batch_size B]`` for each seed.  Nothing
-is trained.
+is trained.  ``--family ponita`` scores PONITA instead (by default the
+committed ``docs/results/ponita10m_r5_partial/model.ckpt``, L5 h480, in f32)
+in a run dir of the queue step that trained it
+(``scripts/queues/tpu_queue48.sh:63-64``: the reference workload, N=5,
+B=64, T=1000, 999 steps a draw).
 
 Each draw is scored on two bases:
 
@@ -48,6 +52,10 @@ CKPT = os.path.join(FIDELITY, "egnn_n100_ckpt_30_model.ckpt")
 # the committed batteries of the checkpoint, by seed
 COMMITTED = {281: os.path.join(FIDELITY, "egnn_n100_draws_ckpt30.json"),
              9272: os.path.join(FIDELITY, "egnn_n100_draws2_ckpt30.json")}
+# the committed PONITA checkpoint and the run that trained it
+PONITA_CKPT = os.path.join(REPO, "docs", "results", "ponita10m_r5_partial", "model.ckpt")
+PONITA_RUN_ARGV = ["--main.model_type", "ponita", "--model.num_layers", "5",
+                   "--model.hidden_features", "480"]
 # the study protocol that trained the checkpoint (README section 3)
 STUDY_RUN_ARGV = ["--dataloader.batch_size", "16",
                   "--dataloader.gravity_dataset.num_atoms", "100",
@@ -124,21 +132,27 @@ def run_battery(run_dir: str, seed: int, draws: int, device: str, out: str,
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--family", choices=["egnn_mc", "ponita"], default="egnn_mc")
     p.add_argument("--seeds", type=int, nargs="+", default=[281, 9272])
     p.add_argument("--compute-dtypes", nargs="+", default=["float32", "bfloat16"],
                    choices=["float32", "bfloat16"])
     p.add_argument("--draws", type=int, default=6)
     p.add_argument("--batch-size", type=int, default=None,
                    help="sims a draw (default: the protocol's 16)")
-    p.add_argument("--checkpoint", default=CKPT,
-                   help="the checkpoint to score (default: the committed one, whose committed "
-                   "batteries are printed beside)")
+    p.add_argument("--checkpoint", default=None,
+                   help="the checkpoint to score (default: the family's committed one; the "
+                   "N=100 one's committed batteries are printed beside)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--out", default=None, help="where the run dirs go (default: a temporary "
                    "directory, removed at the end)")
     p.add_argument("--rescore", nargs="+", default=None, metavar="JSON",
                    help="score these self_feed_draws.json files on both bases, and run nothing")
     args = p.parse_args(argv)
+    ponita = args.family == "ponita"
+    if args.checkpoint is None:
+        args.checkpoint = PONITA_CKPT if ponita else CKPT
+    if ponita:
+        args.compute_dtypes = ["float32"]  # PONITA has no mixed-precision form
 
     if args.rescore:
         results = []
@@ -158,13 +172,19 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         root = args.out or tmp
         for dtype in args.compute_dtypes:
-            run_dir = make_study_run_dir(os.path.join(root, f"egnn_n100_{dtype}"), dtype,
-                                         args.checkpoint)
+            if ponita:
+                from .train.restore import make_run_dir
+
+                run_dir = make_run_dir(os.path.join(root, "ponita10m"), PONITA_RUN_ARGV,
+                                       args.checkpoint)
+            else:
+                run_dir = make_study_run_dir(os.path.join(root, f"egnn_n100_{dtype}"), dtype,
+                                             args.checkpoint)
             for seed in args.seeds:
                 r = run_battery(run_dir, seed, args.draws, args.device,
                                 os.path.join(run_dir, f"battery_seed{seed}"), args.batch_size)
-                r.update(compute_dtype=dtype, checkpoint=args.checkpoint,
-                         batch_size=args.batch_size or 16)
+                r.update(family=args.family, compute_dtype=dtype, checkpoint=args.checkpoint,
+                         batch_size=args.batch_size or (64 if ponita else 16))
                 if os.path.abspath(args.checkpoint) != CKPT or r["batch_size"] != 16:
                     r["committed"] = None  # the committed batteries scored another run
                 for i, (surv, six, five) in enumerate(zip(r["survived"], r["six"], r["five"])):

@@ -2,7 +2,7 @@
 and builds the model's neighbour mask.
 
 Counterpart of the JAX package's ``data/dataloaders.py``, for the on-the-fly
-gravity data that EGNN-MC trains on.  Its registry keeps the JAX package's
+gravity data that EGNN-MC and PONITA train on.  Its registry keeps the JAX package's
 keys; the offline charged-systems loader is not ported yet and raises.
 """
 
@@ -88,6 +88,7 @@ class OfflineSegnnDataLoader:
 
 DATALOADER_REGISTRY: Dict[str, Type] = {
     "egnn_mc_nbody": NBodyDataLoader,
+    "ponita_nbody": NBodyDataLoader,
     "segnn_nbody_offline": OfflineSegnnDataLoader,
 }
 

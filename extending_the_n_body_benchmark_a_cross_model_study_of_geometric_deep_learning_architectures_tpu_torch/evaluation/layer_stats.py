@@ -4,7 +4,7 @@
 With ``trainer.debug_layer_stats_every`` set, the trainer appends one record
 to ``<run>/layer_stats.jsonl`` every that many steps of an epoch:
 ``{"step": epoch, "debug/<flax path>.absmax|std|nan_or_inf": value}`` for
-the model's top-level layers, under the flax paths the JAX package's EGNNMC
+the model's top-level layers, under the flax paths the JAX package's model
 gives them (``weights.flax_layer_paths``), so the records of both packages
 read alike.  :func:`capture` takes them with forward hooks in one forward
 pass; the record costs one device-to-host fetch.  :func:`summarize` is the

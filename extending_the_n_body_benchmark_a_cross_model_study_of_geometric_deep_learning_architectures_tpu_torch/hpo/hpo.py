@@ -203,14 +203,15 @@ def _require_family(model_type: str) -> None:
 
 def _count_params(model_type: str, model_kwargs: Dict[str, Any], num_atoms: int) -> int:
     """The parameter count of ``model_type`` built with ``model_kwargs`` on the
-    meta device.  ``num_atoms`` is kept for the JAX signature: no family's
-    parameters depend on N."""
-    from ..models import create_model
+    meta device, as the JAX package counts it: every leaf of the params tree,
+    PONITA's calibration statistics (3 a layer) included.  ``num_atoms`` is
+    kept for the JAX signature: no family's parameters depend on N."""
+    from ..models import count_params, create_model
 
     _require_family(model_type)
     with torch.device("meta"):
         model = create_model(model_type, device="meta", **model_kwargs)
-    return sum(p.numel() for p in model.parameters())
+    return count_params(model)
 
 
 def _quantize_width(model_type: str, width: int, heads: int = 1) -> int:

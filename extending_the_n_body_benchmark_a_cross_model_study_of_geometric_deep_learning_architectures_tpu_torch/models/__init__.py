@@ -1,8 +1,9 @@
 """Model registry: ``create_model(model_type, **overrides)``.
 
-Counterpart of the JAX package's ``models/__init__.py``; this slice knows
-``egnn_mc`` only, with the JAX package's defaults for it.  Every model is an
-``nn.Module`` with the dense interface ``model(scene, mask) -> [B, N, 3k]``.
+Counterpart of the JAX package's ``models/__init__.py``; the port knows
+``egnn_mc`` and ``ponita``, with the JAX package's defaults for them.  Every
+model is an ``nn.Module`` with the dense interface ``model(scene, mask) ->
+[B, N, 3k]``.
 """
 
 from __future__ import annotations
@@ -12,8 +13,9 @@ from typing import Any, Dict
 import torch
 
 from .egnn_mc import EGNNMC
+from .ponita import PONITA
 
-MODEL_REGISTRY: Dict[str, Any] = {"egnn_mc": EGNNMC}
+MODEL_REGISTRY: Dict[str, Any] = {"egnn_mc": EGNNMC, "ponita": PONITA}
 
 MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
     "egnn_mc": dict(
@@ -29,6 +31,7 @@ MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
         norm_diff=True,
         tanh=True,
     ),
+    "ponita": dict(hidden_features=128, num_layers=8),
 }
 
 
@@ -40,3 +43,17 @@ def create_model(model_type: str, device="cuda", dtype=torch.float32, **override
     kwargs = dict(MODEL_DEFAULTS.get(model_type, {}))
     kwargs.update({k: v for k, v in overrides.items() if v is not None})
     return MODEL_REGISTRY[model_type](**kwargs).to(device=device, dtype=dtype)
+
+
+def has_edge_stage(model) -> bool:
+    """Whether ``model`` has an edge stage whose form ``edge_impl`` chooses
+    (EGNN-MC's kernel or dense forms); PONITA has none."""
+    return hasattr(model, "edge_impl")
+
+
+def count_params(model) -> int:
+    """The JAX package's parameter count: every leaf of the model's params tree,
+    which is every entry of the ``state_dict`` -- the parameters and, for
+    PONITA, the ``calib`` statistics (3 a layer) that its tree carries beside
+    them."""
+    return sum(t.numel() for t in model.state_dict().values())

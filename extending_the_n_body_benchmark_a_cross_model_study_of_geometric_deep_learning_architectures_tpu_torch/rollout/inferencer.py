@@ -53,7 +53,7 @@ class Inferencer:
         """Autoregressive rollout from ``scene0``: ``(loc [B,T,N,3],
         vel [B,T,N,3], steps_survived)``.  ``num_neighbors=None`` is fully
         connected; ``rng`` is the JAX package's dropout key, taken for its
-        signature's sake (EGNN-MC has no dropout)."""
+        signature's sake (neither ported family has dropout)."""
         key = (num_steps, num_neighbors)
         if key not in self._rollouts:
             self._rollouts[key] = make_rollout_fn(

@@ -92,8 +92,9 @@ def run_self_feed(
 
     ``train_mode`` rolls out with the model in training mode (``model.train()``,
     else ``model.eval()``), as the JAX package's rollout does with live dropout;
-    EGNN-MC has no dropout, so its numbers do not change.  ``rng`` is the JAX
-    package's dropout key, taken for its signature's sake.
+    neither ported family (EGNN-MC, PONITA) has dropout, so their numbers do not
+    change.  ``rng`` is the JAX package's dropout key, taken for its
+    signature's sake.
 
     Returns ``(loc_actual, vel_actual, loc_pred, vel_pred, steps_survived)``
     with ``[B, T, N, 3]`` tensors and the minimum over sims of ``survived``.

@@ -11,7 +11,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..data.gravity_otf import GravityDatasetOtf
-from ..models import create_model
+from ..models import count_params, create_model
 from ..utils.config import namespace_to_dict
 from ..weights import params_from_jax
 from .checkpoint import load_checkpoint
@@ -40,7 +40,8 @@ def load_run(
     none."""
     with open(os.path.join(run_dir, "training_args.json")) as f:
         args = SimpleNamespace(**json.load(f)["args"])
-    state = params_from_jax(load_checkpoint(os.path.join(run_dir, checkpoint))["params"])
+    state = params_from_jax(load_checkpoint(os.path.join(run_dir, checkpoint))["params"],
+                            args.model_type)
     model = create_model(args.model_type, device=device, dtype=next(iter(state.values())).dtype,
                          **(args.model_kwargs or {}))
     model.load_state_dict(state)
@@ -66,7 +67,7 @@ def write_run_files(run_dir: str, args, model, dataset) -> None:
     with open(os.path.join(run_dir, "model_params.json"), "w") as f:
         attrs = {k: v for k, v in getattr(model, "init_kwargs", {}).items()
                  if isinstance(v, (int, float, str, bool, tuple, list, type(None)))}
-        attrs["num_params"] = sum(p.numel() for p in model.parameters())
+        attrs["num_params"] = count_params(model)
         json.dump(attrs, f, indent=4, default=str)
     ds_dir = os.path.join(run_dir, f"{args.dataset_name}_dataset")
     os.makedirs(ds_dir, exist_ok=True)

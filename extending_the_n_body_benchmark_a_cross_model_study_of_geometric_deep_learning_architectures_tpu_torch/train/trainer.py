@@ -1,10 +1,11 @@
 """The training loop on one device: counterpart of the JAX package's
 ``train/trainer.py``.
 
-A training step featurises, runs the model through its dense edge stage
-(``edge_impl="dense"``, which autograd differentiates: the edge kernels have no
-backward, and the JAX trainer differentiates its own XLA edge stage too), takes
-the loss, backward, and one update of AdamW under the Noam schedule
+A training step featurises, runs the model (a model with an edge stage,
+EGNN-MC, through its dense form, ``edge_impl="dense"``, which autograd
+differentiates: the edge kernels have no backward, and the JAX trainer
+differentiates its own XLA edge stage too), takes the loss, backward, and one
+update of AdamW under the Noam schedule
 (``train.optim``).  Nothing in it waits on the device: the step's metric
 vector stays there, and an epoch fetches its steps' vectors once.  Every
 ``test_macros_every`` epochs the run scores itself: a self-feed rollout through
@@ -15,8 +16,10 @@ package's run-dir artifacts.
 Epochs, metric names, checkpoints, crash handling, the run-dir layout
 (``runs/<model>/<timestamp>[__<run_name>]``) and the per-layer debug statistics
 (``debug_layer_stats_every``, ``evaluation.layer_stats``) are the JAX
-trainer's.  Not ported yet, and refused: the multi-device mesh and PONITA's
-calibration.  On the card the edge kernel K1 and the GT
+trainer's, and so is PONITA's one-time calibration of its convolution kernels
+on the first training batch (``models.ponita.calibrate_params``), before a
+checkpoint is loaded over it.  Not ported yet, and refused: the multi-device
+mesh.  On the card the edge kernel K1 and the GT
 integrator compute float32 (K1 also bf16 operands in the mixed model), so a
 ``double``, ``bfloat16`` or ``autocast`` run there needs the model's
 ``edge_impl="dense"``.
@@ -42,7 +45,8 @@ from ..data.gravity_otf import GravityDatasetOtf
 from ..evaluation import layer_stats
 from ..metrics import artifacts
 from ..metrics.ks import fisher_combine, ks_p
-from ..models import create_model
+from ..models import count_params, create_model, has_edge_stage
+from ..models.ponita import calibrate_params
 from ..ops import _build
 from ..rollout.self_feed import run_self_feed
 from ..utils.config import save_config
@@ -97,16 +101,18 @@ def _cast(scene: Scene, dtype: torch.dtype) -> Scene:
 def make_train_step(model, optim: NoamAdamW, loss_fn, targets, num_neighbors: int,
                     dtype: torch.dtype, abort_on_nan: bool = False):
     """``(step, metric_names)``: ``step(scene, y)`` takes one optimizer step
-    through the dense edge stage and returns the metric vector ``[loss,
-    *sorted(terms), *sorted(percentage errors)]`` (float32, on the device);
-    ``metric_names`` fills at the first call.  ``abort_on_nan`` skips an update
-    whose prediction is not finite, decided on the device."""
+    (through the dense edge stage, for a model with one) and returns the
+    metric vector ``[loss, *sorted(terms), *sorted(percentage errors)]``
+    (float32, on the device); ``metric_names`` fills at the first call.
+    ``abort_on_nan`` skips an update whose prediction is not finite, decided
+    on the device."""
     metric_names: list = []
+    dense = {"edge_impl": "dense"} if has_edge_stage(model) else {}
 
     def step(scene: Scene, y: torch.Tensor) -> torch.Tensor:
         scene, y = _cast(scene, dtype), y.to(dtype)
         model.train()
-        pred = model(scene, G.knn_mask(scene.pos, num_neighbors), edge_impl="dense")
+        pred = model(scene, G.knn_mask(scene.pos, num_neighbors), **dense)
         loss, terms = loss_fn(pred, scene, y)
         optim.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -122,11 +128,13 @@ def make_train_step(model, optim: NoamAdamW, loss_fn, targets, num_neighbors: in
     return step, metric_names
 
 
-def load_training_state(model, optim: NoamAdamW, payload) -> None:
-    """A checkpoint payload's parameters and AdamW state into ``model`` and
-    ``optim``, the JAX package's or the port's."""
-    model.load_state_dict(params_from_jax(payload["params"]))
-    adam = opt_state_from_jax(payload["opt_state"])
+def load_training_state(model, optim: NoamAdamW, payload,
+                        model_type: Optional[str] = None) -> None:
+    """A checkpoint payload's parameters (and PONITA's calibration statistics)
+    and AdamW state into ``model`` and ``optim``, the JAX package's or the
+    port's; ``model_type`` names the family the payload must be of."""
+    model.load_state_dict(params_from_jax(payload["params"], model_type))
+    adam = opt_state_from_jax(payload["opt_state"], model_type)
     if adam is not None:
         count, mu, nu = adam
         names = [n for n, _ in model.named_parameters()]
@@ -157,10 +165,16 @@ class Trainer:
         # this process must not leak its precision into this one
         set_matmul_precision(getattr(args, "matmul_precision", None))
 
-        # the JAX trainer draws one batch to initialise its parameters; this
-        # draw keeps the frame order the same
-        dataset.get_batch()
-        self.n_params = sum(p.numel() for p in model.parameters())
+        # the JAX trainer draws one batch to initialise its parameters, and
+        # calibrates PONITA's on it; this draw keeps the frame order the same
+        scene0 = dataset.get_batch()[0]
+        if args.model_type == "ponita":
+            scene0 = _cast(scene0, self.dtype)
+            calibrate_params(model, scene0, G.knn_mask(scene0.pos, self.num_neighbors))
+        del scene0
+        # the JAX trainer's count: every leaf of its params tree, PONITA's
+        # calibration statistics (3 a layer) included
+        self.n_params = count_params(model)
         self.optim = create_optimizer(
             model.parameters(),
             learning_rate=args.learning_rate,
@@ -192,16 +206,14 @@ class Trainer:
 
     def _refuse_what_is_not_ported(self) -> None:
         a = self.args
-        if a.model_type == "ponita":
-            raise NotImplementedError("PONITA (and its calibration) is not ported yet: "
-                                      "ROADMAP.md, queue 1 item 6")
         if (getattr(a, "data_parallel", True) and self.device.type == "cuda"
                 and torch.cuda.device_count() > 1):
             raise NotImplementedError(
                 "data parallel training over several cards is not ported yet (ROADMAP.md, queue "
                 "1 item 9): make one card visible, or set --trainer.data_parallel false")
         on_card = _build.wants_kernel(torch.empty(0, device=self.device))
-        if on_card and self.dtype != torch.float32 and self.model.edge_impl != "dense":
+        if (on_card and self.dtype != torch.float32 and has_edge_stage(self.model)
+                and self.model.edge_impl != "dense"):
             raise NotImplementedError(
                 f"precision_mode {a.precision_mode!r} on the card: the edge kernel K1 computes "
                 "float32 (or bf16 operands in the mixed model, compute_dtype='bfloat16'), "
@@ -214,13 +226,20 @@ class Trainer:
 
     def save_model(self, filename: str = "model.ckpt", final: bool = False):
         names = [n for n, _ in self.model.named_parameters()]
+        state = self.model.state_dict()
+
+        def moments(ts):
+            # optax keeps moments for every leaf of the tree: those of a leaf
+            # that is no parameter (PONITA's calibration) stay zero
+            return params_to_jax({**{k: torch.zeros_like(v) for k, v in state.items()},
+                                  **dict(zip(names, ts))})
+
         exp_avg, exp_avg_sq = self.optim.moments()
         opt_state = {"count": np.asarray(self.optim.count, dtype=np.int32),
-                     "mu": params_to_jax(dict(zip(names, exp_avg))),
-                     "nu": params_to_jax(dict(zip(names, exp_avg_sq)))}
+                     "mu": moments(exp_avg), "nu": moments(exp_avg_sq)}
         path = save_checkpoint(
             self.save_dir_path,
-            params_to_jax(self.model.state_dict()),
+            params_to_jax(state),
             opt_state,
             self.step_count,
             self.best_metrics,
@@ -255,7 +274,7 @@ class Trainer:
         package's or the port's."""
         self._model_restoring_links(path)
         ckpt = load_checkpoint(path)
-        load_training_state(self.model, self.optim, ckpt)
+        load_training_state(self.model, self.optim, ckpt, self.args.model_type)
         self.step_count = ckpt.get("step_count", 0)
         self.best_metrics = ckpt.get("best_metrics", {})
         print(f"Loaded model and optimizer state from {path}")

@@ -8,23 +8,35 @@ unpickler that maps every JAX-side class to a stand-in that keeps what the
 pickle gives it (a namedtuple's fields), without importing any of them;
 :func:`read_jax_checkpoint` returns its ``params`` tree.
 
-:func:`params_from_jax` maps that flax tree onto the port's ``EGNNMC``
-``state_dict``: flax ``Dense`` kernels are ``[in, out]`` (an ``nn.Linear``
-weight is ``[out, in]``), and the ``Scan_EGNNBlock_0/*`` leaves carry a
-leading layer axis.  :func:`params_to_jax` is its inverse, for the port's
-own checkpoints.  :func:`opt_state_from_jax` finds AdamW's state (optax's
+:func:`params_from_jax` maps that flax tree onto the port's model's
+``state_dict``, for the two ported families, EGNN-MC and PONITA: flax
+``Dense`` kernels are ``[in, out]`` (an ``nn.Linear`` weight is ``[out,
+in]``), EGNN-MC's ``Scan_EGNNBlock_0/*`` leaves carry a leading layer axis,
+and PONITA's tree has, beside ``params``, the ``calib`` collection (three
+statistics a convolution, which its convolutions keep as buffers).
+:func:`params_to_jax` is its inverse, for the port's own checkpoints.
+:func:`opt_state_from_jax` finds AdamW's state (optax's
 ``ScaleByAdamState(count, mu, nu)``, or the port's ``{"count", "mu", "nu"}``)
-and maps its moments the same way.
+and maps its moments the same way, the ``calib`` entries left out: they are
+not parameters.
+
+The family of a tree is the one a caller names (``model_type``) or, when it
+names none, the one whose top-level module the tree holds (EGNN-MC's
+``Scan_EGNNBlock_0``, PONITA's ``_ConvNextBlock_0``); a family the port does
+not build, or a tree of none, raises.
 """
 
 from __future__ import annotations
 
 import pickle
 from collections import OrderedDict
+from collections.abc import Mapping
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .models.ponita import CALIB_STATS, PONITA
 
 _FOREIGN = ("jax", "jaxlib", "flax", "optax", "chex", "orbax")
 
@@ -84,12 +96,106 @@ def linear_name(k: int) -> str:
     return f"{LINEAR}{k}"
 
 
+FAMILIES = ("egnn_mc", "ponita")
+# the top-level module that marks each family's flax tree, and state_dict key
+_JAX_MARKER = {"egnn_mc": "Scan_EGNNBlock_0", "ponita": "_ConvNextBlock_0"}
+_PORT_MARKER = {"egnn_mc": "layers.0.edge_w1", "ponita": "blocks.0.conv.spatial.kernel"}
+
+
+def _family(model_type: Optional[str], found: Optional[str], what: str) -> str:
+    """The family to map ``what`` as: ``model_type`` if given (it must be
+    ported, and ``what`` must be of it), else the family ``what`` was found
+    to be."""
+    if model_type is not None and model_type not in FAMILIES:
+        raise NotImplementedError(
+            f"model family {model_type!r} is not ported yet (ROADMAP.md, queue 1 item 6): "
+            f"the port maps the weights of {FAMILIES}")
+    if found is None:
+        raise ValueError(f"{what} is of no ported family {FAMILIES}"
+                         + (f" (model_type {model_type!r})" if model_type else ""))
+    if model_type is not None and model_type != found:
+        raise ValueError(f"{what} is a {found} tree, not {model_type}")
+    return found
+
+
+def jax_family(params: Dict[str, Any]) -> Optional[str]:
+    """The ported family whose top-level module a flax params tree holds, or None."""
+    p = params.get("params", params)
+    return next((f for f, marker in _JAX_MARKER.items() if marker in p), None)
+
+
+def port_family(sd) -> Optional[str]:
+    """The ported family whose keys a port ``state_dict`` holds, or None."""
+    return next((f for f, marker in _PORT_MARKER.items() if marker in sd), None)
+
+
+def _ponita_rows(blocks: int, readouts: int) -> list:
+    """``(port key, flax path, transposed)`` of every leaf PONITA's params tree
+    may hold (``layer_scale`` only where it is enabled), in the port's
+    ``state_dict`` order; the flax paths start at the ``params`` collection."""
+    def linear(port: str, flax: tuple) -> list:  # a TorchLinear: an nn.Linear here
+        return [(f"{port}.weight", flax + ("Dense_0", "kernel"), True),
+                (f"{port}.bias", flax + ("Dense_0", "bias"), False)]
+
+    rows = []
+    for i in range(2):
+        for j in range(2):
+            rows += linear(f"basis_nets.{i}.layers.{j}", (f"_BasisNet_{i}", f"TorchLinear_{j}"))
+    rows.append(("embedding.kernel", ("Dense_0", "kernel"), False))
+    for k in range(blocks):
+        blk, fblk = f"blocks.{k}", (f"_ConvNextBlock_{k}",)
+        conv = fblk + ("_FiberBundleConv_0",)
+        rows += [(f"{blk}.conv.spatial.kernel", conv + ("Dense_0", "kernel"), False),
+                 (f"{blk}.conv.fiber.kernel", conv + ("Dense_1", "kernel"), False),
+                 (f"{blk}.conv.bias", conv + ("bias",), False),
+                 (f"{blk}.norm.weight", fblk + ("LayerNorm_0", "scale"), False),
+                 (f"{blk}.norm.bias", fblk + ("LayerNorm_0", "bias"), False)]
+        rows += linear(f"{blk}.mlp_in", fblk + (f"{LINEAR}0",))
+        rows += linear(f"{blk}.mlp_out", fblk + (f"{LINEAR}1",))
+        rows.append((f"{blk}.layer_scale", fblk + ("layer_scale",), False))
+    for k in range(readouts):
+        rows += linear(f"readouts.{k}", (linear_name(k),))
+    return rows
+
+
+def _ponita_calib_rows(blocks: int) -> list:
+    """``(port buffer key, path in the calib collection)`` of each convolution's
+    statistics."""
+    return [(f"blocks.{k}.conv.{stat}", (f"_ConvNextBlock_{k}", "_FiberBundleConv_0", stat))
+            for k in range(blocks) for stat in CALIB_STATS]
+
+
+def _count(keys, fmt: str) -> int:
+    n = 0
+    while fmt.format(n) in keys:
+        n += 1
+    return n
+
+
 def flax_layer_paths(model) -> list:
-    """``[(module, [flax path, ...])]``: the port's ``EGNNMC`` modules under the
+    """``[(module, [flax path, ...])]``: the port model's modules under the
     paths the JAX package's flax model gives their outputs, its top-level
-    layers only (what its ``capture_intermediates`` sees at depth <= 3):
-    the embedding (``TorchLinear_0`` and its ``Dense_0``), each head ``MLP_t``
-    and its layers ``MLP_t/TorchLinear_k``, and the model's own output ``""``."""
+    layers only (what its ``capture_intermediates`` sees at depth <= 3), and
+    the model's own output ``""``.  EGNN-MC: the embedding (``TorchLinear_0``
+    and its ``Dense_0``), each head ``MLP_t`` and its layers
+    ``MLP_t/TorchLinear_k``.  PONITA: ``Dense_0``, ``_BasisNet_k`` and their
+    ``TorchLinear_j``, each ``_ConvNextBlock_k`` and its
+    ``_FiberBundleConv_0``, ``LayerNorm_0``, ``TorchLinear_0`` and
+    ``TorchLinear_1``, each readout ``TorchLinear_k`` and its ``Dense_0``."""
+    if isinstance(model, PONITA):
+        out = [(model.embedding, ["Dense_0"])]
+        for i, net in enumerate(model.basis_nets):
+            out.append((net, [f"_BasisNet_{i}"]))
+            out += [(lin, [f"_BasisNet_{i}/{linear_name(j)}"]) for j, lin in enumerate(net.layers)]
+        for k, blk in enumerate(model.blocks):
+            name = f"_ConvNextBlock_{k}"
+            out += [(blk, [name]), (blk.conv, [f"{name}/_FiberBundleConv_0"]),
+                    (blk.norm, [f"{name}/LayerNorm_0"]),
+                    (blk.mlp_in, [f"{name}/{linear_name(0)}"]),
+                    (blk.mlp_out, [f"{name}/{linear_name(1)}"])]
+        for k, lin in enumerate(model.readouts):
+            out.append((lin, [linear_name(k), f"{linear_name(k)}/Dense_0"]))
+        return out + [(model, [""])]
     out = [(model.embedding, [EMBEDDING, f"{EMBEDDING}/Dense_0"])]
     for t, head in enumerate(model.heads):
         out.append((head, [head_name(t)]))
@@ -108,9 +214,23 @@ def _linears(node: Dict[str, Any]) -> list:
     return [node[k]["Dense_0"] for k in keys]
 
 
-def params_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
-    """Map the JAX package's ``EGNNMC`` params tree onto the port's
-    ``EGNNMC.state_dict()`` keys."""
+def _leaf(tree, path: tuple):
+    for k in path:
+        if not isinstance(tree, Mapping) or k not in tree:
+            return None
+        tree = tree[k]
+    return tree
+
+
+def params_from_jax(params: Dict[str, Any], model_type: Optional[str] = None,
+                    calib: bool = True) -> "OrderedDict[str, torch.Tensor]":
+    """Map a JAX package params tree (EGNN-MC's or PONITA's, see the module's
+    note on families) onto the port model's ``state_dict()`` keys.  PONITA's
+    ``calib`` statistics go to its convolutions' buffers (ones where the tree
+    has none); ``calib=False`` leaves them out."""
+    family = _family(model_type, jax_family(params), "the params tree")
+    if family == "ponita":
+        return _ponita_from_jax(params, calib)
     p = params.get("params", params)
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     emb = p[EMBEDDING]["Dense_0"]
@@ -138,6 +258,22 @@ def params_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
     return sd
 
 
+def _ponita_from_jax(params: Dict[str, Any], calib: bool) -> "OrderedDict[str, torch.Tensor]":
+    p = params.get("params", params)
+    blocks = _count(p, "_ConvNextBlock_{}")
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for key, path, transposed in _ponita_rows(blocks, _count(p, LINEAR + "{}")):
+        leaf = _leaf(p, path)
+        if leaf is not None:
+            sd[key] = _tensor(leaf.T if transposed else leaf)
+    if calib:
+        stats = params.get("calib", {}) if "params" in params else {}
+        for key, path in _ponita_calib_rows(blocks):
+            leaf = _leaf(stats, path)  # a sown value: a 1-tuple of a 0-d array
+            sd[key] = _tensor(np.asarray(leaf[0]) if leaf is not None else np.float32(1.0))
+    return sd
+
+
 def _array(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().copy()
 
@@ -156,10 +292,34 @@ def _mlp(sd, prefix: str) -> Dict[str, Any]:
     return out
 
 
-def params_to_jax(sd) -> Dict[str, Any]:
-    """The port's ``EGNNMC.state_dict()`` (or a dict of tensors on its keys) as
-    the JAX package's ``EGNNMC`` params tree of numpy arrays: the inverse of
-    :func:`params_from_jax`."""
+def _ponita_to_jax(sd) -> Dict[str, Any]:
+    blocks = _count(sd, "blocks.{}.conv.spatial.kernel")
+    p: Dict[str, Any] = {}
+    for key, path, transposed in _ponita_rows(blocks, _count(sd, "readouts.{}.weight")):
+        if key in sd:
+            node = p
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            a = _array(sd[key])
+            node[path[-1]] = a.T.copy() if transposed else a
+    stats: Dict[str, Any] = {}
+    for key, path in _ponita_calib_rows(blocks):
+        node = stats
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        value = _array(sd[key]) if key in sd else 1.0
+        node[path[-1]] = (np.asarray(value, dtype=np.float32),)  # as flax sows it
+    return {"calib": stats, "params": p}
+
+
+def params_to_jax(sd, model_type: Optional[str] = None) -> Dict[str, Any]:
+    """The port model's ``state_dict()`` (or a dict of tensors on its keys) as
+    the JAX package's params tree of numpy arrays: the inverse of
+    :func:`params_from_jax`.  PONITA's tree gets its ``calib`` collection, each
+    statistic a 1-tuple of a 0-d float32 array as flax sows it: the model's
+    last calibration, or ones where ``sd`` holds none."""
+    if _family(model_type, port_family(sd), "the state_dict") == "ponita":
+        return _ponita_to_jax(sd)
     p: Dict[str, Any] = {EMBEDDING: _dense(sd["embedding.weight"], sd["embedding.bias"])}
     layers = 0
     while f"layers.{layers}.edge_w1" in sd:
@@ -200,16 +360,17 @@ def _find_adam(node) -> Optional[Tuple[Any, Any, Any]]:
     return None
 
 
-def opt_state_from_jax(opt_state) -> Optional[Tuple[int, "OrderedDict[str, torch.Tensor]",
-                                                    "OrderedDict[str, torch.Tensor]"]]:
+def opt_state_from_jax(opt_state, model_type: Optional[str] = None) -> Optional[
+        Tuple[int, "OrderedDict[str, torch.Tensor]", "OrderedDict[str, torch.Tensor]"]]:
     """AdamW's state in a checkpoint's ``opt_state``: ``(count, exp_avg,
-    exp_avg_sq)`` with the moments on ``EGNNMC.state_dict()`` keys (the map and
-    transposes of :func:`params_from_jax`), or None if it holds none.  Reads
-    optax's ``ScaleByAdamState(count, mu, nu)`` wherever it sits in the chain
-    (under clipping or ``apply_if_finite`` too) and the port's ``{"count",
-    "mu", "nu"}``."""
+    exp_avg_sq)`` with the moments on the port model's parameter keys (the map
+    and transposes of :func:`params_from_jax`, PONITA's ``calib`` entries left
+    out), or None if it holds none.  Reads optax's ``ScaleByAdamState(count,
+    mu, nu)`` wherever it sits in the chain (under clipping or
+    ``apply_if_finite`` too) and the port's ``{"count", "mu", "nu"}``."""
     found = _find_adam(opt_state)
     if found is None:
         return None
     count, mu, nu = found
-    return int(np.asarray(count)), params_from_jax(mu), params_from_jax(nu)
+    return (int(np.asarray(count)), params_from_jax(mu, model_type, calib=False),
+            params_from_jax(nu, model_type, calib=False))

@@ -243,16 +243,51 @@ def test_non_float32_on_the_card_needs_the_dense_edge_stage(mode, monkeypatch):
         TT.Trainer(kernel, _Dataset(), args, device="cpu")
 
 
+class _OneBatch(_Dataset):
+    """Stands in for a dataset: one float64 batch of a small scene, then the
+    next draw ends the test."""
+
+    def __init__(self):
+        rng = np.random.default_rng(2)
+        self.batch = (Scene(*(torch.from_numpy(rng.normal(size=(2, 5, 3))) for _ in range(3)),
+                            torch.ones(2, 5, 1, dtype=torch.float64)), None)
+
+    def get_batch(self):
+        batch, self.batch = self.batch, None
+        if batch is None:
+            raise _NoBatch
+        return batch
+
+    def get_serializable_attributes(self):
+        return {}
+
+
 @pytest.mark.parametrize("argv,match", [
     # ported since (evaluation/layer_stats.py): the trainer builds and draws
     pytest.param(["--trainer.debug_layer_stats_every", "5"], None, id="argv0-layer_stats"),
-    (["--main.model_type", "ponita"], "PONITA"),
+    # ported since (models/ponita.py): the trainer builds, calibrates PONITA on
+    # its first batch and draws the next
+    pytest.param(["--main.model_type", "ponita", "--model.num_layers", "2",
+                  "--model.hidden_features", "16", "--model.num_ori", "6",
+                  "--model.basis_dim", "16", "--trainer.precision_mode", "double"],
+                 "PONITA", id="argv1-PONITA"),
 ])
-def test_unported_trainer_options_raise(argv, match):
+def test_unported_trainer_options_raise(argv, match, tmp_path, monkeypatch):
     args, _ = TCFG.parse_args(argv)
-    model = tmodels.create_model("egnn_mc", device="cpu", num_layers=1)
-    with pytest.raises(_NoBatch if match is None else NotImplementedError, match=match):
-        TT.Trainer(model, _Dataset(), args, device="cpu")
+    if match is None:
+        model = tmodels.create_model("egnn_mc", device="cpu", num_layers=1)
+        with pytest.raises(_NoBatch):
+            TT.Trainer(model, _Dataset(), args, device="cpu")
+        return
+    monkeypatch.chdir(tmp_path)  # the run dir lands there
+    model = tmodels.create_model(args.model_type, device="cpu", **args.model_kwargs)
+    before = model.blocks[0].conv.spatial.kernel.detach().clone()
+    trainer = TT.Trainer(model, _OneBatch(), args, device="cpu")
+    conv = model.blocks[0].conv
+    assert float(conv.std_in) != 1.0 and not torch.equal(conv.spatial.kernel, before)
+    assert trainer.n_params == sum(p.numel() for p in model.parameters()) + 3 * 2
+    with pytest.raises(_NoBatch):
+        trainer.train_one_epoch()
 
 
 def test_training_step_launches_no_edge_kernel(monkeypatch):
