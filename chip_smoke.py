@@ -7,8 +7,9 @@ Builds the port's CUDA kernels (nvcc, one process per source, in parallel)
 and its C++ macro library (g++) from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, then drives the port's
 paths through ``rollout.self_feed.run_self_feed`` with the committed N=100
-checkpoint of EGNN-MC (6 layers, width 128, fully connected), and PONITA's
-paths with its committed 10M checkpoint (phases 25-29): the bench
+checkpoint of EGNN-MC (6 layers, width 128, fully connected), PONITA's
+paths with its committed 10M checkpoint (phases 25-29) and SEGNN's with its
+committed 10M checkpoint (phases 30-34): the bench
 workload (B=64 sims of N=100 bodies, dense edge stage K1) and the big-N path
 (B=8 sims of N=512 bodies, streaming edge stage K3), each in f32 and in the
 mixed-bf16 model (``compute_dtype="bfloat16"``: hidden and message stack in
@@ -76,9 +77,9 @@ bf16, coordinates, geometry and integration in f32):
                    combined p beside the committed six-macro floor; the combined
                    median at least 0.05
  19. floor-n512    the same at N=512: B=8, 1000 substeps, 6 batches, 15 pairs
- 20. battery       `cli self-feed --draws 6 --seed 281` on a run dir of the study
+ 20. battery       `cli self-feed --draws 3 --seed 281` on a run dir of the study
                    protocol around the committed checkpoint (its bytes unchanged):
-                   6 x 6 x 248 K1 launches; each draw's survived and combined p on
+                   3 x 6 x 248 K1 launches; each draw's survived and combined p on
                    the six-macro basis and the committed batteries' five-macro one,
                    beside the committed battery; self_feed_draws.json has the JAX
                    package's keys
@@ -110,13 +111,37 @@ bf16, coordinates, geometry and integration in f32):
                    checkpoint read back bitwise in the JAX layout (calib included);
                    step ms, busy share, peak memory; then a fresh initialisation
                    that calibrates on its first batch, 10 steps, losses finite
- 28. battery-ponita  `cli self-feed --draws 4 --seed 281` on a run dir of the queue's
-                   argv around the committed checkpoint (its bytes unchanged): 4
+ 28. battery-ponita  `cli self-feed --draws 2 --seed 281` on a run dir of the queue's
+                   argv around the committed checkpoint (its bytes unchanged): 2
                    K2-leapfrog launches; six- and five-macro p a draw, beside the
                    checkpoint's recorded best survival (633 steps)
  29. hpo-ponita    hpo.run_study("ponita", 2 trials, param_small) at the reference
                    default: one epoch of 10 steps and a 20-step evaluation a trial
- 30. bign          bign_bench rows: steps/s and peak memory, dense K1 against
+ 30. segnn         the committed SEGNN checkpoint (docs/results/segnn10m_r5:
+                   6 layers, width 448, hidden irreps 224x0e+224x1o) through the
+                   converter: a forward at B=64, N=5 on a fresh GT frame against
+                   the same model in float64 on the CPU, its ms beside its bound
+                   and its device busy share; O(3) equivariance on the card with
+                   center_mode "nodes" (a rotation with a reflection); the
+                   parameter count 10,557,344
+ 31. segnn-rollout  GT at the reference workload through one K2-leapfrog
+                   launch, 999 self-feed steps (no kernel), six-macro KS score; 20
+                   steps on the card against the CPU's float64 on 4 sims; the
+                   rollout repeated from the same GT bitwise equal, its steps/s warm
+ 32. train-segnn   the train command with the queue's argv (--main.model_type segnn
+                   --model.num_layers 6 --model.hidden_features 448, B=64, N=5)
+                   resumed from the committed checkpoint and its AdamW state: 2
+                   epochs of 20 steps, its 999-step evaluation and KS score, the
+                   checkpoint read back bitwise in the JAX layout, one step against
+                   the CPU's float64 step ([train]'s gates); step ms, busy share,
+                   peak memory; then a fresh initialisation, 10 steps, losses finite
+ 33. battery-segnn  `cli self-feed --draws 2 --seed 281` on a run dir of the queue's
+                   argv around the committed checkpoint (its bytes unchanged): 2
+                   K2-leapfrog launches; six- and five-macro p a draw (in (0, 1])
+                   beside the committed 12-draw battery of the seed
+ 34. hpo-segnn     hpo.run_study("segnn", 2 trials, param_small) at the reference
+                   default: one epoch of 10 steps and a 20-step evaluation a trial
+ 35. bign          bign_bench rows: steps/s and peak memory, dense K1 against
                    streaming K3, at (N,B) = (256,16), (512,8), (1024,2), (4096,1)
 
 Each phase prints one line with its result and elapsed seconds.  Any failed
@@ -241,7 +266,7 @@ FLOORS = {"floor-n100": (16, 100, 2500, 8, "gtgt_n100_sixbasis_baseline_metamacr
           "floor-n512": (8, 512, 1000, 6, "gtgt_n512_sixbasis_baseline_metamacros.json")}
 FLOOR_SEED, FLOOR_MEDIAN_MIN = 0, 0.05
 # the battery of the committed checkpoint (README section 3's first seed)
-BATTERY_DRAWS, BATTERY_SEED = 6, 281
+BATTERY_DRAWS, BATTERY_SEED = 3, 281  # 3 of the committed battery's 6 draws
 VALIDATE_BATCHES = 2
 # ks-test ranks [train]'s checkpoint from the JSONs [train] scored: the same
 # p-values, combined in another order
@@ -270,9 +295,37 @@ PONITA_FWD_RTOL, PONITA_CALIB_RTOL = 1e-4, 1e-5
 # PONITA_CMP_B sims: within 1e-3 of the largest position, or 100 times the
 # spread a 1e-7 nudge of frame 0 gives the CPU alone where that is larger
 PONITA_CMP_B, PONITA_ROLL_RTOL, PONITA_NUDGE_FACTOR = 4, 1e-3, 100.0
-PONITA_TRAIN_EPOCHS, PONITA_TRAIN_STEPS, PONITA_FRESH_STEPS = 2, 20, 10
-# the checkpoint's battery: seed 281, as the queue's pipeline drew it
-PONITA_DRAWS, PONITA_BEST_STEPS = 4, 633  # best_metrics {"self_feed_steps": 633}
+# the families' training phases: the committed checkpoint resumed for 2 epochs
+# of 20 steps (cut from 1000 steps an epoch), and a fresh run of 10 steps
+FAMILY_TRAIN_EPOCHS, FAMILY_TRAIN_STEPS, FAMILY_FRESH_STEPS = 2, 20, 10
+# the checkpoint's battery: seed 281, as the queue's pipeline drew it (2 of
+# the queue's 12 draws, to keep the smoke's time)
+PONITA_DRAWS, PONITA_BEST_STEPS = 2, 633  # best_metrics {"self_feed_steps": 633}
+
+# SEGNN: the committed 10M checkpoint (L6 w448, lmax 1, hidden irreps
+# 224x0e+224x1o, epoch 110), trained by the queue step
+# scripts/queues/tpu_queue48.sh:55-56 at the reference workload (N=5, B=64,
+# sim_length 10000: T=1000, 999 rollout steps, num_neighbors 4)
+SEGNN_CKPT = os.path.join(REPO, "docs", "results", "segnn10m_r5", "ckpt_110_model.ckpt")
+SEGNN_KW = dict(num_layers=6, hidden_features=448)
+SEGNN_ARGV = ["--main.model_type", "segnn", "--model.num_layers", "6",
+              "--model.hidden_features", "448"]
+SEGNN_PARAMS = 10_557_344
+SEGNN_B, SEGNN_N, SEGNN_SUBSTEPS = 64, 5, 10000
+SEGNN_FRAMES = SEGNN_SUBSTEPS // SAMPLE_FREQ
+SEGNN_EPOCH, SEGNN_COUNT = 110, 110000  # the checkpoint's epoch and AdamW count
+# the card's f32 forward against the CPU's float64 one: 6 layers of f32 sums
+# (contractions up to 898 long, 4 senders) hold ~1e-6 of the largest output;
+# 1e-5 of it is the gate.  O(3): the center_mode "nodes" model on a scene
+# turned with a reflection and shifted, against its outputs turned the same
+# way, two f32 forwards each ~1e-6 from exact: 1e-4 of the largest output
+SEGNN_FWD_RTOL, SEGNN_EQUIV_RTOL = 1e-5, 1e-4
+# the card's 20 closed-loop steps against the CPU's float64 ones, on the
+# first SEGNN_CMP_B sims: within 1e-4 of the largest position, or 100 times
+# the spread a 1e-7 nudge of frame 0 gives the CPU alone where that is larger
+SEGNN_CMP_B, SEGNN_ROLL_RTOL, SEGNN_NUDGE_FACTOR = 4, 1e-4, 100.0
+# the battery: seed 281, 2 draws (the committed battery drew 12)
+SEGNN_DRAWS = 2
 
 # H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, dense bf16 on the tensor
 # cores, HBM3 bandwidth
@@ -298,6 +351,19 @@ def report(phase: str, t0: float, seconds=None, **info) -> None:
 def bound_ms(n_bytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
     t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def tp_flops(tp) -> float:
+    """The operations of one row of a steerable tensor product (multiply-adds
+    count 2), over its paths: the CG tensor with the second input, then the
+    first input, then the weights."""
+    ir1, ir2, ir3 = tp.irreps_in1, tp.irreps_in2, tp.irreps_out
+    macs = 0
+    for a, b, c in tp.paths:
+        (m1, (l1, _)), (m2, (l2, _)), (m3, (l3, _)) = ir1.items[a], ir2.items[b], ir3.items[c]
+        d1, d2, d3 = 2 * l1 + 1, 2 * l2 + 1, 2 * l3 + 1
+        macs += m1 * m2 * m3 * d3 + m1 * m2 * d1 * d2 * d3
+    return 2.0 * macs
 
 
 def main() -> None:
@@ -337,6 +403,7 @@ def main() -> None:
         hpo = importlib.import_module(f"{PKG}.hpo.hpo")
         restore = importlib.import_module(f"{PKG}.train.restore")
         ponita = importlib.import_module(f"{PKG}.models.ponita")
+        steerable = importlib.import_module(f"{PKG}.ops.steerable")
     except ImportError as e:
         fail(f"the port's package is not importable from {REPO}: {e}")
     if not os.path.exists(CKPT):
@@ -1151,6 +1218,47 @@ def main() -> None:
         except Exception as e:  # a profiler that cannot trace the card fails no phase
             return None, f"not measured ({type(e).__name__}: {e})"
 
+    def step_vs_cpu(tag: str, run: dict, payload, model_kw: dict, scene, y):
+        """One training step on the card (f32) against the same step on the
+        CPU in float64, from ``payload``'s parameters and AdamW state, on the
+        first TRAIN_CMP_B sims of ``(scene, y)``: each parameter within
+        TRAIN_PARAM_RTOL of its largest value, each update within
+        TRAIN_UPDATE_RTOL of its largest update.  Returns both errors and both
+        losses."""
+        trainer, a = run["trainer"], run["args"]
+        sub = (Scene(*(t_[:TRAIN_CMP_B] for t_ in (scene.pos, scene.vel, scene.force,
+                                                  scene.mass))), y[:TRAIN_CMP_B])
+        after = []
+        for where, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
+            m = models.create_model(a.model_type, device=where, dtype=dtype, **model_kw)
+            o = trainer_mod.create_optimizer(m.parameters(), learning_rate=a.learning_rate,
+                                             model_size=m.get_model_size(),
+                                             factor=a.learning_rate_factor,
+                                             warmup=a.learning_rate_warmup_steps)
+            trainer_mod.load_training_state(m, o, payload, a.model_type)
+            before = {k: v.detach().cpu().double().clone() for k, v in m.state_dict().items()}
+            step_fn, _ = trainer_mod.make_train_step(m, o, trainer.loss_fn, trainer.targets,
+                                                     trainer.num_neighbors, dtype)
+            vec = step_fn(Scene(*(t_.to(where) for t_ in (sub[0].pos, sub[0].vel, sub[0].force,
+                                                          sub[0].mass))), sub[1].to(where))
+            if not torch.isfinite(vec).all():
+                fail(f"{tag}: the {where} step's metrics are not finite")
+            after.append(({k: v.detach().cpu().double() for k, v in m.state_dict().items()},
+                          before, float(vec[0])))
+            del m, o
+        (card_p, card_b, card_loss), (cpu_p, cpu_b, cpu_loss) = after
+        p_err = up_err = 0.0
+        for k, want_p in cpu_p.items():
+            e = (card_p[k] - want_p).abs().max().item() / want_p.abs().max().item()
+            du = (cpu_p[k] - cpu_b[k]).abs().max().item()
+            u = ((card_p[k] - card_b[k]) - (cpu_p[k] - cpu_b[k])).abs().max().item() / du
+            if not (e <= TRAIN_PARAM_RTOL and u <= TRAIN_UPDATE_RTOL):
+                fail(f"{tag}: after one step, {k} on the card differs from the CPU float64 step "
+                     f"by {e:.3e} of its largest value and its update by {u:.3e} of the largest "
+                     f"update (limits {TRAIN_PARAM_RTOL}, {TRAIN_UPDATE_RTOL})")
+            p_err, up_err = max(p_err, e), max(up_err, u)
+        return p_err, up_err, card_loss, cpu_loss
+
     def busy_share(busy_ms, step_ms) -> str:
         if busy_ms is None:
             return "not measured"
@@ -1221,39 +1329,9 @@ def main() -> None:
         split = step_split(trainer, scene, y)
         busy_ms, kernels_top = top_kernels(lambda: trainer._train_step(scene, y))
 
-        # one step on the card against the same step on the CPU in float64
-        payload = weights.read_checkpoint(CKPT)
-        sub = (Scene(*(t_[:TRAIN_CMP_B] for t_ in (scene.pos, scene.vel, scene.force,
-                                                  scene.mass))), y[:TRAIN_CMP_B])
-        after = []
-        for where, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
-            m = models.create_model("egnn_mc", device=where, dtype=dtype)
-            o = trainer_mod.create_optimizer(m.parameters(), learning_rate=run["args"].learning_rate,
-                                             model_size=m.get_model_size(),
-                                             factor=run["args"].learning_rate_factor,
-                                             warmup=run["args"].learning_rate_warmup_steps)
-            trainer_mod.load_training_state(m, o, payload)
-            before = {k: v.detach().cpu().double().clone() for k, v in m.state_dict().items()}
-            step_fn, _ = trainer_mod.make_train_step(m, o, trainer.loss_fn, trainer.targets,
-                                                     N - 1, dtype)
-            vec = step_fn(Scene(*(t_.to(where) for t_ in (sub[0].pos, sub[0].vel, sub[0].force,
-                                                          sub[0].mass))), sub[1].to(where))
-            if not torch.isfinite(vec).all():
-                fail(f"train: the {where} step's metrics are not finite")
-            after.append(({k: v.detach().cpu().double() for k, v in m.state_dict().items()},
-                          before, float(vec[0])))
-        (card_p, card_b, card_loss), (cpu_p, cpu_b, cpu_loss) = after
-        p_err = up_err = 0.0
-        for k, want_p in cpu_p.items():
-            e = (card_p[k] - want_p).abs().max().item() / want_p.abs().max().item()
-            du = (cpu_p[k] - cpu_b[k]).abs().max().item()
-            u = ((card_p[k] - card_b[k]) - (cpu_p[k] - cpu_b[k])).abs().max().item() / du
-            if not (e <= TRAIN_PARAM_RTOL and u <= TRAIN_UPDATE_RTOL):
-                fail(f"train: after one step, {k} on the card differs from the CPU float64 step "
-                     f"by {e:.3e} of its largest value and its update by {u:.3e} of the largest "
-                     f"update (limits {TRAIN_PARAM_RTOL}, {TRAIN_UPDATE_RTOL})")
-            p_err, up_err = max(p_err, e), max(up_err, u)
-        del trainer, run["trainer"], payload, after
+        p_err, up_err, card_loss, cpu_loss = step_vs_cpu(
+            "train", run, weights.read_checkpoint(CKPT), {}, scene, y)
+        del trainer, run["trainer"]
     study_s = time.perf_counter() - t0
     print(f"  train: {STUDY_EPOCHS} epochs x {STUDY_STEPS} steps, losses "
           f"{' '.join(f'{x:.5f}' for x in run['epoch_losses'])}; AdamW count "
@@ -1345,7 +1423,7 @@ def main() -> None:
 
     # ----------------------------------------------- 20. battery (self-feed)
     # the committed checkpoint, untouched, in a run dir of the study protocol:
-    # `cli self-feed --draws 6 --seed 281` in f32, each draw on the six-macro
+    # `cli self-feed --draws 3 --seed 281` in f32, each draw on the six-macro
     # basis (the JSON's) and the five-macro one of the committed batteries
     eval_tmp = tempfile.TemporaryDirectory()
     t0 = time.perf_counter()
@@ -1495,6 +1573,241 @@ def main() -> None:
     report("hpo", t0, trials=len(trials), mode="param_small", best_value=f"{best['value']:.4f}",
            k1_launches=got["k1"], leapfrog_launches=got["leapfrog"])
 
+    # ------------------------------------- helpers of the families' paths
+    def cpu64(s):
+        return Scene(*(t_.detach().cpu().double() for t_ in (s.pos, s.vel, s.force, s.mass)))
+
+    def fc(s):
+        return graph.knn_mask(s.pos, s.pos.shape[1] - 1)
+
+    def family_rollout(family: str, model_, cpu_model, bb: int, nn_: int, substeps: int,
+                       seed: int, cmp_b: int, rtol: float, nudge_factor: float) -> dict:
+        """A family's rollout at the reference workload: GT through one
+        K2-leapfrog launch, the counted self-feed rollout (no kernel), the
+        six-macro score; COMPARE_STEPS steps on the card against the CPU's
+        float64 on the first ``cmp_b`` sims, within ``rtol`` of the largest
+        position, or ``nudge_factor`` times the spread a 1e-7 nudge of frame 0
+        gives the CPU alone where that is larger; the rollout repeated from the
+        same GT bitwise equal, and timed warm.  Returns the phase's fields."""
+        tag, frames = f"{family}-rollout", substeps // SAMPLE_FREQ
+        run_f = drive(model_, bb, nn_, substeps, seed, None)
+        eval_counts[f"{family}_rollout"] = run_f["counts"]
+        score(f"{family}-score", run_f["loc_gt"], run_f["vel_gt"], run_f["loc_pred"],
+              run_f["vel_pred"])
+        loc0, vel0, force0, mass0 = run_f["gt"]
+        sub = Scene(pos=loc0[:cmp_b, 0], vel=vel0[:cmp_b, 0], force=force0[:cmp_b, 0],
+                    mass=mass0[:cmp_b])
+        sub_c = cpu64(sub)
+        nudged = Scene(pos=sub_c.pos * (1 + 1e-7), vel=sub_c.vel, force=sub_c.force,
+                       mass=sub_c.mass)
+        loc_k, _, surv_k = self_feed.make_rollout_fn(model_, COMPARE_STEPS + 1)(sub)
+        short_c = self_feed.make_rollout_fn(cpu_model, COMPARE_STEPS + 1)
+        loc_c, _, surv_c = short_c(sub_c)
+        loc_n, _, _ = short_c(nudged)
+        d_kc = (loc_k.double().cpu() - loc_c).abs().max().item()
+        d_nc = (loc_n - loc_c).abs().max().item()
+        pos_scale = loc_c.abs().max().item()
+        limit = max(rtol * pos_scale, nudge_factor * d_nc)
+        if not (torch.isfinite(loc_k).all() and d_kc <= limit):
+            fail(f"{tag}: {COMPARE_STEPS} steps on the card differ from the CPU's float64 ones "
+                 f"by {d_kc} (limit {limit}; max |pos| {pos_scale}, nudged spread {d_nc})")
+        rollout_f = self_feed.make_rollout_fn(model_, frames, target=run_f["target"])
+        scene0 = Scene(pos=loc0[:, 0], vel=vel0[:, 0], force=force0[:, 0], mass=mass0)
+        reset_counts()
+        t = time.perf_counter()
+        loc2, vel2, surv2 = rollout_f(scene0)
+        sync()
+        warm_s = time.perf_counter() - t
+        counted({}, f"{tag} (repeated)")
+        if not (torch.equal(loc2, run_f["loc_pred"]) and torch.equal(vel2, run_f["vel_pred"])
+                and int(surv2.min()) == run_f["survived_min"]):
+            fail(f"{tag}: the rollout repeated from the same GT differs")
+        survived_f = surv2.float().cpu()
+        return dict(B=bb, N=nn_, steps=frames - 1, leapfrog_launches=run_f["counts"]["leapfrog"],
+                    rollout_s=f"{run_f['seconds']:.3f}", survived_min=run_f["survived_min"],
+                    survived_median=f"{survived_f.median().item():.0f}",
+                    survived_max=f"{survived_f.max().item():.0f}",
+                    steps_per_s_first=f"{(frames - 1) / run_f['seconds']:.2f}",
+                    steps_per_s_warm=f"{(frames - 1) / warm_s:.2f}",
+                    ms_per_step_warm=f"{warm_s * 1e3 / (frames - 1):.3f}",
+                    rollout_bitwise_equal=True,
+                    **{f"max_dpos_{COMPARE_STEPS}_steps_card_vs_cpu64": f"{d_kc:.3e}",
+                       "max_abs_pos": f"{pos_scale:.3e}", "max_dpos_nudged_cpu64": f"{d_nc:.3e}",
+                       "cmp_sims": cmp_b,
+                       "survived_min_card/cpu64": f"{int(surv_k.min())}/{int(surv_c.min())}"})
+
+    def family_battery(family: str, ckpt: str, argv, draws: int, frames: int):
+        """`cli self-feed --draws D --seed BATTERY_SEED` on a run dir of the
+        family's queue argv around its committed checkpoint (its bytes
+        unchanged): D K2-leapfrog launches and no other kernel; each draw's
+        survived and combined p on the six- and five-macro bases, six-macro p
+        in (0, 1].  Returns ``(seconds, the phase's fields)``."""
+        tag = f"battery-{family}"
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            run_dir_f = restore.make_run_dir(os.path.join(tmp, f"{family}10m"), argv, ckpt)
+            with open(ckpt, "rb") as f:
+                ckpt_bytes = f.read()
+            reset_counts()
+            cli.main(["self-feed", "--run_dir", run_dir_f, "--draws", str(draws),
+                      "--seed", str(BATTERY_SEED)])
+            sync()
+            seconds = time.perf_counter() - t0
+            eval_counts[f"battery_{family}"] = counted({"leapfrog": draws}, tag)
+            with open(os.path.join(run_dir_f, "model.ckpt"), "rb") as f:
+                if f.read() != ckpt_bytes:
+                    fail(f"{tag}: the run dir's model.ckpt is not the committed bytes")
+            del ckpt_bytes
+            with open(os.path.join(run_dir_f, "generated_trajectories",
+                                   "self_feed_draws.json")) as f:
+                drawn = json.load(f)["draws"]
+        b = battery.bases(drawn)
+        if (len(drawn) != draws or not all(0 < p <= 1 for p in b["six"])
+                or not all(0 <= p <= 1 for p in b["five"])
+                or not all(0 <= s_ <= frames - 1 for s_ in b["survived"])):
+            fail(f"{tag}: {len(drawn)} draws, six {b['six']}, five {b['five']}, "
+                 f"survived {b['survived']}")
+        for i, (surv, six, five) in enumerate(zip(b["survived"], b["six"], b["five"])):
+            print(f"  {tag}: draw {i} survived={surv} six-macro p={six:.4g} "
+                  f"five-macro p={five:.4g}", flush=True)
+        p6, p5 = battery.spread(b["six"]), battery.spread(b["five"])
+        return seconds, dict(
+            draws=draws, seed=BATTERY_SEED, steps=frames - 1, s_per_draw=f"{seconds / draws:.3f}",
+            six_best=f"{p6['best']:.4g}", six_median=f"{p6['median']:.4g}",
+            six_worst=f"{p6['worst']:.4g}", five_best=f"{p5['best']:.4g}",
+            five_median=f"{p5['median']:.4g}", five_worst=f"{p5['worst']:.4g}",
+            survived=",".join(map(str, b["survived"])),
+            leapfrog_launches=eval_counts[f"battery_{family}"]["leapfrog"])
+
+    def key_shapes(tree, prefix=()) -> set:
+        if isinstance(tree, dict):
+            return set().union(*(key_shapes(v, prefix + (k,)) for k, v in tree.items()))
+        if type(tree) is tuple:
+            return set().union(*(key_shapes(v, prefix + (i,)) for i, v in enumerate(tree)))
+        return {(prefix, np.shape(tree))}
+
+    def family_train(family: str, ckpt: str, argv, payload, epoch: int, count: int,
+                     n_params: int, frames: int, extra=None):
+        """The train command with a family's queue argv at the reference
+        workload, resumed from its committed checkpoint ``ckpt`` (read as
+        ``payload``; epoch ``epoch``, AdamW count ``count``): FAMILY_TRAIN_EPOCHS epochs of
+        FAMILY_TRAIN_STEPS steps, its self-feed evaluation (``frames - 1``
+        steps, one K2-leapfrog launch) and KS score, the checkpoint read back
+        bitwise in the committed checkpoint's JAX layout; step ms, the step's
+        split, busy share and peak memory.  ``extra(run, scene, y)`` runs on
+        the trainer before it is dropped.  Then a fresh initialisation,
+        FAMILY_FRESH_STEPS steps, every loss finite.  Returns the phase's
+        fields, ``extra``'s result and the fresh run's model."""
+        tag = f"train-{family}"
+        with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+            resume = ["--trainer.model_path", shutil.copy(ckpt, tmp)]
+            run = train_run(resume + argv + [
+                "--trainer.steps_per_epoch", str(FAMILY_TRAIN_STEPS),
+                "--trainer.train_steps", str(epoch + FAMILY_TRAIN_EPOCHS),
+                "--trainer.save_model_every", "1", "--trainer.test_macros_every", "1000",
+                "--dataloader.seed", "0", "--trainer.run_name", f"{family}10m"],
+                tag, FAMILY_TRAIN_EPOCHS, FAMILY_TRAIN_STEPS)
+            trainer = run["trainer"]
+            if run["count0"] != count or trainer.step_count != epoch + FAMILY_TRAIN_EPOCHS:
+                fail(f"{tag}: resumed at count {run['count0']}, epoch {trainer.step_count}")
+            if trainer.n_params != n_params:
+                fail(f"{tag}: n_params {trainer.n_params}, want {n_params}")
+            train_counts[f"train_{family}"] = run["counts"]
+            written = weights.read_checkpoint(os.path.join(trainer.save_dir_path, "model.ckpt"))
+            layout = key_shapes(payload["params"])
+            if not (key_shapes(written["params"]) == layout
+                    and key_shapes(written["opt_state"]["mu"]) == layout
+                    and key_shapes(written["opt_state"]["nu"]) == layout):
+                fail(f"{tag}: the written checkpoint's params / mu / nu leave the JAX layout "
+                     "of the committed checkpoint")
+            del written
+            reset_counts()
+            t = time.perf_counter()
+            survived = trainer.run_self_feed_eval()
+            sync()
+            eval_s_f = time.perf_counter() - t
+            train_counts[f"train_{family}_eval"] = counted({"leapfrog": 1}, f"{tag} evaluation")
+            eval_dir = os.path.join(trainer.save_dir_path, "checkpoints", str(trainer.step_count))
+            read = artifacts.read_macro_jsons(eval_dir)
+            _, macro_p_f = ks.macro_ks_pvalues({k: v["ground truth"] for k, v in read.items()},
+                                               {k: v["predicted"] for k, v in read.items()})
+            with open(os.path.join(eval_dir, "nbody_macro_metrics.json")) as f:
+                energy_ps = json.load(f)["ks_pvalues"]
+            energy_p_f = energy_ps.pop("combined")
+            # an energy series whose values never meet GT's gives a KS p that
+            # underflows to 0; Fisher drops p = 0, so the combine of three such
+            # p is NaN ("no data"), in the JAX trainer too
+            energy_ok = all(0 <= p <= 1 for p in energy_ps.values()) and (
+                0 < energy_p_f <= 1 or (energy_p_f != energy_p_f and not any(energy_ps.values())))
+            if not (0 <= survived <= frames - 1 and 0 < macro_p_f <= 1 and energy_ok):
+                fail(f"{tag}: survived {survived}, macro p {macro_p_f}, energy p "
+                     f"{energy_p_f} ({energy_ps})")
+            scene, y = trainer.dataset.get_batch()
+            timing_f = time_steps(trainer, scene, y)
+            split_f = step_split(trainer, scene, y)
+            busy_f, top_f = top_kernels(lambda: trainer._train_step(scene, y))
+            more = extra(run, scene, y) if extra else None
+            del trainer, run["trainer"]
+        with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+            fresh = train_run(argv + [
+                "--trainer.steps_per_epoch", str(FAMILY_FRESH_STEPS), "--trainer.train_steps", "1",
+                "--trainer.save_model_every", "1", "--trainer.test_macros_every", "1000",
+                "--trainer.seed", "0", "--dataloader.seed", "0", "--trainer.run_name", "fresh"],
+                f"{tag}-fresh", 1, FAMILY_FRESH_STEPS)
+            train_counts[f"train_{family}_fresh"] = fresh["counts"]
+            fresh_model = fresh.pop("trainer").model
+        print(f"  {tag}: losses {' '.join(f'{x:.5f}' for x in run['epoch_losses'])}; AdamW count "
+              f"{run['count0']} -> {run['count']}, lr {run['lr']:.6e} (Noam {run['noam']:.6e}); "
+              f"step split {' '.join(f'{k}={v:.3f}' for k, v in split_f.items())}; device busy "
+              f"{busy_share(busy_f, timing_f['ms'])}; top kernels: {top_f}", flush=True)
+        fields = dict(
+            steps=FAMILY_TRAIN_EPOCHS * FAMILY_TRAIN_STEPS,
+            leapfrog_launches_training=train_counts[f"train_{family}"]["leapfrog"],
+            train_s=f"{run['train_s']:.3f}", ms_per_step=f"{timing_f['ms']:.3f}",
+            steps_per_s=f"{timing_f['steps_per_s']:.2f}", peak_mib=f"{timing_f['peak_mib']:.1f}",
+            peak_above_start_mib=f"{timing_f['peak_above_start_mib']:.1f}",
+            busy_ms=("not measured" if busy_f is None else f"{busy_f:.3f}"),
+            eval_s=f"{eval_s_f:.3f}", eval_rollout_steps=frames - 1, survived=survived,
+            macro_combined_p=f"{macro_p_f:.3e}", energy_combined_p=f"{energy_p_f:.3e}",
+            energy_p="[" + " ".join(f"{k}={v:.3e}" for k, v in energy_ps.items()) + "]",
+            fresh_steps=FAMILY_FRESH_STEPS, fresh_loss_first=f"{fresh['losses'][0].item():.5f}",
+            fresh_loss_last=f"{fresh['losses'][-1].item():.5f}")
+        return fields, more, fresh_model
+
+    def family_hpo(family: str) -> None:
+        """Two param_small trials of ``family`` at the reference default, each
+        one epoch of 10 steps and a 20-step evaluation: every trial done, its
+        value finite and its count within the budget; K2-leapfrog launches
+        only."""
+        tag = f"hpo-{family}"
+        t0 = time.perf_counter()
+        target = hpo.PARAM_TARGETS["param_small"]
+        with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+            reset_counts()
+            best = hpo.run_study(family, trials=HPO_TRIALS, mode="param_small", study_dir="hpo",
+                                 train_epochs=1, steps_per_epoch=10,
+                                 self_feed_limit_steps=HPO_EVAL_STEPS, device=dev)
+            sync()
+            got = counts()
+            with open(os.path.join("hpo", f"{family}_param_small_trials.jsonl")) as f:
+                trials = [json.loads(line) for line in f]
+        for t in trials:
+            if not (t["status"] == "done" and np.isfinite(t["value"])
+                    and abs(t["n_params"] - target) <= hpo.PARAM_TOLERANCE * target):
+                fail(f"{tag}: trial {t}")
+        others = {k: v for k, v in got.items() if k != "leapfrog"}
+        if (len(trials) != HPO_TRIALS or any(others.values())
+                or not HPO_TRIALS <= got["leapfrog"] <= 2 * HPO_TRIALS):
+            fail(f"{tag}: {len(trials)} trials launched {got}")
+        eval_counts[f"hpo_{family}"] = got
+        for t in trials:
+            print(f"  {tag}: trial {t['number']} {t['model_kwargs']} n_params={t['n_params']} "
+                  f"value={t['value']:.4f} {t['seconds']:.2f} s steps_per_min="
+                  f"{t['steps_per_min']:.1f} peak_hbm_mb={t.get('peak_hbm_mb', float('nan')):.1f}",
+                  flush=True)
+        report(tag, t0, trials=len(trials), mode="param_small",
+               best_value=f"{best['value']:.4f}", leapfrog_launches=got["leapfrog"])
+
     # ------------------------------------------------------------- 25. ponita
     # the committed PONITA checkpoint through the converter, on the card: a
     # forward on a fresh GT frame against the same model in float64 on the CPU;
@@ -1519,12 +1832,6 @@ def main() -> None:
         device=dev).get_ground_truth_trajectories()
     sync()
     eval_counts["ponita"] = counted({"leapfrog": 1}, "ponita")
-
-    def cpu64(s):
-        return Scene(*(t_.detach().cpu().double() for t_ in (s.pos, s.vel, s.force, s.mass)))
-
-    def fc(s):
-        return graph.knn_mask(s.pos, s.pos.shape[1] - 1)
 
     scene_p = Scene(pos=gt_p[0][:, 0], vel=gt_p[1][:, 0], force=gt_p[2][:, 0], mass=gt_p[3])
     scene_c = cpu64(scene_p)
@@ -1576,220 +1883,161 @@ def main() -> None:
     # self-feed steps (no kernel), the six-macro score; 20 steps on the card
     # against the CPU's float64; the rollout repeated bitwise, and timed warm
     t0 = time.perf_counter()
-    run_p = drive(pmodel, PONITA_B, PONITA_N, PONITA_SUBSTEPS, 21, None)
-    eval_counts["ponita_rollout"] = run_p["counts"]
-    score("ponita-score", run_p["loc_gt"], run_p["vel_gt"], run_p["loc_pred"], run_p["vel_pred"])
-    loc0, vel0, force0, mass0 = run_p["gt"]
-    sub = Scene(pos=loc0[:PONITA_CMP_B, 0], vel=vel0[:PONITA_CMP_B, 0],
-                force=force0[:PONITA_CMP_B, 0], mass=mass0[:PONITA_CMP_B])
-    sub_c = cpu64(sub)
-    nudged = Scene(pos=sub_c.pos * (1 + 1e-7), vel=sub_c.vel, force=sub_c.force, mass=sub_c.mass)
-    loc_k, _, surv_k = self_feed.make_rollout_fn(pmodel, COMPARE_STEPS + 1)(sub)
-    short_c = self_feed.make_rollout_fn(pcpu, COMPARE_STEPS + 1)
-    loc_c, _, surv_c = short_c(sub_c)
-    loc_n, _, _ = short_c(nudged)
-    d_kc = (loc_k.double().cpu() - loc_c).abs().max().item()
-    d_nc = (loc_n - loc_c).abs().max().item()
-    pos_scale = loc_c.abs().max().item()
-    roll_limit = max(PONITA_ROLL_RTOL * pos_scale, PONITA_NUDGE_FACTOR * d_nc)
-    if not (torch.isfinite(loc_k).all() and d_kc <= roll_limit):
-        fail(f"ponita-rollout: {COMPARE_STEPS} steps on the card differ from the CPU's float64 "
-             f"ones by {d_kc} (limit {roll_limit}; max |pos| {pos_scale}, nudged spread {d_nc})")
-    del pcpu, short_c
-    rollout_p = self_feed.make_rollout_fn(pmodel, PONITA_FRAMES, target=run_p["target"])
-    scene0_p = Scene(pos=loc0[:, 0], vel=vel0[:, 0], force=force0[:, 0], mass=mass0)
-    reset_counts()
-    t = time.perf_counter()
-    loc2, vel2, surv2 = rollout_p(scene0_p)
-    sync()
-    warm_s = time.perf_counter() - t
-    counted({}, "ponita-rollout (repeated)")
-    if not (torch.equal(loc2, run_p["loc_pred"]) and torch.equal(vel2, run_p["vel_pred"])
-            and int(surv2.min()) == run_p["survived_min"]):
-        fail("ponita-rollout: the rollout repeated from the same GT differs")
-    survived_p = surv2.float().cpu()
-    del loc2, vel2
-    report("ponita-rollout", t0, B=PONITA_B, N=PONITA_N, steps=PONITA_FRAMES - 1,
-           leapfrog_launches=run_p["counts"]["leapfrog"], rollout_s=f"{run_p['seconds']:.3f}",
-           survived_min=run_p["survived_min"],
-           survived_median=f"{survived_p.median().item():.0f}",
-           survived_max=f"{survived_p.max().item():.0f}",
-           steps_per_s_first=f"{(PONITA_FRAMES - 1) / run_p['seconds']:.2f}",
-           steps_per_s_warm=f"{(PONITA_FRAMES - 1) / warm_s:.2f}",
-           ms_per_step_warm=f"{warm_s * 1e3 / (PONITA_FRAMES - 1):.3f}",
-           rollout_bitwise_equal=True,
-           **{f"max_dpos_{COMPARE_STEPS}_steps_card_vs_cpu64": f"{d_kc:.3e}",
-              "max_dpos_nudged_cpu64": f"{d_nc:.3e}", "cmp_sims": PONITA_CMP_B,
-              "survived_min_card/cpu64": f"{int(surv_k.min())}/{int(surv_c.min())}"})
-    del run_p
+    info = family_rollout("ponita", pmodel, pcpu, PONITA_B, PONITA_N, PONITA_SUBSTEPS, 21,
+                          PONITA_CMP_B, PONITA_ROLL_RTOL, PONITA_NUDGE_FACTOR)
+    del pcpu
+    report("ponita-rollout", t0, **info)
 
     # ------------------------------------------------------- 27. train-ponita
-    # the train command with the queue's argv at the reference workload,
-    # resumed from the committed checkpoint and its AdamW state: 2 epochs of 20
-    # steps, its self-feed evaluation (999 steps) and KS score, the checkpoint
-    # read back bitwise in the JAX layout; step ms, busy share, peak memory.
-    # Then a fresh initialisation that calibrates on its first batch, 10 steps
-    def key_shapes(tree, prefix=()) -> set:
-        if isinstance(tree, dict):
-            return set().union(*(key_shapes(v, prefix + (k,)) for k, v in tree.items()))
-        if type(tree) is tuple:
-            return set().union(*(key_shapes(v, prefix + (i,)) for i, v in enumerate(tree)))
-        return {(prefix, np.shape(tree))}
-
+    # the queue's argv resumed from the committed checkpoint (calib included
+    # in the JAX layout), then a fresh run that calibrates on its first batch
     t0 = time.perf_counter()
-    ponita_train_argv = PONITA_ARGV + [
-        "--trainer.steps_per_epoch", str(PONITA_TRAIN_STEPS),
-        "--trainer.train_steps", str(PONITA_EPOCH + PONITA_TRAIN_EPOCHS),
-        "--trainer.save_model_every", "1", "--trainer.test_macros_every", "1000",
-        "--dataloader.seed", "0", "--trainer.run_name", "ponita10m"]
-    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
-        resume = ["--trainer.model_path", shutil.copy(PONITA_CKPT, tmp)]
-        run = train_run(resume + ponita_train_argv, "train-ponita", PONITA_TRAIN_EPOCHS,
-                        PONITA_TRAIN_STEPS)
-        trainer = run["trainer"]
-        if (run["count0"] != PONITA_COUNT
-                or trainer.step_count != PONITA_EPOCH + PONITA_TRAIN_EPOCHS):
-            fail(f"train-ponita: resumed at count {run['count0']}, epoch {trainer.step_count}")
-        if trainer.n_params != PONITA_PARAMS:
-            fail(f"train-ponita: n_params {trainer.n_params}, want {PONITA_PARAMS}")
-        train_counts["train_ponita"] = run["counts"]
-        written = weights.read_checkpoint(os.path.join(trainer.save_dir_path, "model.ckpt"))
-        layout = key_shapes(payload_p["params"])
-        if not (key_shapes(written["params"]) == layout
-                and key_shapes(written["opt_state"]["mu"]) == layout
-                and key_shapes(written["opt_state"]["nu"]) == layout):
-            fail("train-ponita: the written checkpoint's params / mu / nu leave the JAX layout "
-                 "of the committed checkpoint (calib included)")
-        reset_counts()
-        t = time.perf_counter()
-        survived_t = trainer.run_self_feed_eval()
-        sync()
-        eval_s_p = time.perf_counter() - t
-        train_counts["train_ponita_eval"] = counted({"leapfrog": 1}, "train-ponita evaluation")
-        eval_dir = os.path.join(trainer.save_dir_path, "checkpoints", str(trainer.step_count))
-        read = artifacts.read_macro_jsons(eval_dir)
-        per_t, macro_p_t = ks.macro_ks_pvalues({k: v["ground truth"] for k, v in read.items()},
-                                               {k: v["predicted"] for k, v in read.items()})
-        with open(os.path.join(eval_dir, "nbody_macro_metrics.json")) as f:
-            energy_ps = json.load(f)["ks_pvalues"]
-        energy_p_t = energy_ps.pop("combined")
-        # an energy series whose values never meet GT's gives a KS p that
-        # underflows to 0; Fisher drops p = 0, so the combine of three such p
-        # is NaN ("no data"), in the JAX trainer too
-        energy_ok = all(0 <= p <= 1 for p in energy_ps.values()) and (
-            0 < energy_p_t <= 1 or (energy_p_t != energy_p_t and not any(energy_ps.values())))
-        if not (0 <= survived_t <= PONITA_FRAMES - 1 and 0 < macro_p_t <= 1 and energy_ok):
-            fail(f"train-ponita: survived {survived_t}, macro p {macro_p_t}, energy p "
-                 f"{energy_p_t} ({energy_ps})")
-        scene, y = trainer.dataset.get_batch()
-        timing_p = time_steps(trainer, scene, y)
-        split_p = step_split(trainer, scene, y)
-        busy_p, top_p = top_kernels(lambda: trainer._train_step(scene, y))
-        del trainer, run["trainer"]
-    ponita_train = run
-    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
-        run = train_run(PONITA_ARGV + [
-            "--trainer.steps_per_epoch", str(PONITA_FRESH_STEPS), "--trainer.train_steps", "1",
-            "--trainer.save_model_every", "1", "--trainer.test_macros_every", "1000",
-            "--trainer.seed", "0", "--dataloader.seed", "0", "--trainer.run_name", "fresh"],
-            "train-ponita-fresh", 1, PONITA_FRESH_STEPS)
-        convs = [blk.conv for blk in run["trainer"].model.blocks]
-        if any(float(getattr(c, s_)) == 1.0 for c in convs for s_ in ponita.CALIB_STATS):
-            fail("train-ponita: the fresh run's model was not calibrated on its first batch")
-        train_counts["train_ponita_fresh"] = run["counts"]
-        fresh_losses = run["losses"]
-        del run["trainer"]
-    print(f"  train-ponita: losses {' '.join(f'{x:.5f}' for x in ponita_train['epoch_losses'])}; "
-          f"AdamW count {ponita_train['count0']} -> {ponita_train['count']}, lr "
-          f"{ponita_train['lr']:.6e} (Noam {ponita_train['noam']:.6e}); step split "
-          f"{' '.join(f'{k}={v:.3f}' for k, v in split_p.items())}; device busy "
-          f"{busy_share(busy_p, timing_p['ms'])}; top kernels: {top_p}", flush=True)
-    report("train-ponita", t0, B=PONITA_B, N=PONITA_N,
-           steps=PONITA_TRAIN_EPOCHS * PONITA_TRAIN_STEPS,
-           leapfrog_launches_training=train_counts["train_ponita"]["leapfrog"],
-           train_s=f"{ponita_train['train_s']:.3f}", ms_per_step=f"{timing_p['ms']:.3f}",
-           steps_per_s=f"{timing_p['steps_per_s']:.2f}", peak_mib=f"{timing_p['peak_mib']:.1f}",
-           peak_above_start_mib=f"{timing_p['peak_above_start_mib']:.1f}",
-           busy_ms=("not measured" if busy_p is None else f"{busy_p:.3f}"),
-           eval_s=f"{eval_s_p:.3f}", eval_rollout_steps=PONITA_FRAMES - 1, survived=survived_t,
-           macro_combined_p=f"{macro_p_t:.3e}", energy_combined_p=f"{energy_p_t:.3e}",
-           energy_p="[" + " ".join(f"{k}={v:.3e}" for k, v in energy_ps.items()) + "]",
-           checkpoint="bitwise, JAX layout with calib",
-           fresh_steps=PONITA_FRESH_STEPS, fresh_calibrated=True,
-           fresh_loss_first=f"{fresh_losses[0].item():.5f}",
-           fresh_loss_last=f"{fresh_losses[-1].item():.5f}")
+    info, _, fresh_model = family_train("ponita", PONITA_CKPT, PONITA_ARGV, payload_p,
+                                        PONITA_EPOCH, PONITA_COUNT, PONITA_PARAMS, PONITA_FRAMES)
+    convs = [blk.conv for blk in fresh_model.blocks]
+    if any(float(getattr(c, s_)) == 1.0 for c in convs for s_ in ponita.CALIB_STATS):
+        fail("train-ponita: the fresh run's model was not calibrated on its first batch")
+    del fresh_model, convs
+    report("train-ponita", t0, B=PONITA_B, N=PONITA_N, **info,
+           checkpoint="bitwise, JAX layout with calib", fresh_calibrated=True)
 
     # ----------------------------------------------------- 28. battery-ponita
-    # `cli self-feed --draws 4 --seed 281` on a run dir of the queue's argv
-    # around the committed checkpoint (its bytes unchanged), each draw on the
-    # six-macro and the five-macro basis; the checkpoint's own record beside
+    # `cli self-feed --draws 2 --seed 281` on a run dir of the queue's argv
+    # around the committed checkpoint, beside the checkpoint's own record
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        run_dir_p = restore.make_run_dir(os.path.join(tmp, "ponita10m"), PONITA_ARGV, PONITA_CKPT)
-        with open(PONITA_CKPT, "rb") as f:
-            ckpt_bytes = f.read()
-        reset_counts()
-        cli.main(["self-feed", "--run_dir", run_dir_p, "--draws", str(PONITA_DRAWS),
-                  "--seed", str(BATTERY_SEED)])
-        sync()
-        battery_p_s = time.perf_counter() - t0
-        eval_counts["battery_ponita"] = counted({"leapfrog": PONITA_DRAWS}, "battery-ponita")
-        with open(os.path.join(run_dir_p, "model.ckpt"), "rb") as f:
-            if f.read() != ckpt_bytes:
-                fail("battery-ponita: the run dir's model.ckpt is not the committed bytes")
-        del ckpt_bytes
-        with open(os.path.join(run_dir_p, "generated_trajectories", "self_feed_draws.json")) as f:
-            draws_p = json.load(f)["draws"]
-    b = battery.bases(draws_p)
-    if len(draws_p) != PONITA_DRAWS or not all(0 <= p <= 1 for p in b["six"] + b["five"]):
-        fail(f"battery-ponita: {len(draws_p)} draws, six {b['six']}, five {b['five']}")
-    for i, (surv, six, five) in enumerate(zip(b["survived"], b["six"], b["five"])):
-        print(f"  battery-ponita: draw {i} survived={surv} six-macro p={six:.4g} "
-              f"five-macro p={five:.4g}", flush=True)
-    p6, p5 = battery.spread(b["six"]), battery.spread(b["five"])
-    report("battery-ponita", t0, battery_p_s, draws=PONITA_DRAWS, seed=BATTERY_SEED,
-           B=PONITA_B, N=PONITA_N, steps=PONITA_FRAMES - 1,
-           s_per_draw=f"{battery_p_s / PONITA_DRAWS:.3f}",
-           six_best=f"{p6['best']:.4g}", six_median=f"{p6['median']:.4g}",
-           six_worst=f"{p6['worst']:.4g}", five_best=f"{p5['best']:.4g}",
-           five_median=f"{p5['median']:.4g}", five_worst=f"{p5['worst']:.4g}",
-           survived=",".join(map(str, b["survived"])),
-           checkpoint_best_self_feed_steps=payload_p["best_metrics"].get("self_feed_steps"),
-           leapfrog_launches=eval_counts["battery_ponita"]["leapfrog"])
+    battery_p_s, info = family_battery("ponita", PONITA_CKPT, PONITA_ARGV, PONITA_DRAWS,
+                                       PONITA_FRAMES)
+    report("battery-ponita", t0, battery_p_s, B=PONITA_B, N=PONITA_N, **info,
+           checkpoint_best_self_feed_steps=payload_p["best_metrics"].get("self_feed_steps"))
     del payload_p, pmodel
 
     # --------------------------------------------------------- 29. hpo-ponita
-    # two param_small trials of PONITA at the reference default, each one
-    # epoch of 10 steps and a 20-step evaluation
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
-        reset_counts()
-        best = hpo.run_study("ponita", trials=HPO_TRIALS, mode="param_small", study_dir="hpo",
-                             train_epochs=1, steps_per_epoch=10,
-                             self_feed_limit_steps=HPO_EVAL_STEPS, device=dev)
-        sync()
-        got = counts()
-        with open(os.path.join("hpo", "ponita_param_small_trials.jsonl")) as f:
-            trials = [json.loads(line) for line in f]
-    target = hpo.PARAM_TARGETS["param_small"]
-    for t in trials:
-        if not (t["status"] == "done" and np.isfinite(t["value"])
-                and abs(t["n_params"] - target) <= hpo.PARAM_TOLERANCE * target):
-            fail(f"hpo-ponita: trial {t}")
-    others = {k: v for k, v in got.items() if k != "leapfrog"}
-    if (len(trials) != HPO_TRIALS or any(others.values())
-            or not HPO_TRIALS <= got["leapfrog"] <= 2 * HPO_TRIALS):
-        fail(f"hpo-ponita: {len(trials)} trials launched {got}")
-    eval_counts["hpo_ponita"] = got
-    for t in trials:
-        print(f"  hpo-ponita: trial {t['number']} {t['model_kwargs']} n_params={t['n_params']} "
-              f"value={t['value']:.4f} {t['seconds']:.2f} s steps_per_min="
-              f"{t['steps_per_min']:.1f} peak_hbm_mb={t.get('peak_hbm_mb', float('nan')):.1f}",
-              flush=True)
-    report("hpo-ponita", t0, trials=len(trials), mode="param_small",
-           best_value=f"{best['value']:.4f}", leapfrog_launches=got["leapfrog"])
+    family_hpo("ponita")
 
-    # --------------------------------------------------------------- 30. bign
+    # -------------------------------------------------------------- 30. segnn
+    # the committed SEGNN checkpoint through the converter, on the card: a
+    # forward on a fresh GT frame against the same model in float64 on the
+    # CPU, the parameter count, and O(3) equivariance with center_mode
+    # "nodes".  SEGNN is plain PyTorch: no kernel but the GT's
+    t0 = time.perf_counter()
+    payload_s = weights.read_checkpoint(SEGNN_CKPT)
+    smodel = models.create_model("segnn", device=dev, **SEGNN_KW)
+    smodel.load_state_dict(weights.params_from_jax(payload_s["params"], "segnn"))
+    smodel.eval()
+    scpu = models.create_model("segnn", device="cpu", dtype=torch.float64, **SEGNN_KW)
+    scpu.load_state_dict(smodel.state_dict())
+    scpu.eval()
+    n_params_s = models.count_params(smodel)
+    n_params_s_hpo = hpo._count_params("segnn", SEGNN_KW, SEGNN_N)
+    if n_params_s != SEGNN_PARAMS or n_params_s_hpo != SEGNN_PARAMS:
+        fail(f"segnn: {n_params_s} parameters ({n_params_s_hpo} by hpo), want {SEGNN_PARAMS}")
+    reset_counts()
+    gt_sg = otf.GravityDatasetOtf(
+        batch_size=SEGNN_B, sim_length=SEGNN_SUBSTEPS, sample_freq=SAMPLE_FREQ,
+        num_nodes=SEGNN_N, interaction_strength=G_CONST, softening=SOFTENING, seed=30,
+        device=dev).get_ground_truth_trajectories()
+    sync()
+    eval_counts["segnn"] = counted({"leapfrog": 1}, "segnn")
+    scene_s = Scene(pos=gt_sg[0][:, 0], vel=gt_sg[1][:, 0], force=gt_sg[2][:, 0], mass=gt_sg[3])
+    scene_sc = cpu64(scene_s)
+    with torch.no_grad():
+        out_card = smodel(scene_s, fc(scene_s))
+        out_cpu = scpu(scene_sc, fc(scene_sc))
+        fwd_ms_s = cuda_ms(lambda: smodel(scene_s, fc(scene_s)), iters=20)
+        busy_fwd_s, top_fwd_s = top_kernels(lambda: smodel(scene_s, fc(scene_s)), n=8)
+    fwd_err_s = (out_card.double().cpu() - out_cpu).abs().max().item()
+    fwd_scale_s = out_cpu.abs().max().item()
+    if not (torch.isfinite(out_card).all() and fwd_err_s <= SEGNN_FWD_RTOL * fwd_scale_s):
+        fail(f"segnn: the card's forward differs from the CPU's float64 one by {fwd_err_s} "
+             f"(max |out| {fwd_scale_s}, rtol {SEGNN_FWD_RTOL})")
+    # the forward's bound: every path of every tensor product (multiply-adds
+    # count 2; the CG tensor with the attribute, then the input, then the
+    # weights), edge rows for the message products, node rows for the rest,
+    # f32 at the card's peak; the bytes (parameters, inputs, output) are far
+    # below
+    e_rows_s, n_rows_s = SEGNN_B * SEGNN_N * SEGNN_N, SEGNN_B * SEGNN_N
+    fwd_flops_s = sum(tp_flops(tp) * (e_rows_s if ".message" in name else n_rows_s)
+                      for name, tp in smodel.named_modules()
+                      if isinstance(tp, steerable.SteerableTensorProduct))
+    fwd_bytes_s = 4.0 * (n_params_s + e_rows_s * 6 + n_rows_s * 16)
+    fwd_bound_s, fwd_by_s = bound_ms(fwd_bytes_s, fwd_flops_s)
+    # O(3): the model with center_mode "nodes" on the scene turned by an
+    # orthogonal matrix with a reflection and shifted, against its outputs
+    # on the scene turned the same way
+    nodes = models.create_model("segnn", device=dev, center_mode="nodes", **SEGNN_KW)
+    nodes.load_state_dict(smodel.state_dict())
+    nodes.eval()
+    q, r = torch.linalg.qr(torch.randn((3, 3), generator=torch.Generator().manual_seed(31),
+                                       dtype=torch.float64))
+    R = q * torch.sign(torch.diagonal(r))
+    R = (-R if torch.det(R) > 0 else R).float().to(dev)
+    moved = Scene(pos=scene_s.pos @ R.T + torch.tensor([1.5, -0.5, 2.0], device=dev),
+                  vel=scene_s.vel @ R.T, force=scene_s.force @ R.T, mass=scene_s.mass)
+    with torch.no_grad():
+        out_n = nodes(scene_s, fc(scene_s))
+        out_m = nodes(moved, fc(moved))
+    want_m = torch.cat([out_n[..., :3] @ R.T, out_n[..., 3:] @ R.T], dim=-1)
+    equiv_err = (out_m - want_m).abs().max().item()
+    equiv_scale = want_m.abs().max().item()
+    if not (torch.isfinite(out_m).all() and equiv_err <= SEGNN_EQUIV_RTOL * equiv_scale):
+        fail(f"segnn: O(3) with center_mode nodes off by {equiv_err} (max |out| {equiv_scale}, "
+             f"rtol {SEGNN_EQUIV_RTOL})")
+    del nodes, out_n, out_m, want_m, gt_sg
+    print(f"  segnn: forward, device busy {busy_share(busy_fwd_s, fwd_ms_s)}; top kernels: "
+          f"{top_fwd_s}", flush=True)
+    report("segnn", t0, B=SEGNN_B, N=SEGNN_N, layers=SEGNN_KW["num_layers"],
+           width=SEGNN_KW["hidden_features"], hidden_irreps=repr(smodel.hidden_irreps),
+           n_params=n_params_s, fwd_max_abs_err=f"{fwd_err_s:.3e}",
+           max_abs_out=f"{fwd_scale_s:.3e}", rtol=SEGNN_FWD_RTOL, fwd_ms=f"{fwd_ms_s:.4f}",
+           fwd_bound_ms=f"{fwd_bound_s:.4f}", fwd_bound_by=fwd_by_s,
+           fwd_gflop=f"{fwd_flops_s / 1e9:.2f}",
+           fwd_busy_ms=("not measured" if busy_fwd_s is None else f"{busy_fwd_s:.3f}"),
+           o3_max_abs_err=f"{equiv_err:.3e}", o3_rtol=SEGNN_EQUIV_RTOL,
+           leapfrog_launches=eval_counts["segnn"]["leapfrog"])
+
+    # ------------------------------------------------------ 31. segnn-rollout
+    t0 = time.perf_counter()
+    info = family_rollout("segnn", smodel, scpu, SEGNN_B, SEGNN_N, SEGNN_SUBSTEPS, 32,
+                          SEGNN_CMP_B, SEGNN_ROLL_RTOL, SEGNN_NUDGE_FACTOR)
+    del scpu
+    report("segnn-rollout", t0, **info)
+
+    # -------------------------------------------------------- 32. train-segnn
+    # the queue's argv resumed from the committed checkpoint, with one step
+    # against the same step on the CPU in float64 ([train]'s gates), then a
+    # fresh run
+    t0 = time.perf_counter()
+    info, (p_err_s, up_err_s, card_loss_s, cpu_loss_s), fresh_model = family_train(
+        "segnn", SEGNN_CKPT, SEGNN_ARGV, payload_s, SEGNN_EPOCH, SEGNN_COUNT, SEGNN_PARAMS,
+        SEGNN_FRAMES,
+        extra=lambda run_, scene_, y_: step_vs_cpu("train-segnn", run_, payload_s, SEGNN_KW,
+                                                   scene_, y_))
+    del fresh_model
+    print(f"  train-segnn: one step, card f32 vs CPU f64 on {TRAIN_CMP_B} sims: loss "
+          f"{card_loss_s:.8f} / {cpu_loss_s:.8f}, params max rel err {p_err_s:.3e} (limit "
+          f"{TRAIN_PARAM_RTOL}), update max rel err {up_err_s:.3e} (limit {TRAIN_UPDATE_RTOL})",
+          flush=True)
+    report("train-segnn", t0, B=SEGNN_B, N=SEGNN_N, **info, checkpoint="bitwise, JAX layout",
+           cmp_param_err=f"{p_err_s:.3e}", cmp_update_err=f"{up_err_s:.3e}")
+
+    # ------------------------------------------------------ 33. battery-segnn
+    # `cli self-feed --draws 2 --seed 281` on a run dir of the queue's argv
+    # around the committed checkpoint, beside the committed 12-draw battery of
+    # the same seed; a class, not a gate
+    t0 = time.perf_counter()
+    battery_s_s, info = family_battery("segnn", SEGNN_CKPT, SEGNN_ARGV, SEGNN_DRAWS,
+                                       SEGNN_FRAMES)
+    ref_six = battery.committed(BATTERY_SEED, battery.SEGNN_COMMITTED)["six"]
+    ref_s = battery.spread(ref_six)
+    report("battery-segnn", t0, battery_s_s, B=SEGNN_B, N=SEGNN_N, **info,
+           committed_draws=len(ref_six), committed_six_best=f"{ref_s['best']:.4g}",
+           committed_six_median=f"{ref_s['median']:.4g}")
+    del payload_s, smodel
+
+    # --------------------------------------------------------- 34. hpo-segnn
+    family_hpo("segnn")
+
+    # --------------------------------------------------------------- 35. bign
     t0 = time.perf_counter()
     state = bign_bench.seeded_state(2)
     rows = []
@@ -1901,7 +2149,8 @@ def main() -> None:
         })
     # each kernel's launches on the training paths: [train]'s training (its
     # first GT batch included), [train]'s evaluation, [train-n5], and
-    # [train-ponita]'s resumed training, its evaluation and its fresh run
+    # [train-ponita]'s and [train-segnn]'s resumed training, its evaluation
+    # and its fresh run
     counter_of = {"egnn_messages (K1)": "k1", "gravity (K2)": "k2",
                   "gravity leapfrog (K2-leapfrog)": "leapfrog", "egnn_stream (K3)": "k3",
                   "egnn_messages bf16 (K1-bf16)": "k1_bf16",
@@ -1910,8 +2159,9 @@ def main() -> None:
     for entry in kernels:
         entry["launches_train"] = {path: c[counter_of[entry["name"]]]
                                    for path, c in train_counts.items()}
-        # ... and on the evaluation layer's paths and PONITA's ([ponita],
-        # [ponita-rollout], [battery-ponita], [hpo-ponita])
+        # ... and on the evaluation layer's paths, PONITA's ([ponita],
+        # [ponita-rollout], [battery-ponita], [hpo-ponita]) and SEGNN's
+        # ([segnn], [segnn-rollout], [battery-segnn], [hpo-segnn])
         entry["launches_eval"] = {path: c[counter_of[entry["name"]]]
                                   for path, c in eval_counts.items()}
     print(f"total {time.perf_counter() - T_START:.2f} s on {card}", flush=True)

@@ -2,7 +2,7 @@
 bases, through the ``self-feed`` main.
 
     python -m extending_the_n_body_benchmark_a_cross_model_study_of_geometric_deep_learning_architectures_tpu_torch.battery \\
-        [--family egnn_mc|ponita] [--seeds 281 9272] [--compute-dtypes float32 bfloat16] \\
+        [--family egnn_mc|ponita|segnn] [--seeds 281 9272] [--compute-dtypes float32 bfloat16] \\
         [--draws 6] [--batch-size B] [--checkpoint PATH] [--device cuda] [--out DIR]
 
 For each compute dtype it builds a run dir around the checkpoint (by default
@@ -16,7 +16,12 @@ is trained.  ``--family ponita`` scores PONITA instead (by default the
 committed ``docs/results/ponita10m_r5_partial/model.ckpt``, L5 h480, in f32)
 in a run dir of the queue step that trained it
 (``scripts/queues/tpu_queue48.sh:63-64``: the reference workload, N=5,
-B=64, T=1000, 999 steps a draw).
+B=64, T=1000, 999 steps a draw), and ``--family segnn`` scores SEGNN (by
+default the committed ``docs/results/segnn10m_r5/ckpt_110_model.ckpt``, L6
+w448, in f32) in a run dir of its queue step (``tpu_queue48.sh:55-56``, the
+same workload), beside the checkpoint's committed batteries
+(``draws_ckpt110.json``, seed 281, and ``draws2_ckpt110.json``, seed 9272:
+12 draws each, on the six-macro basis).
 
 Each draw is scored on two bases:
 
@@ -56,6 +61,13 @@ COMMITTED = {281: os.path.join(FIDELITY, "egnn_n100_draws_ckpt30.json"),
 PONITA_CKPT = os.path.join(REPO, "docs", "results", "ponita10m_r5_partial", "model.ckpt")
 PONITA_RUN_ARGV = ["--main.model_type", "ponita", "--model.num_layers", "5",
                    "--model.hidden_features", "480"]
+# the committed SEGNN checkpoint, the run that trained it and its batteries
+SEGNN_DIR = os.path.join(REPO, "docs", "results", "segnn10m_r5")
+SEGNN_CKPT = os.path.join(SEGNN_DIR, "ckpt_110_model.ckpt")
+SEGNN_RUN_ARGV = ["--main.model_type", "segnn", "--model.num_layers", "6",
+                  "--model.hidden_features", "448"]
+SEGNN_COMMITTED = {281: os.path.join(SEGNN_DIR, "draws_ckpt110.json"),
+                   9272: os.path.join(SEGNN_DIR, "draws2_ckpt110.json")}
 # the study protocol that trained the checkpoint (README section 3)
 STUDY_RUN_ARGV = ["--dataloader.batch_size", "16",
                   "--dataloader.gravity_dataset.num_atoms", "100",
@@ -88,15 +100,16 @@ def spread(ps) -> dict:
             "worst": ok[0] if ok else nan}
 
 
-def committed(seed: int):
-    """The committed battery of ``seed`` (five-macro, as it was scored) and
-    each draw's survived, or None."""
-    path = COMMITTED.get(seed)
+def committed(seed: int, batteries=None):
+    """The committed battery of ``seed`` among ``batteries`` (by default the
+    N=100 checkpoint's) on both bases (six is NaN for the batteries scored
+    before the sixth macro) and each draw's survived, or None."""
+    path = (COMMITTED if batteries is None else batteries).get(seed)
     if path is None or not os.path.exists(path):
         return None
     with open(path) as f:
         b = bases(json.load(f)["draws"])
-    return {"five": b["five"], "survived": b["survived"]}
+    return {"six": b["six"], "five": b["five"], "survived": b["survived"]}
 
 
 def make_study_run_dir(run_dir: str, compute_dtype: str = "float32", checkpoint: str = CKPT) -> str:
@@ -115,8 +128,9 @@ def _fmt(s: dict) -> str:
 
 
 def run_battery(run_dir: str, seed: int, draws: int, device: str, out: str,
-                batch_size=None) -> dict:
-    """``cli self-feed`` on ``run_dir``; the battery on both bases."""
+                batch_size=None, batteries=None) -> dict:
+    """``cli self-feed`` on ``run_dir``; the battery on both bases, beside
+    the committed battery of ``seed`` among ``batteries``."""
     from .cli import self_feed_main
 
     t0 = time.perf_counter()
@@ -127,12 +141,12 @@ def run_battery(run_dir: str, seed: int, draws: int, device: str, out: str,
     b = bases(summary["draws"])
     return {"seed": seed, "draws": draws, "seconds": seconds, **b,
             "six_spread": spread(b["six"]), "five_spread": spread(b["five"]),
-            "committed": committed(seed)}
+            "committed": committed(seed, batteries)}
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--family", choices=["egnn_mc", "ponita"], default="egnn_mc")
+    p.add_argument("--family", choices=["egnn_mc", "ponita", "segnn"], default="egnn_mc")
     p.add_argument("--seeds", type=int, nargs="+", default=[281, 9272])
     p.add_argument("--compute-dtypes", nargs="+", default=["float32", "bfloat16"],
                    choices=["float32", "bfloat16"])
@@ -148,11 +162,14 @@ def main(argv=None):
     p.add_argument("--rescore", nargs="+", default=None, metavar="JSON",
                    help="score these self_feed_draws.json files on both bases, and run nothing")
     args = p.parse_args(argv)
-    ponita = args.family == "ponita"
+    # the families at the reference workload: (checkpoint, run argv, committed batteries)
+    queued = {"ponita": (PONITA_CKPT, PONITA_RUN_ARGV, {}),
+              "segnn": (SEGNN_CKPT, SEGNN_RUN_ARGV, SEGNN_COMMITTED)}.get(args.family)
+    default_ckpt = queued[0] if queued else CKPT
     if args.checkpoint is None:
-        args.checkpoint = PONITA_CKPT if ponita else CKPT
-    if ponita:
-        args.compute_dtypes = ["float32"]  # PONITA has no mixed-precision form
+        args.checkpoint = default_ckpt
+    if queued:
+        args.compute_dtypes = ["float32"]  # neither has a mixed-precision form
 
     if args.rescore:
         results = []
@@ -172,20 +189,23 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         root = args.out or tmp
         for dtype in args.compute_dtypes:
-            if ponita:
+            if queued:
                 from .train.restore import make_run_dir
 
-                run_dir = make_run_dir(os.path.join(root, "ponita10m"), PONITA_RUN_ARGV,
+                run_dir = make_run_dir(os.path.join(root, f"{args.family}10m"), queued[1],
                                        args.checkpoint)
             else:
                 run_dir = make_study_run_dir(os.path.join(root, f"egnn_n100_{dtype}"), dtype,
                                              args.checkpoint)
             for seed in args.seeds:
                 r = run_battery(run_dir, seed, args.draws, args.device,
-                                os.path.join(run_dir, f"battery_seed{seed}"), args.batch_size)
+                                os.path.join(run_dir, f"battery_seed{seed}"), args.batch_size,
+                                queued[2] if queued else None)
+                protocol_b = 64 if queued else 16
                 r.update(family=args.family, compute_dtype=dtype, checkpoint=args.checkpoint,
-                         batch_size=args.batch_size or (64 if ponita else 16))
-                if os.path.abspath(args.checkpoint) != CKPT or r["batch_size"] != 16:
+                         batch_size=args.batch_size or protocol_b)
+                if (os.path.abspath(args.checkpoint) != os.path.abspath(default_ckpt)
+                        or r["batch_size"] != protocol_b):
                     r["committed"] = None  # the committed batteries scored another run
                 for i, (surv, six, five) in enumerate(zip(r["survived"], r["six"], r["five"])):
                     print(f"  {dtype} seed {seed} draw {i}: survived={surv} six-macro p={six:.3e} "
@@ -193,7 +213,8 @@ def main(argv=None):
                 line = (f"[battery {dtype} seed {seed}] {r['seconds']:.2f} s; six-macro "
                         f"{_fmt(r['six_spread'])}; five-macro {_fmt(r['five_spread'])}")
                 if r["committed"]:
-                    line += (f"; committed five-macro {_fmt(spread(r['committed']['five']))}, "
+                    line += (f"; committed six-macro {_fmt(spread(r['committed']['six']))}, "
+                             f"five-macro {_fmt(spread(r['committed']['five']))}, "
                              f"survived {r['committed']['survived']}")
                 print(line, flush=True)
                 results.append(r)

@@ -89,6 +89,8 @@ class OfflineSegnnDataLoader:
 DATALOADER_REGISTRY: Dict[str, Type] = {
     "egnn_mc_nbody": NBodyDataLoader,
     "ponita_nbody": NBodyDataLoader,
+    "segnn_nbody": NBodyDataLoader,
+    "seconv_nbody": NBodyDataLoader,
     "segnn_nbody_offline": OfflineSegnnDataLoader,
 }
 

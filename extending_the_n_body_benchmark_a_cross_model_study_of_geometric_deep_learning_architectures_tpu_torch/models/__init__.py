@@ -1,9 +1,9 @@
 """Model registry: ``create_model(model_type, **overrides)``.
 
 Counterpart of the JAX package's ``models/__init__.py``; the port knows
-``egnn_mc`` and ``ponita``, with the JAX package's defaults for them.  Every
-model is an ``nn.Module`` with the dense interface ``model(scene, mask) ->
-[B, N, 3k]``.
+``egnn_mc``, ``ponita``, ``segnn`` and ``seconv``, with the JAX package's
+defaults for them.  Every model is an ``nn.Module`` with the dense interface
+``model(scene, mask) -> [B, N, 3k]``.
 """
 
 from __future__ import annotations
@@ -14,8 +14,10 @@ import torch
 
 from .egnn_mc import EGNNMC
 from .ponita import PONITA
+from .segnn import SEGNN, SEConv
 
-MODEL_REGISTRY: Dict[str, Any] = {"egnn_mc": EGNNMC, "ponita": PONITA}
+MODEL_REGISTRY: Dict[str, Any] = {"egnn_mc": EGNNMC, "ponita": PONITA, "segnn": SEGNN,
+                                  "seconv": SEConv}
 
 MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
     "egnn_mc": dict(
@@ -32,6 +34,8 @@ MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
         tanh=True,
     ),
     "ponita": dict(hidden_features=128, num_layers=8),
+    "segnn": dict(hidden_features=96, lmax_attr=1, lmax_h=1, num_layers=20),
+    "seconv": dict(hidden_features=96, lmax_attr=1, lmax_h=1, num_layers=8),
 }
 
 
@@ -47,7 +51,7 @@ def create_model(model_type: str, device="cuda", dtype=torch.float32, **override
 
 def has_edge_stage(model) -> bool:
     """Whether ``model`` has an edge stage whose form ``edge_impl`` chooses
-    (EGNN-MC's kernel or dense forms); PONITA has none."""
+    (EGNN-MC's kernel or dense forms); PONITA, SEGNN and SEConv have none."""
     return hasattr(model, "edge_impl")
 
 
@@ -55,5 +59,6 @@ def count_params(model) -> int:
     """The JAX package's parameter count: every leaf of the model's params tree,
     which is every entry of the ``state_dict`` -- the parameters and, for
     PONITA, the ``calib`` statistics (3 a layer) that its tree carries beside
-    them."""
+    them.  SEGNN's Clebsch-Gordan tensors are constants outside the
+    ``state_dict``."""
     return sum(t.numel() for t in model.state_dict().values())

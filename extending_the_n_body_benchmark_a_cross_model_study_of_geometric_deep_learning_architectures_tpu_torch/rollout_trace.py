@@ -1,19 +1,23 @@
-"""Where an N=100 rollout step's time goes on the card: device busy time against wall time.
+"""Where a rollout step's time goes on the card: device busy time against wall time.
 
-    python -m extending_the_n_body_benchmark_a_cross_model_study_of_geometric_deep_learning_architectures_tpu_torch.rollout_trace
+    python -m extending_the_n_body_benchmark_a_cross_model_study_of_geometric_deep_learning_architectures_tpu_torch.rollout_trace [--family egnn_mc|segnn] [--runs 3]
 
-Rolls the committed N=100 checkpoint (EGNN-MC 6 x 128, fully connected, B=64)
-out from fresh ground truth (seed 0, 2000 substeps, a frame every 10: 199
-steps), in f32 and in mixed bf16, as ``chip_smoke.py``'s ``[rollout]`` and
-``[rollout-bf16]`` do.  Each config runs once to warm up, then ``--runs``
-times untraced (wall ms a step: host clock, synchronised at the end), then
-once under ``torch.profiler``: the summed time of the CUDA kernels a step,
-the edge kernel's part of it, and the device's idle share of the traced wall
-time.  The rollout launches without waiting on the device, so a step takes
-the longer of the host's launches and the device's work: where the untraced
-wall time a step is well above the device's busy time, the host sets it.
-Prints the card's name and power limit, then one JSON line per config.
-Needs a card.
+``egnn_mc`` (the default) rolls the committed N=100 checkpoint (EGNN-MC
+6 x 128, fully connected, B=64) out from fresh ground truth (seed 0, 2000
+substeps, a frame every 10: 199 steps), in f32 and in mixed bf16, as
+``chip_smoke.py``'s ``[rollout]`` and ``[rollout-bf16]`` do; ``segnn`` rolls
+the committed SEGNN checkpoint (L6 w448, N=5, B=64) out over the
+evaluation's 999 steps (10000 substeps), in f32, as ``[segnn-rollout]``
+does.  Each config runs once to warm up, then ``--runs`` times untraced
+(wall ms a step: host clock, synchronised at the end), then once under
+``torch.profiler``: the summed time of the CUDA kernels a step, the edge
+kernel's part of it, and the device's idle share of the traced wall time;
+then once more untraced, after the trace (whether tracing changed the
+process's later launches).  The rollout launches without waiting on
+the device, so a step takes the longer of the host's launches and the
+device's work: where the untraced wall time a step is well above the
+device's busy time, the host sets it.  Prints the card's name and power
+limit, then one JSON line per config.  Needs a card.
 """
 
 from __future__ import annotations
@@ -35,7 +39,15 @@ from .weights import params_from_jax, read_jax_checkpoint
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(REPO, "docs", "results", "fidelity_n100", "egnn_n100_ckpt_30_model.ckpt")
-B, N, SUBSTEPS, SAMPLE_FREQ = 64, 100, 2000, 10
+SEGNN_CKPT = os.path.join(REPO, "docs", "results", "segnn10m_r5", "ckpt_110_model.ckpt")
+SAMPLE_FREQ = 10
+# family -> (checkpoint, B, N, substeps, model kwargs, configs)
+FAMILIES = {
+    "egnn_mc": (CKPT, 64, 100, 2000, {},
+                (("f32", {}), ("mixed-bf16", {"compute_dtype": "bfloat16"}))),
+    "segnn": (SEGNN_CKPT, 64, 5, 10000, {"num_layers": 6, "hidden_features": 448},
+              (("f32", {}),)),
+}
 EDGE_KERNEL = "egnn_edge_kernel"  # K1's __global__ name in csrc/egnn_messages.cu
 
 
@@ -61,6 +73,10 @@ def measure(model, scene0, target: str, steps: int, runs: int) -> dict:
         fn(scene0)
         torch.cuda.synchronize()
         traced = (time.perf_counter() - t) * 1e3 / steps
+    t = time.perf_counter()
+    fn(scene0)
+    torch.cuda.synchronize()
+    after = (time.perf_counter() - t) * 1e3 / steps
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(device_us(e) for e in kernels) / 1e3 / steps
     edge = sum(device_us(e) for e in kernels if EDGE_KERNEL in e.key) / 1e3 / steps
@@ -68,6 +84,7 @@ def measure(model, scene0, target: str, steps: int, runs: int) -> dict:
     return {
         "wall_ms_per_step": sorted(walls),
         "traced_wall_ms_per_step": traced,
+        "wall_ms_per_step_after_trace": after,
         "device_busy_ms_per_step": busy,
         "edge_kernel_ms_per_step": edge,
         "device_ops_per_step": launches,
@@ -77,6 +94,7 @@ def measure(model, scene0, target: str, steps: int, runs: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--family", choices=sorted(FAMILIES), default="egnn_mc")
     ap.add_argument("--runs", type=int, default=3)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -86,19 +104,21 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(card_name(), flush=True)
-    state = params_from_jax(read_jax_checkpoint(CKPT))
-    ds = GravityDatasetOtf(batch_size=B, sim_length=SUBSTEPS, sample_freq=SAMPLE_FREQ,
-                           num_nodes=N, interaction_strength=2.0, softening=0.2, seed=0,
+    ckpt, b, n, substeps, shape, configs = FAMILIES[args.family]
+    state = params_from_jax(read_jax_checkpoint(ckpt), args.family)
+    ds = GravityDatasetOtf(batch_size=b, sim_length=substeps, sample_freq=SAMPLE_FREQ,
+                           num_nodes=n, interaction_strength=2.0, softening=0.2, seed=0,
                            device=dev)
     loc, vel, force, mass = ds.get_ground_truth_trajectories()
     scene0 = Scene(pos=loc[:, 0], vel=vel[:, 0], force=force[:, 0], mass=mass)
     steps = int(loc.shape[1]) - 1
-    for config, kw in (("f32", {}), ("mixed-bf16", {"compute_dtype": "bfloat16"})):
-        model = create_model("egnn_mc", device=dev, **kw)
+    for config, kw in configs:
+        model = create_model(args.family, device=dev, **shape, **kw)
         model.load_state_dict(state)
         model.eval()
         row = measure(model, scene0, ds.target, steps, args.runs)
-        print(json.dumps({"config": config, "B": B, "N": N, "steps": steps, **row}), flush=True)
+        print(json.dumps({"family": args.family, "config": config, "B": b, "N": n,
+                          "steps": steps, **row}), flush=True)
     return 0
 
 

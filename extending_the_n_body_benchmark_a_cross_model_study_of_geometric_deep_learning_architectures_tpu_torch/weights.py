@@ -9,11 +9,14 @@ pickle gives it (a namedtuple's fields), without importing any of them;
 :func:`read_jax_checkpoint` returns its ``params`` tree.
 
 :func:`params_from_jax` maps that flax tree onto the port's model's
-``state_dict``, for the two ported families, EGNN-MC and PONITA: flax
-``Dense`` kernels are ``[in, out]`` (an ``nn.Linear`` weight is ``[out,
+``state_dict``, for the ported families, EGNN-MC, PONITA, SEGNN and SEConv:
+flax ``Dense`` kernels are ``[in, out]`` (an ``nn.Linear`` weight is ``[out,
 in]``), EGNN-MC's ``Scan_EGNNBlock_0/*`` leaves carry a leading layer axis,
-and PONITA's tree has, beside ``params``, the ``calib`` collection (three
-statistics a convolution, which its convolutions keep as buffers).
+PONITA's tree has, beside ``params``, the ``calib`` collection (three
+statistics a convolution, which its convolutions keep as buffers), and the
+leaves of SEGNN's ``mp_scan`` and SEConv's ``Scan_SEConvLayer_0`` carry a
+leading layer axis; their tensor products' ``w_{a}_{b}_{c}`` and ``b_{c}``
+keep flax's names and shapes.
 :func:`params_to_jax` is its inverse, for the port's own checkpoints.
 :func:`opt_state_from_jax` finds AdamW's state (optax's
 ``ScaleByAdamState(count, mu, nu)``, or the port's ``{"count", "mu", "nu"}``)
@@ -22,8 +25,9 @@ not parameters.
 
 The family of a tree is the one a caller names (``model_type``) or, when it
 names none, the one whose top-level module the tree holds (EGNN-MC's
-``Scan_EGNNBlock_0``, PONITA's ``_ConvNextBlock_0``); a family the port does
-not build, or a tree of none, raises.
+``Scan_EGNNBlock_0``, PONITA's ``_ConvNextBlock_0``, SEGNN's ``mp_scan``,
+SEConv's ``Scan_SEConvLayer_0``); a family the port does not build, or a
+tree of none, raises.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 from .models.ponita import CALIB_STATS, PONITA
+from .models.segnn import SEGNN, SEConv
 
 _FOREIGN = ("jax", "jaxlib", "flax", "optax", "chex", "orbax")
 
@@ -96,10 +101,38 @@ def linear_name(k: int) -> str:
     return f"{LINEAR}{k}"
 
 
-FAMILIES = ("egnn_mc", "ponita")
+FAMILIES = ("egnn_mc", "ponita", "segnn", "seconv")
 # the top-level module that marks each family's flax tree, and state_dict key
-_JAX_MARKER = {"egnn_mc": "Scan_EGNNBlock_0", "ponita": "_ConvNextBlock_0"}
-_PORT_MARKER = {"egnn_mc": "layers.0.edge_w1", "ponita": "blocks.0.conv.spatial.kernel"}
+_JAX_MARKER = {"egnn_mc": "Scan_EGNNBlock_0", "ponita": "_ConvNextBlock_0",
+               "segnn": "mp_scan", "seconv": "Scan_SEConvLayer_0"}
+_PORT_MARKER = {"egnn_mc": "layers.0.edge_w1", "ponita": "blocks.0.conv.spatial.kernel",
+                "segnn": "layers.0.message1.tp.b_0", "seconv": "layers.0.conv.b_0"}
+
+_TP, _GATE = "SteerableTensorProduct_", "SteerableTPSwishGate_"
+# (port module, flax path, scanned) of every module with parameters of the
+# steerable families; a scanned module's leaves carry a leading layer axis,
+# and its port name takes the layer's index.  Modules of an option that is
+# off (SEGNN's instance norm, SEConv's nonlinear message) are absent from
+# both trees
+_STEERABLE_MODULES = {
+    "segnn": [
+        ("embedding", ("embedding",), False),
+        ("layers.{}.message1.tp", ("mp_scan", f"{_GATE}0", f"{_TP}0"), True),
+        ("layers.{}.message2.tp", ("mp_scan", f"{_GATE}1", f"{_TP}0"), True),
+        ("layers.{}.update1.tp", ("mp_scan", f"{_GATE}2", f"{_TP}0"), True),
+        ("layers.{}.update2", ("mp_scan", f"{_TP}0"), True),
+        ("layers.{}.norm", ("mp_scan", "SteerableInstanceNorm_0"), True),
+        ("pre_pool1.tp", ("pre_pool1", f"{_TP}0"), False),
+        ("pre_pool2", ("pre_pool2",), False),
+    ],
+    "seconv": [
+        ("embedding", (f"{_TP}0",), False),
+        ("layers.{}.message.tp", ("Scan_SEConvLayer_0", f"{_GATE}0", f"{_TP}0"), True),
+        ("layers.{}.conv", ("Scan_SEConvLayer_0", f"{_TP}0"), True),
+        ("pre_pool1.tp", (f"{_GATE}0", f"{_TP}0"), False),
+        ("pre_pool2", (f"{_TP}1",), False),
+    ],
+}
 
 
 def _family(model_type: Optional[str], found: Optional[str], what: str) -> str:
@@ -181,7 +214,17 @@ def flax_layer_paths(model) -> list:
     ``MLP_t/TorchLinear_k``.  PONITA: ``Dense_0``, ``_BasisNet_k`` and their
     ``TorchLinear_j``, each ``_ConvNextBlock_k`` and its
     ``_FiberBundleConv_0``, ``LayerNorm_0``, ``TorchLinear_0`` and
-    ``TorchLinear_1``, each readout ``TorchLinear_k`` and its ``Dense_0``."""
+    ``TorchLinear_1``, each readout ``TorchLinear_k`` and its ``Dense_0``.
+    SEGNN: ``embedding``, ``pre_pool1`` with its ``SteerableTensorProduct_0``
+    and ``GateActivation_0``, ``pre_pool2``; SEConv the same modules under
+    its names (the scanned layers are not seen)."""
+    if isinstance(model, (SEGNN, SEConv)):
+        segnn = isinstance(model, SEGNN)
+        emb, pool1, pool2 = (("embedding", "pre_pool1", "pre_pool2") if segnn
+                             else (f"{_TP}0", f"{_GATE}0", f"{_TP}1"))
+        return [(model.embedding, [emb]), (model.pre_pool1.tp, [f"{pool1}/{_TP}0"]),
+                (model.pre_pool1.gate, [f"{pool1}/GateActivation_0"]),
+                (model.pre_pool1, [pool1]), (model.pre_pool2, [pool2]), (model, [""])]
     if isinstance(model, PONITA):
         out = [(model.embedding, ["Dense_0"])]
         for i, net in enumerate(model.basis_nets):
@@ -231,6 +274,8 @@ def params_from_jax(params: Dict[str, Any], model_type: Optional[str] = None,
     family = _family(model_type, jax_family(params), "the params tree")
     if family == "ponita":
         return _ponita_from_jax(params, calib)
+    if family in _STEERABLE_MODULES:
+        return _steerable_from_jax(params, family)
     p = params.get("params", params)
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     emb = p[EMBEDDING]["Dense_0"]
@@ -272,6 +317,46 @@ def _ponita_from_jax(params: Dict[str, Any], calib: bool) -> "OrderedDict[str, t
             leaf = _leaf(stats, path)  # a sown value: a 1-tuple of a 0-d array
             sd[key] = _tensor(np.asarray(leaf[0]) if leaf is not None else np.float32(1.0))
     return sd
+
+
+def _steerable_from_jax(params: Dict[str, Any], family: str) -> "OrderedDict[str, torch.Tensor]":
+    p = params.get("params", params)
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for port, path, scanned in _STEERABLE_MODULES[family]:
+        node = _leaf(p, path)
+        for name, leaf in (node or {}).items():
+            if scanned:
+                for i in range(leaf.shape[0]):
+                    sd[f"{port.format(i)}.{name}"] = _tensor(leaf[i])
+            else:
+                sd[f"{port}.{name}"] = _tensor(leaf)
+    return sd
+
+
+def _leaf_names(sd, prefix: str) -> list:
+    """The names of the leaves directly under module ``prefix`` of ``sd``."""
+    start = prefix + "."
+    return [k[len(start):] for k in sd if k.startswith(start) and "." not in k[len(start):]]
+
+
+def _steerable_to_jax(sd, family: str) -> Dict[str, Any]:
+    p: Dict[str, Any] = {}
+    for port, path, scanned in _STEERABLE_MODULES[family]:
+        prefixes = [port]
+        if scanned:
+            prefixes = []
+            while _leaf_names(sd, port.format(len(prefixes))):
+                prefixes.append(port.format(len(prefixes)))
+        names = _leaf_names(sd, prefixes[0]) if prefixes else []
+        if not names:
+            continue
+        node = p
+        for k in path:
+            node = node.setdefault(k, {})
+        for name in names:
+            arrays = [_array(sd[f"{prefix}.{name}"]) for prefix in prefixes]
+            node[name] = np.stack(arrays) if scanned else arrays[0]
+    return {"params": p}
 
 
 def _array(t: torch.Tensor) -> np.ndarray:
@@ -318,8 +403,11 @@ def params_to_jax(sd, model_type: Optional[str] = None) -> Dict[str, Any]:
     :func:`params_from_jax`.  PONITA's tree gets its ``calib`` collection, each
     statistic a 1-tuple of a 0-d float32 array as flax sows it: the model's
     last calibration, or ones where ``sd`` holds none."""
-    if _family(model_type, port_family(sd), "the state_dict") == "ponita":
+    family = _family(model_type, port_family(sd), "the state_dict")
+    if family == "ponita":
         return _ponita_to_jax(sd)
+    if family in _STEERABLE_MODULES:
+        return _steerable_to_jax(sd, family)
     p: Dict[str, Any] = {EMBEDDING: _dense(sd["embedding.weight"], sd["embedding.bias"])}
     layers = 0
     while f"layers.{layers}.edge_w1" in sd:
