@@ -8,8 +8,9 @@ and its C++ macro library (g++) from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, then drives the port's
 paths through ``rollout.self_feed.run_self_feed`` with the committed N=100
 checkpoint of EGNN-MC (6 layers, width 128, fully connected), PONITA's
-paths with its committed 10M checkpoint (phases 25-29) and SEGNN's with its
-committed 10M checkpoint (phases 30-34): the bench
+paths with a fresh full-width model (phases 25-28), SEGNN's with its
+committed 10M checkpoint (phases 29-33) and EquiformerV2's with its committed
+10M checkpoint (phases 34-38): the bench
 workload (B=64 sims of N=100 bodies, dense edge stage K1) and the big-N path
 (B=8 sims of N=512 bodies, streaming edge stage K3), each in f32 and in the
 mixed-bf16 model (``compute_dtype="bfloat16"``: hidden and message stack in
@@ -93,55 +94,83 @@ bf16, coordinates, geometry and integration in f32):
                    reference default (N=5, B=64): one epoch of 10 steps and a
                    20-step evaluation through K1 a trial, finite values, parameter
                    counts within the budget
- 25. ponita        the committed PONITA checkpoint (docs/results/ponita10m_r5_partial:
-                   5 layers, width 480, 20 orientations) through the converter: a
-                   forward at B=64, N=5 on a fresh GT frame against the same model
-                   in float64 on the CPU; a fresh L5 h480 model calibrated on the
-                   card against the CPU's float64 calibration (15 statistics); the
-                   parameter count 9,990,041 (parameters and calibration statistics)
+ 25. ponita        a fresh PONITA at the size of its committed 10M run (5 layers,
+                   width 480, 20 orientations) from a seed: its calibration on a
+                   fresh GT frame at B=64, N=5 on the card against the same on
+                   the CPU in float64 (15 statistics), its forward against the
+                   CPU's float64; the parameter count 9,990,041 (parameters and
+                   calibration statistics)
  26. ponita-rollout  GT at the reference workload (B=64, N=5, 10000 substeps,
                    T=1000) through one K2-leapfrog launch, 999 self-feed steps (no
                    kernel), six-macro KS score; 20 steps on the card against the CPU's
-                   float64 on 4 sims; the rollout repeated from the same GT bitwise
-                   equal, and its steps/s warm
+                   float64 on 4 sims; the first 200 steps repeated from the same GT
+                   bitwise equal, and their steps/s warm
  27. train-ponita  the train command with the queue's argv (--main.model_type ponita
-                   --model.num_layers 5 --model.hidden_features 480, B=64, N=5)
-                   resumed from the committed checkpoint and its AdamW state: 2
-                   epochs of 20 steps, its 999-step evaluation and KS score, the
-                   checkpoint read back bitwise in the JAX layout (calib included);
-                   step ms, busy share, peak memory; then a fresh initialisation
-                   that calibrates on its first batch, 10 steps, losses finite
- 28. battery-ponita  `cli self-feed --draws 2 --seed 281` on a run dir of the queue's
-                   argv around the committed checkpoint (its bytes unchanged): 2
-                   K2-leapfrog launches; six- and five-macro p a draw, beside the
-                   checkpoint's recorded best survival (633 steps)
- 29. hpo-ponita    hpo.run_study("ponita", 2 trials, param_small) at the reference
+                   --model.num_layers 5 --model.hidden_features 480, B=64, N=5) from
+                   a fresh initialisation that calibrates on its first batch: 2
+                   epochs of 20 steps, its 200-step evaluation and KS score, the
+                   checkpoint read back bitwise; step ms, busy share, peak memory
+ 28. hpo-ponita    hpo.run_study("ponita", 2 trials, param_small) at the reference
                    default: one epoch of 10 steps and a 20-step evaluation a trial
- 30. segnn         the committed SEGNN checkpoint (docs/results/segnn10m_r5:
+ 29. segnn         the committed SEGNN checkpoint (docs/results/segnn10m_r5:
                    6 layers, width 448, hidden irreps 224x0e+224x1o) through the
                    converter: a forward at B=64, N=5 on a fresh GT frame against
                    the same model in float64 on the CPU, its ms beside its bound
                    and its device busy share; O(3) equivariance on the card with
                    center_mode "nodes" (a rotation with a reflection); the
                    parameter count 10,557,344
- 31. segnn-rollout  GT at the reference workload through one K2-leapfrog
+ 30. segnn-rollout  GT at the reference workload through one K2-leapfrog
                    launch, 999 self-feed steps (no kernel), six-macro KS score; 20
                    steps on the card against the CPU's float64 on 4 sims; the
-                   rollout repeated from the same GT bitwise equal, its steps/s warm
- 32. train-segnn   the train command with the queue's argv (--main.model_type segnn
+                   first 200 steps repeated from the same GT bitwise equal, their
+                   steps/s warm
+ 31. train-segnn   the train command with the queue's argv (--main.model_type segnn
                    --model.num_layers 6 --model.hidden_features 448, B=64, N=5)
                    resumed from the committed checkpoint and its AdamW state: 2
-                   epochs of 20 steps, its 999-step evaluation and KS score, the
+                   epochs of 20 steps, its 200-step evaluation and KS score, the
                    checkpoint read back bitwise in the JAX layout, one step against
                    the CPU's float64 step ([train]'s gates); step ms, busy share,
                    peak memory; then a fresh initialisation, 10 steps, losses finite
- 33. battery-segnn  `cli self-feed --draws 2 --seed 281` on a run dir of the queue's
-                   argv around the committed checkpoint (its bytes unchanged): 2
-                   K2-leapfrog launches; six- and five-macro p a draw (in (0, 1])
-                   beside the committed 12-draw battery of the seed
- 34. hpo-segnn     hpo.run_study("segnn", 2 trials, param_small) at the reference
+ 32. battery-segnn  `cli self-feed --draws 1 --seed 281` on a run dir of the queue's
+                   argv around the committed checkpoint (its bytes unchanged): 1
+                   K2-leapfrog launch; six- and five-macro p (in (0, 1]) beside the
+                   committed 12-draw battery of the seed
+ 33. hpo-segnn     hpo.run_study("segnn", 2 trials, param_small) at the reference
                    default: one epoch of 10 steps and a 20-step evaluation a trial
- 35. bign          bign_bench rows: steps/s and peak memory, dense K1 against
+ 34. eqv2          the committed EquiformerV2 checkpoint (docs/results/
+                   eqv2_10m_L8c128_cont: 8 blocks, 128 channels, 8 heads, lmax 2,
+                   mmax 1) through the converter: an eval-mode forward at B=64,
+                   N=5 on a fresh GT frame against the same model in float64 on
+                   the CPU, its ms, device busy share and kernels beside its bound
+                   and the eager byte floor of its S2 grids; permutation
+                   equivariance on the card; rotation equivariance of a fresh
+                   full-width model with the equivariant velocity gate; the
+                   parameter count 9,689,010
+ 35. eqv2-rollout  GT at the reference workload through one K2-leapfrog launch,
+                   999 self-feed steps in training mode with live dropout (masks
+                   from a seeded generator on the card), six-macro KS score; 20
+                   eval-mode steps on the card against the CPU's float64 on 4
+                   sims; the first 200 steps repeated from the same GT and the
+                   same dropout seed bitwise equal, their steps/s warm
+ 36. train-eqv2    the train command with the queue's argv (--main.model_type
+                   equiformer_v2 --model.num_layers 8 --model.sphere_channels 128
+                   --model.attn_hidden_channels 128 --model.ffn_hidden_channels 128
+                   --model.num_heads 8 --model.remat true, B=64, N=5) resumed from
+                   the committed checkpoint, its AdamW state and Noam step: 2
+                   epochs of 20 steps with live dropout, its 200-step evaluation
+                   and KS score, the checkpoint read back bitwise in the JAX
+                   layout, one step against the CPU's float64 step with both
+                   dropout rates at 0 ([train]'s gates); step ms, busy share, peak
+                   memory with and without remat; then a fresh initialisation, 10
+                   steps, losses finite
+ 37. battery-eqv2  `cli self-feed --draws 1 --seed 281` on a run dir of the queue's
+                   argv around the committed checkpoint (its bytes unchanged, train
+                   mode on): 1 K2-leapfrog launch; six- and five-macro p (in
+                   (0, 1]) and survival beside the committed 12-draw battery
+ 38. hpo-eqv2      hpo.run_study("equiformer_v2", 2 trials, param_small) at the
+                   reference default: one epoch of 10 steps and a 20-step
+                   evaluation a trial
+ 39. bign          bign_bench rows: steps/s and peak memory, dense K1 against
                    streaming K3, at (N,B) = (256,16), (512,8), (1024,2), (4096,1)
 
 Each phase prints one line with its result and elapsed seconds.  Any failed
@@ -275,17 +304,17 @@ INF_STEPS = 20
 # HPO at the reference default: trials of one epoch of 10 steps, 20-step evaluations
 HPO_TRIALS, HPO_EVAL_STEPS = 2, 20
 
-# PONITA: the committed 10M checkpoint (L5 h480, 20 orientations, epoch 90),
-# trained by the queue step scripts/queues/tpu_queue48.sh:63-64 at the
-# reference workload (N=5, B=64, sim_length 10000: T=1000, 999 rollout steps)
-PONITA_CKPT = os.path.join(REPO, "docs", "results", "ponita10m_r5_partial", "model.ckpt")
+# PONITA at the size of its committed 10M run (L5 h480, 20 orientations,
+# scripts/queues/tpu_queue48.sh:63-64; the checkpoint stays out of the copy
+# sent to the card), from a fresh initialisation made from a seed and
+# calibrated on its first batch, at the reference workload (N=5, B=64,
+# sim_length 10000: T=1000, 999 rollout steps)
 PONITA_KW = dict(num_layers=5, hidden_features=480)
 PONITA_ARGV = ["--main.model_type", "ponita", "--model.num_layers", "5",
                "--model.hidden_features", "480"]
 PONITA_PARAMS = 9_990_041  # 9,990,026 parameters and 15 calibration statistics
 PONITA_B, PONITA_N, PONITA_SUBSTEPS = 64, 5, 10000
-PONITA_FRAMES = PONITA_SUBSTEPS // SAMPLE_FREQ
-PONITA_EPOCH, PONITA_COUNT = 90, 90000  # the checkpoint's epoch and AdamW count
+PONITA_SEED = 12
 # the card's f32 forward against the CPU's float64 one: 5 layers of f32 sums
 # (over 4 senders, 480 and 1920 channels, 20 orientations) hold ~1e-6 of the
 # largest output; 1e-4 of it is the gate.  The calibration's 15 statistics:
@@ -295,12 +324,13 @@ PONITA_FWD_RTOL, PONITA_CALIB_RTOL = 1e-4, 1e-5
 # PONITA_CMP_B sims: within 1e-3 of the largest position, or 100 times the
 # spread a 1e-7 nudge of frame 0 gives the CPU alone where that is larger
 PONITA_CMP_B, PONITA_ROLL_RTOL, PONITA_NUDGE_FACTOR = 4, 1e-3, 100.0
-# the families' training phases: the committed checkpoint resumed for 2 epochs
-# of 20 steps (cut from 1000 steps an epoch), and a fresh run of 10 steps
+# the families' training phases: 2 epochs of 20 steps (cut from 1000 steps an
+# epoch), their evaluation cut to 200 steps (the smoke's depth; the queue
+# rolls 999), and a fresh run of 10 steps after a resumed one
 FAMILY_TRAIN_EPOCHS, FAMILY_TRAIN_STEPS, FAMILY_FRESH_STEPS = 2, 20, 10
-# the checkpoint's battery: seed 281, as the queue's pipeline drew it (2 of
-# the queue's 12 draws, to keep the smoke's time)
-PONITA_DRAWS, PONITA_BEST_STEPS = 2, 633  # best_metrics {"self_feed_steps": 633}
+FAMILY_EVAL_FRAMES = 201
+# a repeated rollout is held bitwise over its first 200 steps
+REPEAT_FRAMES = 201
 
 # SEGNN: the committed 10M checkpoint (L6 w448, lmax 1, hidden irreps
 # 224x0e+224x1o, epoch 110), trained by the queue step
@@ -324,8 +354,39 @@ SEGNN_FWD_RTOL, SEGNN_EQUIV_RTOL = 1e-5, 1e-4
 # first SEGNN_CMP_B sims: within 1e-4 of the largest position, or 100 times
 # the spread a 1e-7 nudge of frame 0 gives the CPU alone where that is larger
 SEGNN_CMP_B, SEGNN_ROLL_RTOL, SEGNN_NUDGE_FACTOR = 4, 1e-4, 100.0
-# the battery: seed 281, 2 draws (the committed battery drew 12)
-SEGNN_DRAWS = 2
+# the battery: seed 281, 1 draw (the committed battery drew 12)
+SEGNN_DRAWS = 1
+
+# EquiformerV2: the committed 10M checkpoint (L8 c128, 8 heads, lmax 2,
+# mmax 1, epoch 130), trained by the queue step
+# scripts/queues/tpu_queue44.sh:38-48 at the reference workload (N=5, B=64,
+# sim_length 10000, fully connected), with live dropout (alpha_drop 0.1,
+# drop_path_rate 0.05) in training and in its rollouts
+EQV2_KW = dict(num_layers=8, sphere_channels=128, attn_hidden_channels=128,
+               ffn_hidden_channels=128, num_heads=8, remat=True)
+EQV2_PARAMS = 9_689_010
+EQV2_B, EQV2_N, EQV2_SUBSTEPS = 64, 5, 10000
+EQV2_FRAMES = EQV2_SUBSTEPS // SAMPLE_FREQ
+EQV2_EPOCH, EQV2_COUNT = 130, 130000  # the checkpoint's epoch and AdamW count
+EQV2_DROPOUT_SEED = 281
+# the card's f32 forward against the CPU's float64 one (8 blocks of f32 sums,
+# the grid's 648-point sums among them): 1e-4 of the largest output.  A
+# permutation of the bodies: the same sums in other batch positions, 1e-5.
+# A rotation of a fresh model with the equivariant velocity gate: the SiLU on
+# the 18 x 36 grid aliases the frequencies above lmax, so the model is
+# equivariant only that far, in float64 too (tests/test_torch_eqv2_model.py
+# holds that to 1e-4); 2e-4, the JAX package's own test's tolerance
+EQV2_FWD_RTOL, EQV2_PERM_RTOL, EQV2_ROT_RTOL = 1e-4, 1e-5, 2e-4
+EQV2_FRESH_SEED = 34
+# 20 eval-mode closed-loop steps against the CPU's float64 ones, on the first
+# EQV2_CMP_B sims: 1e-3 of the largest position, or 100 times a 1e-7 nudge's
+# spread where that is larger
+EQV2_CMP_B, EQV2_ROLL_RTOL, EQV2_NUDGE_FACTOR = 4, 1e-3, 100.0
+EQV2_DRAWS = 1
+# the forward's bounds: f32 operations at the card's peak, and the bytes an
+# eager forward moves through its S2 grids (each grid written and read twice:
+# the product into the grid, the SiLU, the product out of it)
+EQV2_GRID_PASSES = 4
 
 # H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, dense bf16 on the tensor
 # cores, HBM3 bandwidth
@@ -351,6 +412,34 @@ def report(phase: str, t0: float, seconds=None, **info) -> None:
 def bound_ms(n_bytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
     t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def eqv2_forward_cost(model, bb: int, nn_: int):
+    """``(operations, grid bytes)`` of one eval-mode EquiformerV2 forward
+    (lmax 2, mmax 1, separable S2 activations, per-block atom-edge
+    embeddings) at ``bb`` sims of ``nn_`` bodies, every pair an edge row as
+    the dense model computes it.  Multiply-adds count 2.  The grid bytes are
+    the f32 S2 grids an eager forward writes and reads EQV2_GRID_PASSES
+    times: ``[E, 648, hidden]`` a block's attention and the head's,
+    ``[B N, 648, ffn]`` a block's feed-forward."""
+    kw = model.init_kwargs
+    C, H, F = kw["sphere_channels"], kw["attn_hidden_channels"], kw["ffn_hidden_channels"]
+    heads, A, V = kw["num_heads"], kw["attn_alpha_channels"], kw["attn_value_channels"]
+    Ce, L, G = kw["edge_channels"], kw["num_layers"], 648
+    E, Nn, HV = bb * nn_ * nn_, bb * nn_, heads * kw["attn_value_channels"]
+    edge_in = 1024 + 2 * Ce
+    attn_edge = (7 * 9 * 2 * C  # rotate the message [x_s, x_r]
+                 + edge_in * Ce + Ce * Ce + Ce * 10 * C  # the radial MLP
+                 + 6 * C * (3 * H + heads * A + H) + 2 * 4 * C * 4 * H  # SO2Conv_0
+                 + 2 * 7 * G * H  # the S2 activation's grid round trip
+                 + 3 * H * 3 * HV + 2 * 2 * H * 4 * HV  # SO2Conv_1
+                 + heads * A + 9 * 7 * HV)  # the alpha dot, the rotation back
+    ffn_node = C * F + 9 * C * F + 2 * 9 * G * F + 9 * F * C
+    input_edge = 1024 + edge_in * Ce + Ce * Ce + Ce * 3 * C + 9 * 3 * C
+    macs = (E * ((L + 1) * attn_edge + input_edge)
+            + Nn * (L * (9 * HV * C + ffn_node) + 9 * HV * 2 + 3 * 3 * C))
+    grid = 4.0 * EQV2_GRID_PASSES * G * ((L + 1) * E * H + L * Nn * F)
+    return 2.0 * macs, grid
 
 
 def tp_flops(tp) -> float:
@@ -837,18 +926,21 @@ def main() -> None:
             self.t_end = time.perf_counter()
             return self.gt
 
-    def drive(model_, bb: int, nn_: int, substeps: int, seed: int, edge_kernel) -> dict:
+    def drive(model_, bb: int, nn_: int, substeps: int, seed: int, edge_kernel,
+              train_mode: bool = False, rng=None) -> dict:
         """One counted run of a path: fresh GT through K2, then the self-feed
         rollout, which must launch ``edge_kernel`` once per layer and step (a
         model without an edge stage: None, no kernel at all) and no other
-        kernel."""
+        kernel.  ``train_mode`` rolls out in training mode, a model with
+        dropout drawing its masks from the seed ``rng``."""
         frames = substeps // SAMPLE_FREQ
         ds = TimedDataset(otf.GravityDatasetOtf(
             batch_size=bb, sim_length=substeps, sample_freq=SAMPLE_FREQ, num_nodes=nn_,
             interaction_strength=G_CONST, softening=SOFTENING, seed=seed, device=dev,
         ))
         reset_counts()
-        loc_gt, vel_gt, loc_pred, vel_pred, survived_min = self_feed.run_self_feed(model_, ds)
+        loc_gt, vel_gt, loc_pred, vel_pred, survived_min = self_feed.run_self_feed(
+            model_, ds, train_mode=train_mode, rng=rng)
         sync()
         t_end = time.perf_counter()
         total = counts()
@@ -1181,6 +1273,9 @@ def main() -> None:
         model, optim, loss_fn = trainer.model, trainer.optim, trainer.loss_fn
         mask = graph.knn_mask(scene.pos, trainer.num_neighbors)
         dense = {"edge_impl": "dense"} if models.has_edge_stage(model) else {}
+        model.train()
+        if models.needs_generator(model):
+            dense["generator"] = trainer.generator
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         split = np.zeros(3)
         for _ in range(TIMED_STEPS):
@@ -1197,9 +1292,10 @@ def main() -> None:
         return dict(zip(("forward_ms", "backward_ms", "update_ms"), split / TIMED_STEPS))
 
     def top_kernels(step, n: int = 6):
-        """``(device busy ms a call of step(), its top kernels)`` over 3 calls,
-        from torch.profiler's kernel events (user annotations left out), or
-        None and why there is no such list."""
+        """``(device busy ms a call of step(), its top kernels, kernels a
+        call)`` over 3 calls, from torch.profiler's kernel events (user
+        annotations left out), or None, why there is no such list, and
+        None."""
         try:
             acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
             with torch.profiler.profile(activities=acts) as prof:
@@ -1207,16 +1303,18 @@ def main() -> None:
                     step()
                 sync()
             by_name = collections.Counter()
+            launches = 0
             for e in prof.events():
                 if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
                     by_name[e.name] += e.time_range.elapsed_us()
+                    launches += 1
             total = sum(by_name.values())
             if not total:
-                return None, "not measured (the profiler saw no kernel)"
+                return None, "not measured (the profiler saw no kernel)", None
             top = "; ".join(f"{k[:56]} {v / total:.1%}" for k, v in by_name.most_common(n))
-            return total / 3e3, top
+            return total / 3e3, top, launches / 3
         except Exception as e:  # a profiler that cannot trace the card fails no phase
-            return None, f"not measured ({type(e).__name__}: {e})"
+            return None, f"not measured ({type(e).__name__}: {e})", None
 
     def step_vs_cpu(tag: str, run: dict, payload, model_kw: dict, scene, y):
         """One training step on the card (f32) against the same step on the
@@ -1249,8 +1347,12 @@ def main() -> None:
         (card_p, card_b, card_loss), (cpu_p, cpu_b, cpu_loss) = after
         p_err = up_err = 0.0
         for k, want_p in cpu_p.items():
-            e = (card_p[k] - want_p).abs().max().item() / want_p.abs().max().item()
-            du = (cpu_p[k] - cpu_b[k]).abs().max().item()
+            # a tensor the loss never reaches stays zero with a zero update
+            # (EquiformerV2's head bias adds to the l=0 row, which the output
+            # does not read): its errors are held absolute, so they must be 0
+            scale = want_p.abs().max().item() or 1.0
+            e = (card_p[k] - want_p).abs().max().item() / scale
+            du = (cpu_p[k] - cpu_b[k]).abs().max().item() or 1.0
             u = ((card_p[k] - card_b[k]) - (cpu_p[k] - cpu_b[k])).abs().max().item() / du
             if not (e <= TRAIN_PARAM_RTOL and u <= TRAIN_UPDATE_RTOL):
                 fail(f"{tag}: after one step, {k} on the card differs from the CPU float64 step "
@@ -1327,7 +1429,7 @@ def main() -> None:
         scene, y = trainer.dataset.get_batch()
         timing = time_steps(trainer, scene, y)
         split = step_split(trainer, scene, y)
-        busy_ms, kernels_top = top_kernels(lambda: trainer._train_step(scene, y))
+        busy_ms, kernels_top, _ = top_kernels(lambda: trainer._train_step(scene, y))
 
         p_err, up_err, card_loss, cpu_loss = step_vs_cpu(
             "train", run, weights.read_checkpoint(CKPT), {}, scene, y)
@@ -1365,7 +1467,7 @@ def main() -> None:
         scene, y = trainer.dataset.get_batch()
         timing_n5 = time_steps(trainer, scene, y)
         split_n5 = step_split(trainer, scene, y)
-        busy_n5, top_n5 = top_kernels(lambda: trainer._train_step(scene, y))
+        busy_n5, top_n5, _ = top_kernels(lambda: trainer._train_step(scene, y))
         del trainer, run["trainer"]
     print(f"  train-n5: step split {' '.join(f'{k}={v:.3f}' for k, v in split_n5.items())}; "
           f"device busy {busy_share(busy_n5, timing_n5['ms'])}; top kernels: {top_n5}",
@@ -1581,17 +1683,22 @@ def main() -> None:
         return graph.knn_mask(s.pos, s.pos.shape[1] - 1)
 
     def family_rollout(family: str, model_, cpu_model, bb: int, nn_: int, substeps: int,
-                       seed: int, cmp_b: int, rtol: float, nudge_factor: float) -> dict:
+                       seed: int, cmp_b: int, rtol: float, nudge_factor: float,
+                       train_mode: bool = False, dropout_seed=None) -> dict:
         """A family's rollout at the reference workload: GT through one
-        K2-leapfrog launch, the counted self-feed rollout (no kernel), the
-        six-macro score; COMPARE_STEPS steps on the card against the CPU's
-        float64 on the first ``cmp_b`` sims, within ``rtol`` of the largest
-        position, or ``nudge_factor`` times the spread a 1e-7 nudge of frame 0
-        gives the CPU alone where that is larger; the rollout repeated from the
-        same GT bitwise equal, and timed warm.  Returns the phase's fields."""
+        K2-leapfrog launch, the counted self-feed rollout (no kernel; in
+        training mode with ``train_mode``, dropout masks from
+        ``dropout_seed``), the six-macro score; COMPARE_STEPS eval-mode steps
+        on the card against the CPU's float64 on the first ``cmp_b`` sims,
+        within ``rtol`` of the largest position, or ``nudge_factor`` times the
+        spread a 1e-7 nudge of frame 0 gives the CPU alone where that is
+        larger; the first REPEAT_FRAMES - 1 steps repeated from the same GT
+        (and dropout seed) bitwise equal, and timed warm.  Returns the
+        phase's fields."""
         tag, frames = f"{family}-rollout", substeps // SAMPLE_FREQ
-        run_f = drive(model_, bb, nn_, substeps, seed, None)
+        run_f = drive(model_, bb, nn_, substeps, seed, None, train_mode, dropout_seed)
         eval_counts[f"{family}_rollout"] = run_f["counts"]
+        model_.eval()
         score(f"{family}-score", run_f["loc_gt"], run_f["vel_gt"], run_f["loc_pred"],
               run_f["vel_pred"])
         loc0, vel0, force0, mass0 = run_f["gt"]
@@ -1611,26 +1718,26 @@ def main() -> None:
         if not (torch.isfinite(loc_k).all() and d_kc <= limit):
             fail(f"{tag}: {COMPARE_STEPS} steps on the card differ from the CPU's float64 ones "
                  f"by {d_kc} (limit {limit}; max |pos| {pos_scale}, nudged spread {d_nc})")
-        rollout_f = self_feed.make_rollout_fn(model_, frames, target=run_f["target"])
+        model_.train(train_mode)
+        rollout_f = self_feed.make_rollout_fn(model_, REPEAT_FRAMES, target=run_f["target"])
         scene0 = Scene(pos=loc0[:, 0], vel=vel0[:, 0], force=force0[:, 0], mass=mass0)
         reset_counts()
         t = time.perf_counter()
-        loc2, vel2, surv2 = rollout_f(scene0)
+        loc2, vel2, _ = rollout_f(scene0, dropout_seed)
         sync()
         warm_s = time.perf_counter() - t
         counted({}, f"{tag} (repeated)")
-        if not (torch.equal(loc2, run_f["loc_pred"]) and torch.equal(vel2, run_f["vel_pred"])
-                and int(surv2.min()) == run_f["survived_min"]):
-            fail(f"{tag}: the rollout repeated from the same GT differs")
-        survived_f = surv2.float().cpu()
-        return dict(B=bb, N=nn_, steps=frames - 1, leapfrog_launches=run_f["counts"]["leapfrog"],
+        if not (torch.equal(loc2, run_f["loc_pred"][:, :REPEAT_FRAMES])
+                and torch.equal(vel2, run_f["vel_pred"][:, :REPEAT_FRAMES])):
+            fail(f"{tag}: the first {REPEAT_FRAMES - 1} steps repeated from the same GT differ")
+        model_.eval()
+        return dict(B=bb, N=nn_, steps=frames - 1, train_mode=train_mode,
+                    dropout_seed=dropout_seed, leapfrog_launches=run_f["counts"]["leapfrog"],
                     rollout_s=f"{run_f['seconds']:.3f}", survived_min=run_f["survived_min"],
-                    survived_median=f"{survived_f.median().item():.0f}",
-                    survived_max=f"{survived_f.max().item():.0f}",
                     steps_per_s_first=f"{(frames - 1) / run_f['seconds']:.2f}",
-                    steps_per_s_warm=f"{(frames - 1) / warm_s:.2f}",
-                    ms_per_step_warm=f"{warm_s * 1e3 / (frames - 1):.3f}",
-                    rollout_bitwise_equal=True,
+                    steps_per_s_warm=f"{(REPEAT_FRAMES - 1) / warm_s:.2f}",
+                    ms_per_step_warm=f"{warm_s * 1e3 / (REPEAT_FRAMES - 1):.3f}",
+                    repeat_steps_bitwise_equal=REPEAT_FRAMES - 1,
                     **{f"max_dpos_{COMPARE_STEPS}_steps_card_vs_cpu64": f"{d_kc:.3e}",
                        "max_abs_pos": f"{pos_scale:.3e}", "max_dpos_nudged_cpu64": f"{d_nc:.3e}",
                        "cmp_sims": cmp_b,
@@ -1686,41 +1793,50 @@ def main() -> None:
             return set().union(*(key_shapes(v, prefix + (i,)) for i, v in enumerate(tree)))
         return {(prefix, np.shape(tree))}
 
-    def family_train(family: str, ckpt: str, argv, payload, epoch: int, count: int,
-                     n_params: int, frames: int, extra=None):
+    def family_train(family: str, ckpt, argv, payload, epoch: int, count: int,
+                     n_params: int, extra=None):
         """The train command with a family's queue argv at the reference
         workload, resumed from its committed checkpoint ``ckpt`` (read as
-        ``payload``; epoch ``epoch``, AdamW count ``count``): FAMILY_TRAIN_EPOCHS epochs of
-        FAMILY_TRAIN_STEPS steps, its self-feed evaluation (``frames - 1``
-        steps, one K2-leapfrog launch) and KS score, the checkpoint read back
-        bitwise in the committed checkpoint's JAX layout; step ms, the step's
-        split, busy share and peak memory.  ``extra(run, scene, y)`` runs on
-        the trainer before it is dropped.  Then a fresh initialisation,
+        ``payload``; epoch ``epoch``, AdamW count ``count``), or from a fresh
+        initialisation where ``ckpt`` is None: FAMILY_TRAIN_EPOCHS epochs of
+        FAMILY_TRAIN_STEPS steps, its self-feed evaluation
+        (FAMILY_EVAL_FRAMES - 1 steps, one K2-leapfrog launch) and KS score,
+        the checkpoint read back bitwise (in the committed checkpoint's JAX
+        layout where there is one); step ms, the step's split, busy share and
+        peak memory.  ``extra(run, scene, y)`` runs on the trainer before it
+        is dropped.  After a resumed run, a fresh initialisation,
         FAMILY_FRESH_STEPS steps, every loss finite.  Returns the phase's
-        fields, ``extra``'s result and the fresh run's model."""
+        fields, ``extra``'s result and the last run's model."""
         tag = f"train-{family}"
+        frames = FAMILY_EVAL_FRAMES
+        common = ["--trainer.save_model_every", "1", "--trainer.test_macros_every", "1000",
+                  "--trainer.self_feed_limit_steps", str(frames), "--dataloader.seed", "0"]
         with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
-            resume = ["--trainer.model_path", shutil.copy(ckpt, tmp)]
-            run = train_run(resume + argv + [
+            if ckpt is None:
+                start = ["--trainer.train_steps", str(FAMILY_TRAIN_EPOCHS), "--trainer.seed", "0"]
+            else:
+                start = ["--trainer.model_path", shutil.copy(ckpt, tmp),
+                         "--trainer.train_steps", str(epoch + FAMILY_TRAIN_EPOCHS)]
+            run = train_run(start + argv + common + [
                 "--trainer.steps_per_epoch", str(FAMILY_TRAIN_STEPS),
-                "--trainer.train_steps", str(epoch + FAMILY_TRAIN_EPOCHS),
-                "--trainer.save_model_every", "1", "--trainer.test_macros_every", "1000",
-                "--dataloader.seed", "0", "--trainer.run_name", f"{family}10m"],
-                tag, FAMILY_TRAIN_EPOCHS, FAMILY_TRAIN_STEPS)
+                "--trainer.run_name", f"{family}10m"], tag, FAMILY_TRAIN_EPOCHS,
+                FAMILY_TRAIN_STEPS)
             trainer = run["trainer"]
             if run["count0"] != count or trainer.step_count != epoch + FAMILY_TRAIN_EPOCHS:
-                fail(f"{tag}: resumed at count {run['count0']}, epoch {trainer.step_count}")
+                fail(f"{tag}: started at count {run['count0']}, epoch {trainer.step_count}")
             if trainer.n_params != n_params:
                 fail(f"{tag}: n_params {trainer.n_params}, want {n_params}")
             train_counts[f"train_{family}"] = run["counts"]
-            written = weights.read_checkpoint(os.path.join(trainer.save_dir_path, "model.ckpt"))
-            layout = key_shapes(payload["params"])
-            if not (key_shapes(written["params"]) == layout
-                    and key_shapes(written["opt_state"]["mu"]) == layout
-                    and key_shapes(written["opt_state"]["nu"]) == layout):
-                fail(f"{tag}: the written checkpoint's params / mu / nu leave the JAX layout "
-                     "of the committed checkpoint")
-            del written
+            if payload is not None:
+                written = weights.read_checkpoint(os.path.join(trainer.save_dir_path,
+                                                               "model.ckpt"))
+                layout = key_shapes(payload["params"])
+                if not (key_shapes(written["params"]) == layout
+                        and key_shapes(written["opt_state"]["mu"]) == layout
+                        and key_shapes(written["opt_state"]["nu"]) == layout):
+                    fail(f"{tag}: the written checkpoint's params / mu / nu leave the JAX "
+                         "layout of the committed checkpoint")
+                del written
             reset_counts()
             t = time.perf_counter()
             survived = trainer.run_self_feed_eval()
@@ -1745,23 +1861,27 @@ def main() -> None:
             scene, y = trainer.dataset.get_batch()
             timing_f = time_steps(trainer, scene, y)
             split_f = step_split(trainer, scene, y)
-            busy_f, top_f = top_kernels(lambda: trainer._train_step(scene, y))
+            busy_f, top_f, _ = top_kernels(lambda: trainer._train_step(scene, y))
             more = extra(run, scene, y) if extra else None
+            last_model = trainer.model
             del trainer, run["trainer"]
-        with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
-            fresh = train_run(argv + [
-                "--trainer.steps_per_epoch", str(FAMILY_FRESH_STEPS), "--trainer.train_steps", "1",
-                "--trainer.save_model_every", "1", "--trainer.test_macros_every", "1000",
-                "--trainer.seed", "0", "--dataloader.seed", "0", "--trainer.run_name", "fresh"],
-                f"{tag}-fresh", 1, FAMILY_FRESH_STEPS)
-            train_counts[f"train_{family}_fresh"] = fresh["counts"]
-            fresh_model = fresh.pop("trainer").model
+        fresh = None
+        if ckpt is not None:
+            with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+                fresh = train_run(argv + [
+                    "--trainer.steps_per_epoch", str(FAMILY_FRESH_STEPS),
+                    "--trainer.train_steps", "1", "--trainer.save_model_every", "1",
+                    "--trainer.test_macros_every", "1000", "--trainer.seed", "0",
+                    "--dataloader.seed", "0", "--trainer.run_name", "fresh"],
+                    f"{tag}-fresh", 1, FAMILY_FRESH_STEPS)
+                train_counts[f"train_{family}_fresh"] = fresh["counts"]
+                last_model = fresh.pop("trainer").model
         print(f"  {tag}: losses {' '.join(f'{x:.5f}' for x in run['epoch_losses'])}; AdamW count "
               f"{run['count0']} -> {run['count']}, lr {run['lr']:.6e} (Noam {run['noam']:.6e}); "
               f"step split {' '.join(f'{k}={v:.3f}' for k, v in split_f.items())}; device busy "
               f"{busy_share(busy_f, timing_f['ms'])}; top kernels: {top_f}", flush=True)
         fields = dict(
-            steps=FAMILY_TRAIN_EPOCHS * FAMILY_TRAIN_STEPS,
+            steps=FAMILY_TRAIN_EPOCHS * FAMILY_TRAIN_STEPS, resumed=ckpt is not None,
             leapfrog_launches_training=train_counts[f"train_{family}"]["leapfrog"],
             train_s=f"{run['train_s']:.3f}", ms_per_step=f"{timing_f['ms']:.3f}",
             steps_per_s=f"{timing_f['steps_per_s']:.2f}", peak_mib=f"{timing_f['peak_mib']:.1f}",
@@ -1769,17 +1889,21 @@ def main() -> None:
             busy_ms=("not measured" if busy_f is None else f"{busy_f:.3f}"),
             eval_s=f"{eval_s_f:.3f}", eval_rollout_steps=frames - 1, survived=survived,
             macro_combined_p=f"{macro_p_f:.3e}", energy_combined_p=f"{energy_p_f:.3e}",
-            energy_p="[" + " ".join(f"{k}={v:.3e}" for k, v in energy_ps.items()) + "]",
-            fresh_steps=FAMILY_FRESH_STEPS, fresh_loss_first=f"{fresh['losses'][0].item():.5f}",
-            fresh_loss_last=f"{fresh['losses'][-1].item():.5f}")
-        return fields, more, fresh_model
+            energy_p="[" + " ".join(f"{k}={v:.3e}" for k, v in energy_ps.items()) + "]")
+        if fresh is not None:
+            fields.update(fresh_steps=FAMILY_FRESH_STEPS,
+                          fresh_loss_first=f"{fresh['losses'][0].item():.5f}",
+                          fresh_loss_last=f"{fresh['losses'][-1].item():.5f}")
+        return fields, more, last_model
 
-    def family_hpo(family: str) -> None:
+    def family_hpo(family: str, tag=None, in_band: bool = True) -> None:
         """Two param_small trials of ``family`` at the reference default, each
         one epoch of 10 steps and a 20-step evaluation: every trial done, its
-        value finite and its count within the budget; K2-leapfrog launches
-        only."""
-        tag = f"hpo-{family}"
+        value finite and its count within the budget (or, where the width
+        bisection's steps of 16 cannot reach the band, ``in_band`` False: the
+        widths and count the bisection gives, as the JAX package's does);
+        K2-leapfrog launches only."""
+        tag = tag or f"hpo-{family}"
         t0 = time.perf_counter()
         target = hpo.PARAM_TARGETS["param_small"]
         with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
@@ -1792,14 +1916,19 @@ def main() -> None:
             with open(os.path.join("hpo", f"{family}_param_small_trials.jsonl")) as f:
                 trials = [json.loads(line) for line in f]
         for t in trials:
-            if not (t["status"] == "done" and np.isfinite(t["value"])
-                    and abs(t["n_params"] - target) <= hpo.PARAM_TOLERANCE * target):
+            if in_band:
+                budget = abs(t["n_params"] - target) <= hpo.PARAM_TOLERANCE * target
+            else:
+                sampled = hpo.trial_to_overrides(family, t["params"])[0]
+                budget = (t["model_kwargs"], t["n_params"]) == hpo.adjust_width_to_target(
+                    family, sampled, target)
+            if not (t["status"] == "done" and np.isfinite(t["value"]) and budget):
                 fail(f"{tag}: trial {t}")
         others = {k: v for k, v in got.items() if k != "leapfrog"}
         if (len(trials) != HPO_TRIALS or any(others.values())
                 or not HPO_TRIALS <= got["leapfrog"] <= 2 * HPO_TRIALS):
             fail(f"{tag}: {len(trials)} trials launched {got}")
-        eval_counts[f"hpo_{family}"] = got
+        eval_counts[tag.replace("-", "_")] = got
         for t in trials:
             print(f"  {tag}: trial {t['number']} {t['model_kwargs']} n_params={t['n_params']} "
                   f"value={t['value']:.4f} {t['seconds']:.2f} s steps_per_min="
@@ -1809,18 +1938,16 @@ def main() -> None:
                best_value=f"{best['value']:.4f}", leapfrog_launches=got["leapfrog"])
 
     # ------------------------------------------------------------- 25. ponita
-    # the committed PONITA checkpoint through the converter, on the card: a
-    # forward on a fresh GT frame against the same model in float64 on the CPU;
-    # the calibration of a fresh L5 h480 model, card against CPU float64; the
-    # parameter count.  PONITA is plain PyTorch: no kernel but the GT's
+    # a fresh full-width PONITA (L5 h480) from a seed, calibrated on its first
+    # batch (a fresh GT frame) on the card and, from the same parameters, on
+    # the CPU in float64, as the trainer calibrates; its forward on that frame
+    # against the CPU's float64; the parameter count.  PONITA is plain
+    # PyTorch: no kernel but the GT's
     t0 = time.perf_counter()
-    payload_p = weights.read_checkpoint(PONITA_CKPT)
-    pmodel = models.create_model("ponita", device=dev, **PONITA_KW)
-    pmodel.load_state_dict(weights.params_from_jax(payload_p["params"], "ponita"))
-    pmodel.eval()
+    torch.manual_seed(PONITA_SEED)
     pcpu = models.create_model("ponita", device="cpu", dtype=torch.float64, **PONITA_KW)
-    pcpu.load_state_dict(pmodel.state_dict())
-    pcpu.eval()
+    pmodel = models.create_model("ponita", device=dev, **PONITA_KW)
+    pmodel.load_state_dict(pcpu.state_dict())
     n_params_p = models.count_params(pmodel)
     n_params_hpo = hpo._count_params("ponita", PONITA_KW, PONITA_N)
     if n_params_p != PONITA_PARAMS or n_params_hpo != PONITA_PARAMS:
@@ -1835,11 +1962,25 @@ def main() -> None:
 
     scene_p = Scene(pos=gt_p[0][:, 0], vel=gt_p[1][:, 0], force=gt_p[2][:, 0], mass=gt_p[3])
     scene_c = cpu64(scene_p)
+    ponita.calibrate_params(pmodel, scene_p, fc(scene_p))
+    ponita.calibrate_params(pcpu, scene_c, fc(scene_c))
+    calib_err = 0.0
+    for k, (bc, bf) in enumerate(zip(pmodel.blocks, pcpu.blocks)):
+        for stat in ponita.CALIB_STATS:
+            got, want = float(getattr(bc.conv, stat)), float(getattr(bf.conv, stat))
+            rel = abs(got - want) / abs(want)
+            if not (want > 0 and rel <= PONITA_CALIB_RTOL):
+                fail(f"ponita: calibration {stat} of block {k}: card {got}, CPU f64 {want}")
+            calib_err = max(calib_err, rel)
+    # both sides keep their own calibration: the card's, in f32, is held to
+    # the CPU's above
+    pmodel.eval()
+    pcpu.eval()
     with torch.no_grad():
         out_card = pmodel(scene_p, fc(scene_p))
         out_cpu = pcpu(scene_c, fc(scene_c))
         fwd_ms = cuda_ms(lambda: pmodel(scene_p, fc(scene_p)), iters=20)
-        busy_fwd, top_fwd = top_kernels(lambda: pmodel(scene_p, fc(scene_p)), n=8)
+        busy_fwd, top_fwd, launches_fwd = top_kernels(lambda: pmodel(scene_p, fc(scene_p)), n=8)
     fwd_err = (out_card.double().cpu() - out_cpu).abs().max().item()
     fwd_scale = out_cpu.abs().max().item()
     if not (torch.isfinite(out_card).all() and fwd_err <= PONITA_FWD_RTOL * fwd_scale):
@@ -1853,47 +1994,32 @@ def main() -> None:
         2.0 * e_rows * Kb * H_ + 3.0 * e_rows * H_ + 2.0 * PONITA_B * PONITA_N * O_ * O_ * H_
         + 2.0 * n_rows * 8 * H_ * H_ + 2.0 * n_rows * H_ * 2)
     fwd_bound = fwd_flops / PEAK_F32_FLOPS * 1e3
-    # a fresh initialisation calibrated on the card and on the CPU in float64
-    torch.manual_seed(12)
-    fresh_cpu = models.create_model("ponita", device="cpu", dtype=torch.float64, **PONITA_KW)
-    fresh_card = models.create_model("ponita", device=dev, **PONITA_KW)
-    fresh_card.load_state_dict(fresh_cpu.state_dict())
-    ponita.calibrate_params(fresh_card, scene_p, fc(scene_p))
-    ponita.calibrate_params(fresh_cpu, scene_c, fc(scene_c))
-    calib_err = 0.0
-    for k, (bc, bf) in enumerate(zip(fresh_card.blocks, fresh_cpu.blocks)):
-        for stat in ponita.CALIB_STATS:
-            got, want = float(getattr(bc.conv, stat)), float(getattr(bf.conv, stat))
-            rel = abs(got - want) / abs(want)
-            if not (want > 0 and rel <= PONITA_CALIB_RTOL):
-                fail(f"ponita: calibration {stat} of block {k}: card {got}, CPU f64 {want}")
-            calib_err = max(calib_err, rel)
-    del fresh_cpu, fresh_card
-    print(f"  ponita: forward, device busy {busy_share(busy_fwd, fwd_ms)}; top kernels: "
-          f"{top_fwd}", flush=True)
+    print(f"  ponita: forward, device busy {busy_share(busy_fwd, fwd_ms)}, {launches_fwd} "
+          f"kernels; top kernels: {top_fwd}", flush=True)
     report("ponita", t0, B=PONITA_B, N=PONITA_N, layers=PONITA_KW["num_layers"], width=H_,
-           num_ori=O_, n_params=n_params_p, fwd_max_abs_err=f"{fwd_err:.3e}",
-           max_abs_out=f"{fwd_scale:.3e}", rtol=PONITA_FWD_RTOL, fwd_ms=f"{fwd_ms:.4f}",
-           fwd_bound_ms=f"{fwd_bound:.4f}", fwd_gflop=f"{fwd_flops / 1e9:.2f}",
-           calib_stats=3 * len(pmodel.blocks), calib_max_rel_err=f"{calib_err:.3e}",
-           calib_rtol=PONITA_CALIB_RTOL, leapfrog_launches=eval_counts["ponita"]["leapfrog"])
+           num_ori=O_, init=f"fresh, seed {PONITA_SEED}", n_params=n_params_p,
+           fwd_max_abs_err=f"{fwd_err:.3e}", max_abs_out=f"{fwd_scale:.3e}",
+           rtol=PONITA_FWD_RTOL, fwd_ms=f"{fwd_ms:.4f}", fwd_bound_ms=f"{fwd_bound:.4f}",
+           fwd_gflop=f"{fwd_flops / 1e9:.2f}", calib_stats=3 * len(pmodel.blocks),
+           calib_max_rel_err=f"{calib_err:.3e}", calib_rtol=PONITA_CALIB_RTOL,
+           leapfrog_launches=eval_counts["ponita"]["leapfrog"])
 
     # ----------------------------------------------------- 26. ponita-rollout
     # GT at the reference workload through one K2-leapfrog launch, 999 counted
     # self-feed steps (no kernel), the six-macro score; 20 steps on the card
-    # against the CPU's float64; the rollout repeated bitwise, and timed warm
+    # against the CPU's float64; the first 200 steps repeated bitwise, and
+    # timed warm
     t0 = time.perf_counter()
     info = family_rollout("ponita", pmodel, pcpu, PONITA_B, PONITA_N, PONITA_SUBSTEPS, 21,
                           PONITA_CMP_B, PONITA_ROLL_RTOL, PONITA_NUDGE_FACTOR)
-    del pcpu
+    del pcpu, pmodel
     report("ponita-rollout", t0, **info)
 
     # ------------------------------------------------------- 27. train-ponita
-    # the queue's argv resumed from the committed checkpoint (calib included
-    # in the JAX layout), then a fresh run that calibrates on its first batch
+    # the queue's argv from a fresh initialisation, which calibrates on its
+    # first batch: 2 epochs of 20 steps and a 200-step evaluation
     t0 = time.perf_counter()
-    info, _, fresh_model = family_train("ponita", PONITA_CKPT, PONITA_ARGV, payload_p,
-                                        PONITA_EPOCH, PONITA_COUNT, PONITA_PARAMS, PONITA_FRAMES)
+    info, _, fresh_model = family_train("ponita", None, PONITA_ARGV, None, 0, 0, PONITA_PARAMS)
     convs = [blk.conv for blk in fresh_model.blocks]
     if any(float(getattr(c, s_)) == 1.0 for c in convs for s_ in ponita.CALIB_STATS):
         fail("train-ponita: the fresh run's model was not calibrated on its first batch")
@@ -1901,20 +2027,10 @@ def main() -> None:
     report("train-ponita", t0, B=PONITA_B, N=PONITA_N, **info,
            checkpoint="bitwise, JAX layout with calib", fresh_calibrated=True)
 
-    # ----------------------------------------------------- 28. battery-ponita
-    # `cli self-feed --draws 2 --seed 281` on a run dir of the queue's argv
-    # around the committed checkpoint, beside the checkpoint's own record
-    t0 = time.perf_counter()
-    battery_p_s, info = family_battery("ponita", PONITA_CKPT, PONITA_ARGV, PONITA_DRAWS,
-                                       PONITA_FRAMES)
-    report("battery-ponita", t0, battery_p_s, B=PONITA_B, N=PONITA_N, **info,
-           checkpoint_best_self_feed_steps=payload_p["best_metrics"].get("self_feed_steps"))
-    del payload_p, pmodel
-
-    # --------------------------------------------------------- 29. hpo-ponita
+    # --------------------------------------------------------- 28. hpo-ponita
     family_hpo("ponita")
 
-    # -------------------------------------------------------------- 30. segnn
+    # -------------------------------------------------------------- 29. segnn
     # the committed SEGNN checkpoint through the converter, on the card: a
     # forward on a fresh GT frame against the same model in float64 on the
     # CPU, the parameter count, and O(3) equivariance with center_mode
@@ -1944,7 +2060,8 @@ def main() -> None:
         out_card = smodel(scene_s, fc(scene_s))
         out_cpu = scpu(scene_sc, fc(scene_sc))
         fwd_ms_s = cuda_ms(lambda: smodel(scene_s, fc(scene_s)), iters=20)
-        busy_fwd_s, top_fwd_s = top_kernels(lambda: smodel(scene_s, fc(scene_s)), n=8)
+        busy_fwd_s, top_fwd_s, launches_fwd_s = top_kernels(lambda: smodel(scene_s, fc(scene_s)),
+                                                            n=8)
     fwd_err_s = (out_card.double().cpu() - out_cpu).abs().max().item()
     fwd_scale_s = out_cpu.abs().max().item()
     if not (torch.isfinite(out_card).all() and fwd_err_s <= SEGNN_FWD_RTOL * fwd_scale_s):
@@ -1992,24 +2109,24 @@ def main() -> None:
            fwd_bound_ms=f"{fwd_bound_s:.4f}", fwd_bound_by=fwd_by_s,
            fwd_gflop=f"{fwd_flops_s / 1e9:.2f}",
            fwd_busy_ms=("not measured" if busy_fwd_s is None else f"{busy_fwd_s:.3f}"),
+           fwd_kernels=launches_fwd_s,
            o3_max_abs_err=f"{equiv_err:.3e}", o3_rtol=SEGNN_EQUIV_RTOL,
            leapfrog_launches=eval_counts["segnn"]["leapfrog"])
 
-    # ------------------------------------------------------ 31. segnn-rollout
+    # ------------------------------------------------------ 30. segnn-rollout
     t0 = time.perf_counter()
     info = family_rollout("segnn", smodel, scpu, SEGNN_B, SEGNN_N, SEGNN_SUBSTEPS, 32,
                           SEGNN_CMP_B, SEGNN_ROLL_RTOL, SEGNN_NUDGE_FACTOR)
     del scpu
     report("segnn-rollout", t0, **info)
 
-    # -------------------------------------------------------- 32. train-segnn
+    # -------------------------------------------------------- 31. train-segnn
     # the queue's argv resumed from the committed checkpoint, with one step
     # against the same step on the CPU in float64 ([train]'s gates), then a
     # fresh run
     t0 = time.perf_counter()
     info, (p_err_s, up_err_s, card_loss_s, cpu_loss_s), fresh_model = family_train(
         "segnn", SEGNN_CKPT, SEGNN_ARGV, payload_s, SEGNN_EPOCH, SEGNN_COUNT, SEGNN_PARAMS,
-        SEGNN_FRAMES,
         extra=lambda run_, scene_, y_: step_vs_cpu("train-segnn", run_, payload_s, SEGNN_KW,
                                                    scene_, y_))
     del fresh_model
@@ -2020,8 +2137,8 @@ def main() -> None:
     report("train-segnn", t0, B=SEGNN_B, N=SEGNN_N, **info, checkpoint="bitwise, JAX layout",
            cmp_param_err=f"{p_err_s:.3e}", cmp_update_err=f"{up_err_s:.3e}")
 
-    # ------------------------------------------------------ 33. battery-segnn
-    # `cli self-feed --draws 2 --seed 281` on a run dir of the queue's argv
+    # ------------------------------------------------------ 32. battery-segnn
+    # `cli self-feed --draws 1 --seed 281` on a run dir of the queue's argv
     # around the committed checkpoint, beside the committed 12-draw battery of
     # the same seed; a class, not a gate
     t0 = time.perf_counter()
@@ -2034,10 +2151,169 @@ def main() -> None:
            committed_six_median=f"{ref_s['median']:.4g}")
     del payload_s, smodel
 
-    # --------------------------------------------------------- 34. hpo-segnn
+    # --------------------------------------------------------- 33. hpo-segnn
     family_hpo("segnn")
 
-    # --------------------------------------------------------------- 35. bign
+    # --------------------------------------------------------------- 34. eqv2
+    # the committed EquiformerV2 checkpoint through the converter, on the
+    # card: an eval-mode forward on a fresh GT frame against the same model in
+    # float64 on the CPU, its ms, busy share and kernels beside its bound and
+    # the eager byte floor, the parameter count, permutation equivariance;
+    # rotation equivariance of a fresh L8 c128 with the equivariant velocity
+    # gate.  EquiformerV2 is plain PyTorch: no kernel but the GT's
+    t0 = time.perf_counter()
+    payload_e = weights.read_checkpoint(battery.EQV2_CKPT)
+    emodel = models.create_model("equiformer_v2", device=dev, **EQV2_KW)
+    emodel.load_state_dict(weights.params_from_jax(payload_e["params"], "equiformer_v2"))
+    emodel.eval()
+    ecpu = models.create_model("equiformer_v2", device="cpu", dtype=torch.float64, **EQV2_KW)
+    ecpu.load_state_dict(emodel.state_dict())
+    ecpu.eval()
+    n_params_e = models.count_params(emodel)
+    n_params_e_hpo = hpo._count_params("equiformer_v2", EQV2_KW, EQV2_N)
+    if n_params_e != EQV2_PARAMS or n_params_e_hpo != EQV2_PARAMS:
+        fail(f"eqv2: {n_params_e} parameters ({n_params_e_hpo} by hpo), want {EQV2_PARAMS}")
+    reset_counts()
+    gt_e = otf.GravityDatasetOtf(
+        batch_size=EQV2_B, sim_length=EQV2_SUBSTEPS, sample_freq=SAMPLE_FREQ,
+        num_nodes=EQV2_N, interaction_strength=G_CONST, softening=SOFTENING, seed=40,
+        device=dev).get_ground_truth_trajectories()
+    sync()
+    eval_counts["eqv2"] = counted({"leapfrog": 1}, "eqv2")
+    scene_e = Scene(pos=gt_e[0][:, 0], vel=gt_e[1][:, 0], force=gt_e[2][:, 0], mass=gt_e[3])
+    scene_ec = cpu64(scene_e)
+    with torch.no_grad():
+        out_card = emodel(scene_e, fc(scene_e))
+        out_cpu = ecpu(scene_ec, fc(scene_ec))
+        # the caching allocator's traffic over the timed forwards: device
+        # allocations, frees (each a device sync) and retries after a failed
+        # allocation, with the memory it holds
+        stats0 = torch.cuda.memory_stats(dev)
+        fwd_ms_e = cuda_ms(lambda: emodel(scene_e, fc(scene_e)), iters=10)
+        stats1 = torch.cuda.memory_stats(dev)
+        alloc_traffic = {k: stats1.get(k, 0) - stats0.get(k, 0)
+                         for k in ("num_device_alloc", "num_device_free", "num_alloc_retries")}
+        busy_e, top_e, launches_e = top_kernels(lambda: emodel(scene_e, fc(scene_e)), n=8)
+    fwd_err_e = (out_card.double().cpu() - out_cpu).abs().max().item()
+    fwd_scale_e = out_cpu.abs().max().item()
+    if not (torch.isfinite(out_card).all() and fwd_err_e <= EQV2_FWD_RTOL * fwd_scale_e):
+        fail(f"eqv2: the card's forward differs from the CPU's float64 one by {fwd_err_e} "
+             f"(max |out| {fwd_scale_e}, rtol {EQV2_FWD_RTOL})")
+    # permutation: the bodies reordered, the outputs reordered the same way
+    perm = torch.tensor([3, 0, 4, 1, 2], device=dev)
+    moved = Scene(pos=scene_e.pos[:, perm], vel=scene_e.vel[:, perm],
+                  force=scene_e.force[:, perm], mass=scene_e.mass[:, perm])
+    with torch.no_grad():
+        perm_err = (emodel(moved, fc(moved)) - out_card[:, perm]).abs().max().item()
+    if not perm_err <= EQV2_PERM_RTOL * fwd_scale_e:
+        fail(f"eqv2: permutation off by {perm_err} (max |out| {fwd_scale_e})")
+    # rotation: a fresh full-width model with the equivariant velocity gate
+    torch.manual_seed(EQV2_FRESH_SEED)
+    rot_model = models.create_model("equiformer_v2", device=dev, equivariant_embedding=True,
+                                    **EQV2_KW).eval()
+    q, r = torch.linalg.qr(torch.randn((3, 3), generator=torch.Generator().manual_seed(41),
+                                       dtype=torch.float64))
+    R = q * torch.sign(torch.diagonal(r))
+    R = (R if torch.det(R) > 0 else -R).float().to(dev)
+    turned = Scene(pos=scene_e.pos @ R.T, vel=scene_e.vel @ R.T, force=scene_e.force @ R.T,
+                   mass=scene_e.mass)
+    with torch.no_grad():
+        out_f = rot_model(scene_e, fc(scene_e))
+        out_t = rot_model(turned, fc(turned))
+    want_t = torch.cat([out_f[..., :3] @ R.T, out_f[..., 3:] @ R.T], dim=-1)
+    rot_err, rot_scale = (out_t - want_t).abs().max().item(), want_t.abs().max().item()
+    if not (torch.isfinite(out_t).all() and rot_err <= EQV2_ROT_RTOL * rot_scale):
+        fail(f"eqv2: rotation off by {rot_err} (max |out| {rot_scale}, rtol {EQV2_ROT_RTOL})")
+    del rot_model, out_f, out_t, want_t, gt_e
+    fwd_flops_e, grid_bytes_e = eqv2_forward_cost(emodel, EQV2_B, EQV2_N)
+    fwd_bytes_e = 4.0 * (n_params_e + EQV2_B * EQV2_N * 13 + EQV2_B * EQV2_N * 6)
+    fwd_bound_e, fwd_by_e = bound_ms(fwd_bytes_e, fwd_flops_e)
+    print(f"  eqv2: forward, device busy {busy_share(busy_e, fwd_ms_e)}, {launches_e} kernels; "
+          f"top kernels: {top_e}", flush=True)
+    report("eqv2", t0, B=EQV2_B, N=EQV2_N, layers=EQV2_KW["num_layers"],
+           channels=EQV2_KW["sphere_channels"], heads=EQV2_KW["num_heads"], n_params=n_params_e,
+           fwd_max_abs_err=f"{fwd_err_e:.3e}", max_abs_out=f"{fwd_scale_e:.3e}",
+           rtol=EQV2_FWD_RTOL, fwd_ms=f"{fwd_ms_e:.4f}", fwd_bound_ms=f"{fwd_bound_e:.4f}",
+           fwd_bound_by=fwd_by_e, fwd_gflop=f"{fwd_flops_e / 1e9:.2f}",
+           eager_grid_gb=f"{grid_bytes_e / 1e9:.2f}",
+           eager_byte_floor_ms=f"{grid_bytes_e / PEAK_BYTES * 1e3:.4f}",
+           fwd_busy_ms=("not measured" if busy_e is None else f"{busy_e:.3f}"),
+           fwd_kernels=launches_e, allocator_over_timed_forwards=repr(alloc_traffic),
+           reserved_gib=f"{torch.cuda.memory_reserved(dev) / 2**30:.2f}",
+           perm_max_abs_err=f"{perm_err:.3e}",
+           perm_rtol=EQV2_PERM_RTOL, rot_max_abs_err=f"{rot_err:.3e}",
+           rot_max_abs_out=f"{rot_scale:.3e}", rot_rtol=EQV2_ROT_RTOL,
+           leapfrog_launches=eval_counts["eqv2"]["leapfrog"])
+
+    # ------------------------------------------------------- 35. eqv2-rollout
+    # GT at the reference workload through one K2-leapfrog launch, 999 counted
+    # self-feed steps in training mode with live dropout (masks seeded with
+    # EQV2_DROPOUT_SEED), the six-macro score; 20 eval-mode steps on the card
+    # against the CPU's float64; the first 200 steps repeated from the same GT
+    # and dropout seed bitwise, and timed warm
+    t0 = time.perf_counter()
+    info = family_rollout("eqv2", emodel, ecpu, EQV2_B, EQV2_N, EQV2_SUBSTEPS, 42, EQV2_CMP_B,
+                          EQV2_ROLL_RTOL, EQV2_NUDGE_FACTOR, train_mode=True,
+                          dropout_seed=EQV2_DROPOUT_SEED)
+    del ecpu
+    report("eqv2-rollout", t0, **info)
+
+    # --------------------------------------------------------- 36. train-eqv2
+    # the queue's argv resumed from the committed checkpoint with its AdamW
+    # state and Noam step (dropout live, from the run's seeded generator); one
+    # step against the same step on the CPU in float64 with both dropout rates
+    # at 0 (the card's and the CPU's generators draw different masks), at
+    # [train]'s gates; a step's peak memory without remat; then a fresh run
+    eqv2_argv = list(battery.EQV2_RUN_ARGV)
+    quiet_kw = dict(EQV2_KW, alpha_drop=0.0, drop_path_rate=0.0)
+
+    def eqv2_extra(run_, scene_, y_):
+        cmp_ = step_vs_cpu("train-eqv2", run_, payload_e, quiet_kw, scene_, y_)
+        model_ = run_["trainer"].model
+        model_.remat = False
+        try:
+            plain_ = time_steps(run_["trainer"], scene_, y_)
+        finally:
+            model_.remat = True
+        return cmp_, plain_
+
+    t0 = time.perf_counter()
+    info, ((p_err_e, up_err_e, card_loss_e, cpu_loss_e), no_remat), fresh_model = family_train(
+        "eqv2", battery.EQV2_CKPT, eqv2_argv, payload_e, EQV2_EPOCH, EQV2_COUNT, EQV2_PARAMS,
+        extra=eqv2_extra)
+    del fresh_model
+    print(f"  train-eqv2: one step, card f32 vs CPU f64 on {TRAIN_CMP_B} sims (no dropout): "
+          f"loss {card_loss_e:.8f} / {cpu_loss_e:.8f}, params max rel err {p_err_e:.3e} (limit "
+          f"{TRAIN_PARAM_RTOL}), update max rel err {up_err_e:.3e} (limit {TRAIN_UPDATE_RTOL}); "
+          f"without remat {no_remat['ms']:.3f} ms a step, peak "
+          f"{no_remat['peak_above_start_mib']:.1f} MiB above the start", flush=True)
+    report("train-eqv2", t0, B=EQV2_B, N=EQV2_N, **info, checkpoint="bitwise, JAX layout",
+           cmp_param_err=f"{p_err_e:.3e}", cmp_update_err=f"{up_err_e:.3e}",
+           no_remat_ms_per_step=f"{no_remat['ms']:.3f}",
+           no_remat_peak_above_start_mib=f"{no_remat['peak_above_start_mib']:.1f}")
+
+    # ------------------------------------------------------- 37. battery-eqv2
+    # `cli self-feed --draws 1 --seed 281` on a run dir of the queue's argv
+    # around the committed checkpoint (train mode, live dropout), beside the
+    # committed 12-draw battery of the same seed; a class, not a gate
+    t0 = time.perf_counter()
+    battery_e_s, info = family_battery("eqv2", battery.EQV2_CKPT, eqv2_argv, EQV2_DRAWS,
+                                       EQV2_FRAMES)
+    ref_six_e = battery.committed(BATTERY_SEED, battery.EQV2_COMMITTED)["six"]
+    ref_e = battery.spread(ref_six_e)
+    report("battery-eqv2", t0, battery_e_s, B=EQV2_B, N=EQV2_N, **info,
+           committed_draws=len(ref_six_e), committed_six_best=f"{ref_e['best']:.4g}",
+           committed_six_median=f"{ref_e['median']:.4g}",
+           committed_six_worst=f"{ref_e['worst']:.4g}")
+    del payload_e, emodel
+
+    # ---------------------------------------------------------- 38. hpo-eqv2
+    # the width bisection steps by 16 and can stop outside the 7% band (the
+    # first trial, L8 with 4 heads, ends at width 48 and 2,379,506
+    # parameters); the study goes on with it, as the JAX package's does
+    family_hpo("equiformer_v2", tag="hpo-eqv2", in_band=False)
+
+    # --------------------------------------------------------------- 39. bign
     t0 = time.perf_counter()
     state = bign_bench.seeded_state(2)
     rows = []
@@ -2149,8 +2425,8 @@ def main() -> None:
         })
     # each kernel's launches on the training paths: [train]'s training (its
     # first GT batch included), [train]'s evaluation, [train-n5], and
-    # [train-ponita]'s and [train-segnn]'s resumed training, its evaluation
-    # and its fresh run
+    # [train-ponita]'s fresh training and its evaluation, [train-segnn]'s and
+    # [train-eqv2]'s resumed training, its evaluation and its fresh run
     counter_of = {"egnn_messages (K1)": "k1", "gravity (K2)": "k2",
                   "gravity leapfrog (K2-leapfrog)": "leapfrog", "egnn_stream (K3)": "k3",
                   "egnn_messages bf16 (K1-bf16)": "k1_bf16",
@@ -2160,8 +2436,9 @@ def main() -> None:
         entry["launches_train"] = {path: c[counter_of[entry["name"]]]
                                    for path, c in train_counts.items()}
         # ... and on the evaluation layer's paths, PONITA's ([ponita],
-        # [ponita-rollout], [battery-ponita], [hpo-ponita]) and SEGNN's
-        # ([segnn], [segnn-rollout], [battery-segnn], [hpo-segnn])
+        # [ponita-rollout], [hpo-ponita]), SEGNN's ([segnn], [segnn-rollout],
+        # [battery-segnn], [hpo-segnn]) and EquiformerV2's ([eqv2],
+        # [eqv2-rollout], [battery-eqv2], [hpo-eqv2])
         entry["launches_eval"] = {path: c[counter_of[entry["name"]]]
                                   for path, c in eval_counts.items()}
     print(f"total {time.perf_counter() - T_START:.2f} s on {card}", flush=True)

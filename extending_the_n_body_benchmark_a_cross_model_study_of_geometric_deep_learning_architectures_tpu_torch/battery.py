@@ -2,7 +2,7 @@
 bases, through the ``self-feed`` main.
 
     python -m extending_the_n_body_benchmark_a_cross_model_study_of_geometric_deep_learning_architectures_tpu_torch.battery \\
-        [--family egnn_mc|ponita|segnn] [--seeds 281 9272] [--compute-dtypes float32 bfloat16] \\
+        [--family egnn_mc|ponita|segnn|equiformer_v2] [--seeds 281 9272] [--compute-dtypes float32 bfloat16] \\
         [--draws 6] [--batch-size B] [--checkpoint PATH] [--device cuda] [--out DIR]
 
 For each compute dtype it builds a run dir around the checkpoint (by default
@@ -21,13 +21,21 @@ default the committed ``docs/results/segnn10m_r5/ckpt_110_model.ckpt``, L6
 w448, in f32) in a run dir of its queue step (``tpu_queue48.sh:55-56``, the
 same workload), beside the checkpoint's committed batteries
 (``draws_ckpt110.json``, seed 281, and ``draws2_ckpt110.json``, seed 9272:
-12 draws each, on the six-macro basis).
+12 draws each, on the six-macro basis).  ``--family equiformer_v2`` scores
+EquiformerV2 (by default the committed
+``docs/results/eqv2_10m_L8c128_cont/ckpt_130_model.ckpt``, L8 c128, in f32,
+rolled out in training mode with live dropout, as the run's
+``self_feed_train_mode`` says) in a run dir of its queue step
+(``scripts/queues/tpu_queue44.sh:43-48``, the same workload), beside the
+committed ``draws_ckpt130_1.json`` (seed 281) and ``draws2_ckpt130_1.json``
+(seed 9272).
 
 Each draw is scored on two bases:
 
 * six macros: the ``combined_pvalue`` of ``self_feed_draws.json``, the
   basis both packages score N=100 on today (``metrics.ks.combine_scored``:
-  ``stuck_cluster_size`` in place of the NaN-gated group macro);
+  ``stuck_cluster_size`` in place of the NaN-gated group macro; at N=5 the
+  group macro itself is scored);
 * five macros: a Fisher combine of the same ``per_macro`` over the five
   reference macros, ``stuck_cluster_size`` left out, the basis of the
   committed batteries (``egnn_n100_draws{,2}_ckpt30.json``), which predate
@@ -68,6 +76,15 @@ SEGNN_RUN_ARGV = ["--main.model_type", "segnn", "--model.num_layers", "6",
                   "--model.hidden_features", "448"]
 SEGNN_COMMITTED = {281: os.path.join(SEGNN_DIR, "draws_ckpt110.json"),
                    9272: os.path.join(SEGNN_DIR, "draws2_ckpt110.json")}
+# the committed EquiformerV2 checkpoint, the run that trained it and its batteries
+EQV2_DIR = os.path.join(REPO, "docs", "results", "eqv2_10m_L8c128_cont")
+EQV2_CKPT = os.path.join(EQV2_DIR, "ckpt_130_model.ckpt")
+EQV2_RUN_ARGV = ["--main.model_type", "equiformer_v2", "--model.num_layers", "8",
+                 "--model.sphere_channels", "128", "--model.attn_hidden_channels", "128",
+                 "--model.ffn_hidden_channels", "128", "--model.num_heads", "8",
+                 "--model.remat", "true"]
+EQV2_COMMITTED = {281: os.path.join(EQV2_DIR, "draws_ckpt130_1.json"),
+                  9272: os.path.join(EQV2_DIR, "draws2_ckpt130_1.json")}
 # the study protocol that trained the checkpoint (README section 3)
 STUDY_RUN_ARGV = ["--dataloader.batch_size", "16",
                   "--dataloader.gravity_dataset.num_atoms", "100",
@@ -82,12 +99,20 @@ def five_macro_p(per: dict) -> float:
     return fisher_combine([per.get(k, float("nan")) for k in SCORED_MACROS])
 
 
+def _six(draw) -> float:
+    """A draw's six-macro p: its combined p where the six were scored (the
+    group macro itself, or ``stuck_cluster_size`` in its place above the
+    group macro's N gate), NaN for a draw scored before the sixth existed."""
+    per = draw["per_macro"]
+    group = per.get("group_collision_count", float("nan"))
+    scored = "stuck_cluster_size" in per or group == group
+    return draw["combined_pvalue"] if scored else float("nan")
+
+
 def bases(draws) -> dict:
     """``{"six": [...], "five": [...], "survived": [...]}`` of a battery's
     draws; six is NaN for a draw scored before the sixth macro existed."""
-    nan = float("nan")
-    return {"six": [d["combined_pvalue"] if "stuck_cluster_size" in d["per_macro"] else nan
-                    for d in draws],
+    return {"six": [_six(d) for d in draws],
             "five": [five_macro_p(d["per_macro"]) for d in draws],
             "survived": [d["steps_survived"] for d in draws]}
 
@@ -146,7 +171,8 @@ def run_battery(run_dir: str, seed: int, draws: int, device: str, out: str,
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--family", choices=["egnn_mc", "ponita", "segnn"], default="egnn_mc")
+    p.add_argument("--family", choices=["egnn_mc", "ponita", "segnn", "equiformer_v2"],
+                   default="egnn_mc")
     p.add_argument("--seeds", type=int, nargs="+", default=[281, 9272])
     p.add_argument("--compute-dtypes", nargs="+", default=["float32", "bfloat16"],
                    choices=["float32", "bfloat16"])
@@ -164,12 +190,13 @@ def main(argv=None):
     args = p.parse_args(argv)
     # the families at the reference workload: (checkpoint, run argv, committed batteries)
     queued = {"ponita": (PONITA_CKPT, PONITA_RUN_ARGV, {}),
-              "segnn": (SEGNN_CKPT, SEGNN_RUN_ARGV, SEGNN_COMMITTED)}.get(args.family)
+              "segnn": (SEGNN_CKPT, SEGNN_RUN_ARGV, SEGNN_COMMITTED),
+              "equiformer_v2": (EQV2_CKPT, EQV2_RUN_ARGV, EQV2_COMMITTED)}.get(args.family)
     default_ckpt = queued[0] if queued else CKPT
     if args.checkpoint is None:
         args.checkpoint = default_ckpt
     if queued:
-        args.compute_dtypes = ["float32"]  # neither has a mixed-precision form
+        args.compute_dtypes = ["float32"]  # none has a mixed-precision form
 
     if args.rescore:
         results = []

@@ -34,8 +34,9 @@ import torch
 _SELF_FEED_DOC = """Self-feed rollout and macro evaluation of a run's checkpoint.
 
 ``--draws K`` runs K independent evaluation draws (fresh ground truth each,
-and in train mode the model in training mode) and reports each draw's, the
-best and the median combined KS p."""
+and in train mode the model in training mode, a model with dropout drawing
+its masks from the seed ``--seed + draw``) and reports each draw's, the best
+and the median combined KS p."""
 
 _VALIDATE_DOC = """One-step validation of a trained checkpoint: fresh on-the-fly batches,
 the mean loss and per-target percentage errors."""

@@ -2,7 +2,7 @@
 and builds the model's neighbour mask.
 
 Counterpart of the JAX package's ``data/dataloaders.py``, for the on-the-fly
-gravity data that EGNN-MC and PONITA train on.  Its registry keeps the JAX package's
+gravity data that the ported families train on.  Its registry keeps the JAX package's
 keys; the offline charged-systems loader is not ported yet and raises.
 """
 
@@ -91,6 +91,7 @@ DATALOADER_REGISTRY: Dict[str, Type] = {
     "ponita_nbody": NBodyDataLoader,
     "segnn_nbody": NBodyDataLoader,
     "seconv_nbody": NBodyDataLoader,
+    "equiformer_v2_nbody": NBodyDataLoader,
     "segnn_nbody_offline": OfflineSegnnDataLoader,
 }
 

@@ -1,9 +1,11 @@
 """Model registry: ``create_model(model_type, **overrides)``.
 
 Counterpart of the JAX package's ``models/__init__.py``; the port knows
-``egnn_mc``, ``ponita``, ``segnn`` and ``seconv``, with the JAX package's
-defaults for them.  Every model is an ``nn.Module`` with the dense interface
-``model(scene, mask) -> [B, N, 3k]``.
+``egnn_mc``, ``ponita``, ``segnn``, ``seconv`` and ``equiformer_v2``, with the
+JAX package's defaults for them.  Every model is an ``nn.Module`` with the
+dense interface ``model(scene, mask) -> [B, N, 3k]``; a model with live
+dropout (EquiformerV2 in training mode) also takes ``generator=``, a
+``torch.Generator`` that draws its masks (:func:`needs_generator`).
 """
 
 from __future__ import annotations
@@ -13,11 +15,12 @@ from typing import Any, Dict
 import torch
 
 from .egnn_mc import EGNNMC
+from .equiformer_v2 import EquiformerV2
 from .ponita import PONITA
 from .segnn import SEGNN, SEConv
 
 MODEL_REGISTRY: Dict[str, Any] = {"egnn_mc": EGNNMC, "ponita": PONITA, "segnn": SEGNN,
-                                  "seconv": SEConv}
+                                  "seconv": SEConv, "equiformer_v2": EquiformerV2}
 
 MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
     "egnn_mc": dict(
@@ -36,6 +39,22 @@ MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
     "ponita": dict(hidden_features=128, num_layers=8),
     "segnn": dict(hidden_features=96, lmax_attr=1, lmax_h=1, num_layers=20),
     "seconv": dict(hidden_features=96, lmax_attr=1, lmax_h=1, num_layers=8),
+    "equiformer_v2": dict(
+        num_layers=4,
+        sphere_channels=64,
+        attn_hidden_channels=64,
+        num_heads=4,
+        attn_alpha_channels=8,
+        attn_value_channels=4,
+        ffn_hidden_channels=64,
+        edge_channels=64,
+        num_distance_basis=64,
+        max_neighbors=5,
+        max_radius=4096.0,
+        use_atom_edge_embedding=True,
+        share_atom_edge_embedding=False,
+        weight_init="normal",
+    ),
 }
 
 
@@ -51,14 +70,32 @@ def create_model(model_type: str, device="cuda", dtype=torch.float32, **override
 
 def has_edge_stage(model) -> bool:
     """Whether ``model`` has an edge stage whose form ``edge_impl`` chooses
-    (EGNN-MC's kernel or dense forms); PONITA, SEGNN and SEConv have none."""
+    (EGNN-MC's kernel or dense forms); PONITA, SEGNN, SEConv and EquiformerV2 have
+    none."""
     return hasattr(model, "edge_impl")
+
+
+def needs_generator(model) -> bool:
+    """Whether ``model`` draws dropout masks in its forward now (and so takes
+    ``generator=``): EquiformerV2 in training mode with a rate above 0."""
+    return bool(getattr(model, "draws_dropout", False))
+
+
+def generator_kwargs(model, seed, device) -> Dict[str, Any]:
+    """``{"generator": a torch.Generator on device seeded with seed}`` for a
+    model that draws dropout masks now, else ``{}``; ``seed`` None is 0, as
+    the JAX package's rollout takes ``PRNGKey(0)`` without a key."""
+    if not needs_generator(model):
+        return {}
+    gen = torch.Generator(device=torch.device(device))
+    gen.manual_seed(0 if seed is None else int(seed))
+    return {"generator": gen}
 
 
 def count_params(model) -> int:
     """The JAX package's parameter count: every leaf of the model's params tree,
     which is every entry of the ``state_dict`` -- the parameters and, for
     PONITA, the ``calib`` statistics (3 a layer) that its tree carries beside
-    them.  SEGNN's Clebsch-Gordan tensors are constants outside the
-    ``state_dict``."""
+    them.  SEGNN's Clebsch-Gordan tensors and EquiformerV2's Wigner tensor,
+    grid matrices and index tables are constants outside the ``state_dict``."""
     return sum(t.numel() for t in model.state_dict().values())

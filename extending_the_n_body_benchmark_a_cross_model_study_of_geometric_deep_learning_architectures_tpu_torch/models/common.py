@@ -58,6 +58,20 @@ class TorchLinear(nn.Linear):
         return x @ self.weight.to(x.dtype).T + self.bias.to(x.dtype)
 
 
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm over the last axis with flax's epsilon (1e-6, where torch's
+    is 1e-5), applied in the input's dtype."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return F.layer_norm(x, self.normalized_shape, self.weight, self.bias, self.eps)
+        return F.layer_norm(x, self.normalized_shape, self.weight.to(x.dtype),
+                            self.bias.to(x.dtype), self.eps)
+
+
 ACTIVATIONS = {
     "silu": F.silu,
     "relu": F.relu,

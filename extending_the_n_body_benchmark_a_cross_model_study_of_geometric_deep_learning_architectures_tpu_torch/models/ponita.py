@@ -40,7 +40,7 @@ from torch import nn
 from ..core import graph as G
 from ..core.scene import Scene
 from ..ops.s2grid import uniform_grid_s2
-from .common import TorchLinear, torch_kernel_init
+from .common import LayerNorm, TorchLinear, torch_kernel_init
 
 CALIB_STATS = ("std_in", "std_1", "std_2")
 
@@ -69,18 +69,6 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x @ self.kernel.to(x.dtype)
-
-
-class LayerNorm(nn.LayerNorm):
-    """LayerNorm over the last axis with flax's epsilon, applied in the input's
-    dtype."""
-
-    def __init__(self, features: int):
-        super().__init__(features, eps=1e-6)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, self.normalized_shape, self.weight.to(x.dtype),
-                            self.bias.to(x.dtype), self.eps)
 
 
 class BasisNet(nn.Module):

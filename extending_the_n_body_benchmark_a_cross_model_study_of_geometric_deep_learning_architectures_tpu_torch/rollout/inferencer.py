@@ -52,8 +52,9 @@ class Inferencer:
     ) -> Tuple[torch.Tensor, torch.Tensor, int]:
         """Autoregressive rollout from ``scene0``: ``(loc [B,T,N,3],
         vel [B,T,N,3], steps_survived)``.  ``num_neighbors=None`` is fully
-        connected; ``rng`` is the JAX package's dropout key, taken for its
-        signature's sake (neither ported family has dropout)."""
+        connected; ``rng`` (an int, 0 for None) seeds the dropout masks of a
+        model that draws them in the run's rollout mode (EquiformerV2 in
+        training mode), fresh every step."""
         key = (num_steps, num_neighbors)
         if key not in self._rollouts:
             self._rollouts[key] = make_rollout_fn(
@@ -61,7 +62,7 @@ class Inferencer:
             )
         self.model.train(self.train_mode)
         with _matmul_precision(self.matmul_precision):
-            loc, vel, survived = self._rollouts[key](scene0)
+            loc, vel, survived = self._rollouts[key](scene0, rng)
         return loc, vel, int(survived.min())
 
     def evaluate(self, num_steps: Optional[int] = None, save_dir: Optional[str] = None,

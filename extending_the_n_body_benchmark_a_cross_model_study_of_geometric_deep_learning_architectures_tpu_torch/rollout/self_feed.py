@@ -9,7 +9,11 @@ wait on the device inside the loop.  Semantics kept:
 * the first call sees the ground-truth frame-0 force, every later call zeros
   (the force is never predicted);
 * a sim whose next state has ``|pos| > 1e9`` or a non-finite value freezes:
-  its state stops updating, and ``survived [B]`` counts its unfrozen steps.
+  its state stops updating, and ``survived [B]`` counts its unfrozen steps;
+* a model in training mode with live dropout (EquiformerV2) draws fresh
+  masks every step, from one ``torch.Generator`` on the scene's device
+  seeded with the rollout's integer ``rng`` (0 without one): the same seed
+  gives the same rollout, bit for bit, though not the JAX package's stream.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 from ..core import graph as G
 from ..core.scene import Scene
 from ..core.targets import decode_next_state
+from ..models import generator_kwargs
 
 EXPLOSION_THRESHOLD = 1e9
 
@@ -32,10 +37,11 @@ def make_rollout_fn(
     target: str = "pos_dt+vel",
     explosion_threshold: float = EXPLOSION_THRESHOLD,
 ):
-    """Build ``fn(scene0) -> (loc, vel, survived)``.
+    """Build ``fn(scene0, rng=None) -> (loc, vel, survived)``.
 
     ``loc, vel [B, num_steps, N, 3]`` (frame 0 = ``scene0``), ``survived [B]``
-    int32.  ``num_neighbors=None`` means fully connected.
+    int32.  ``num_neighbors=None`` means fully connected.  ``rng`` (an int)
+    seeds the dropout masks of a model that draws them in its present mode.
     """
     if target in ("pos", "force"):
         raise ValueError(
@@ -44,8 +50,9 @@ def make_rollout_fn(
         )
 
     @torch.no_grad()
-    def rollout(scene0: Scene):
+    def rollout(scene0: Scene, rng=None):
         B, n = scene0.pos.shape[:2]
+        dropout = generator_kwargs(model, rng, scene0.device)
         k = num_neighbors if (num_neighbors and 0 < num_neighbors < n) else n - 1
         loc = torch.empty((B, num_steps, n, 3), dtype=scene0.dtype, device=scene0.device)
         vel = torch.empty_like(loc)
@@ -57,7 +64,7 @@ def make_rollout_fn(
         zero_force = torch.zeros_like(scene0.pos)
         for t in range(1, num_steps):
             mask = G.knn_mask(pos, k)
-            out = model(Scene(pos=pos, vel=v, force=force, mass=scene0.mass), mask)
+            out = model(Scene(pos=pos, vel=v, force=force, mass=scene0.mass), mask, **dropout)
             new_pos, new_vel = decode_next_state(out, pos, v, target)
             bad = torch.any(
                 (torch.abs(new_pos) > explosion_threshold)
@@ -91,10 +98,10 @@ def run_self_feed(
     seed the model with frame 0 and roll forward.
 
     ``train_mode`` rolls out with the model in training mode (``model.train()``,
-    else ``model.eval()``), as the JAX package's rollout does with live dropout;
-    neither ported family (EGNN-MC, PONITA) has dropout, so their numbers do not
-    change.  ``rng`` is the JAX package's dropout key, taken for its
-    signature's sake.
+    else ``model.eval()``), as the JAX package's rollout does: a model with
+    dropout (EquiformerV2) then draws fresh masks every step, from a generator
+    seeded with the integer ``rng`` (0 for None); a model without dropout gives
+    the same numbers in either mode.
 
     Returns ``(loc_actual, vel_actual, loc_pred, vel_pred, steps_survived)``
     with ``[B, T, N, 3]`` tensors and the minimum over sims of ``survived``.
@@ -107,5 +114,5 @@ def run_self_feed(
         loc_gt, vel_gt = loc_gt[:, :T], vel_gt[:, :T]
     scene0 = Scene(pos=loc_gt[:, 0], vel=vel_gt[:, 0], force=force_gt[:, 0], mass=mass)
     fn = make_rollout_fn(model, T, num_neighbors=num_neighbors, target=dataset.target)
-    loc_pred, vel_pred, survived = fn(scene0)
+    loc_pred, vel_pred, survived = fn(scene0, rng)
     return loc_gt, vel_gt, loc_pred, vel_pred, int(survived.min())

@@ -1,6 +1,6 @@
 """Where a rollout step's time goes on the card: device busy time against wall time.
 
-    python -m extending_the_n_body_benchmark_a_cross_model_study_of_geometric_deep_learning_architectures_tpu_torch.rollout_trace [--family egnn_mc|segnn] [--runs 3]
+    python -m extending_the_n_body_benchmark_a_cross_model_study_of_geometric_deep_learning_architectures_tpu_torch.rollout_trace [--family egnn_mc|segnn|equiformer_v2] [--runs 3]
 
 ``egnn_mc`` (the default) rolls the committed N=100 checkpoint (EGNN-MC
 6 x 128, fully connected, B=64) out from fresh ground truth (seed 0, 2000
@@ -8,7 +8,10 @@ substeps, a frame every 10: 199 steps), in f32 and in mixed bf16, as
 ``chip_smoke.py``'s ``[rollout]`` and ``[rollout-bf16]`` do; ``segnn`` rolls
 the committed SEGNN checkpoint (L6 w448, N=5, B=64) out over the
 evaluation's 999 steps (10000 substeps), in f32, as ``[segnn-rollout]``
-does.  Each config runs once to warm up, then ``--runs`` times untraced
+does; ``equiformer_v2`` the committed EquiformerV2 checkpoint (L8 c128, N=5,
+B=64) over the same 999 steps, in training mode with live dropout (the
+evaluation's mode, masks seeded with 0); its trace of ~1.3M kernels takes
+minutes to read (~15 minutes in all).  Each config runs once to warm up, then ``--runs`` times untraced
 (wall ms a step: host clock, synchronised at the end), then once under
 ``torch.profiler``: the summed time of the CUDA kernels a step, the edge
 kernel's part of it, and the device's idle share of the traced wall time;
@@ -40,13 +43,18 @@ from .weights import params_from_jax, read_jax_checkpoint
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(REPO, "docs", "results", "fidelity_n100", "egnn_n100_ckpt_30_model.ckpt")
 SEGNN_CKPT = os.path.join(REPO, "docs", "results", "segnn10m_r5", "ckpt_110_model.ckpt")
+EQV2_CKPT = os.path.join(REPO, "docs", "results", "eqv2_10m_L8c128_cont", "ckpt_130_model.ckpt")
 SAMPLE_FREQ = 10
-# family -> (checkpoint, B, N, substeps, model kwargs, configs)
+# family -> (checkpoint, B, N, substeps, model kwargs, configs: (name, kwargs, train mode))
 FAMILIES = {
     "egnn_mc": (CKPT, 64, 100, 2000, {},
-                (("f32", {}), ("mixed-bf16", {"compute_dtype": "bfloat16"}))),
+                (("f32", {}, False), ("mixed-bf16", {"compute_dtype": "bfloat16"}, False))),
     "segnn": (SEGNN_CKPT, 64, 5, 10000, {"num_layers": 6, "hidden_features": 448},
-              (("f32", {}),)),
+              (("f32", {}, False),)),
+    "equiformer_v2": (EQV2_CKPT, 64, 5, 10000,
+                      {"num_layers": 8, "sphere_channels": 128, "attn_hidden_channels": 128,
+                       "ffn_hidden_channels": 128, "num_heads": 8},
+                      (("f32-train", {}, True),)),
 }
 EDGE_KERNEL = "egnn_edge_kernel"  # K1's __global__ name in csrc/egnn_messages.cu
 
@@ -112,12 +120,13 @@ def main(argv=None) -> int:
     loc, vel, force, mass = ds.get_ground_truth_trajectories()
     scene0 = Scene(pos=loc[:, 0], vel=vel[:, 0], force=force[:, 0], mass=mass)
     steps = int(loc.shape[1]) - 1
-    for config, kw in configs:
+    for config, kw, train_mode in configs:
         model = create_model(args.family, device=dev, **shape, **kw)
         model.load_state_dict(state)
-        model.eval()
+        model.train(train_mode)
         row = measure(model, scene0, ds.target, steps, args.runs)
-        print(json.dumps({"family": args.family, "config": config, "B": b, "N": n,
+        print(json.dumps({"family": args.family, "config": config, "train_mode": train_mode,
+                          "B": b, "N": n,
                           "steps": steps, **row}), flush=True)
     return 0
 

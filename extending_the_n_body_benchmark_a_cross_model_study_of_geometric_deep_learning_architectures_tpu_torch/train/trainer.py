@@ -18,7 +18,10 @@ Epochs, metric names, checkpoints, crash handling, the run-dir layout
 (``debug_layer_stats_every``, ``evaluation.layer_stats``) are the JAX
 trainer's, and so is PONITA's one-time calibration of its convolution kernels
 on the first training batch (``models.ponita.calibrate_params``), before a
-checkpoint is loaded over it.  Not ported yet, and refused: the multi-device
+checkpoint is loaded over it.  A model with live dropout (EquiformerV2) draws
+each step's masks from one ``torch.Generator`` on the device, seeded with the
+run's ``seed`` (0 without one), where the JAX trainer splits a key a step: the
+streams differ, and the same seed gives the same run.  Not ported yet, and refused: the multi-device
 mesh.  On the card the edge kernel K1 and the GT
 integrator compute float32 (K1 also bf16 operands in the mixed model), so a
 ``double``, ``bfloat16`` or ``autocast`` run there needs the model's
@@ -45,7 +48,7 @@ from ..data.gravity_otf import GravityDatasetOtf
 from ..evaluation import layer_stats
 from ..metrics import artifacts
 from ..metrics.ks import fisher_combine, ks_p
-from ..models import count_params, create_model, has_edge_stage
+from ..models import count_params, create_model, has_edge_stage, needs_generator
 from ..models.ponita import calibrate_params
 from ..ops import _build
 from ..rollout.self_feed import run_self_feed
@@ -99,20 +102,23 @@ def _cast(scene: Scene, dtype: torch.dtype) -> Scene:
 
 
 def make_train_step(model, optim: NoamAdamW, loss_fn, targets, num_neighbors: int,
-                    dtype: torch.dtype, abort_on_nan: bool = False):
+                    dtype: torch.dtype, abort_on_nan: bool = False,
+                    generator: Optional[torch.Generator] = None):
     """``(step, metric_names)``: ``step(scene, y)`` takes one optimizer step
     (through the dense edge stage, for a model with one) and returns the
     metric vector ``[loss, *sorted(terms), *sorted(percentage errors)]``
     (float32, on the device); ``metric_names`` fills at the first call.
     ``abort_on_nan`` skips an update whose prediction is not finite, decided
-    on the device."""
+    on the device.  ``generator`` draws the dropout masks of a model that has
+    live dropout in training mode."""
     metric_names: list = []
     dense = {"edge_impl": "dense"} if has_edge_stage(model) else {}
 
     def step(scene: Scene, y: torch.Tensor) -> torch.Tensor:
         scene, y = _cast(scene, dtype), y.to(dtype)
         model.train()
-        pred = model(scene, G.knn_mask(scene.pos, num_neighbors), **dense)
+        dropout = {"generator": generator} if needs_generator(model) else {}
+        pred = model(scene, G.knn_mask(scene.pos, num_neighbors), **dense, **dropout)
         loss, terms = loss_fn(pred, scene, y)
         optim.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -186,6 +192,10 @@ class Trainer:
             discard_nan_gradients=args.discard_nan_gradients,
         )
         self.loss_fn = build_loss_fn(args)
+        # the dropout masks' stream (the JAX trainer's PRNGKey(seed))
+        seed = args.seed if getattr(args, "seed", None) is not None else 0
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
         self.step_count = 0  # counts finished epochs
         self.best_metrics: Dict[str, float] = {}
 
@@ -202,7 +212,7 @@ class Trainer:
 
         self._train_step, self._metric_names = make_train_step(
             model, self.optim, self.loss_fn, self.targets, self.num_neighbors, self.dtype,
-            getattr(args, "abort_on_nan_activations", False))
+            getattr(args, "abort_on_nan_activations", False), self.generator)
 
     def _refuse_what_is_not_ported(self) -> None:
         a = self.args

@@ -9,14 +9,19 @@ pickle gives it (a namedtuple's fields), without importing any of them;
 :func:`read_jax_checkpoint` returns its ``params`` tree.
 
 :func:`params_from_jax` maps that flax tree onto the port's model's
-``state_dict``, for the ported families, EGNN-MC, PONITA, SEGNN and SEConv:
+``state_dict``, for the ported families, EGNN-MC, PONITA, SEGNN, SEConv and
+EquiformerV2:
 flax ``Dense`` kernels are ``[in, out]`` (an ``nn.Linear`` weight is ``[out,
 in]``), EGNN-MC's ``Scan_EGNNBlock_0/*`` leaves carry a leading layer axis,
 PONITA's tree has, beside ``params``, the ``calib`` collection (three
 statistics a convolution, which its convolutions keep as buffers), and the
 leaves of SEGNN's ``mp_scan`` and SEConv's ``Scan_SEConvLayer_0`` carry a
 leading layer axis; their tensor products' ``w_{a}_{b}_{c}`` and ``b_{c}``
-keep flax's names and shapes.
+keep flax's names and shapes.  EquiformerV2's modules carry their flax names,
+so a key maps to its path by rule (``_eqv2_leaf``): ``TorchLinear`` and bare
+``Dense`` kernels transposed, LayerNorm ``scale`` as ``weight``, embeddings'
+``embedding`` as ``weight``, the blocks of ``Scan_TransBlock_0`` split from
+(and stacked on) its leading axis.
 :func:`params_to_jax` is its inverse, for the port's own checkpoints.
 :func:`opt_state_from_jax` finds AdamW's state (optax's
 ``ScaleByAdamState(count, mu, nu)``, or the port's ``{"count", "mu", "nu"}``)
@@ -26,8 +31,8 @@ not parameters.
 The family of a tree is the one a caller names (``model_type``) or, when it
 names none, the one whose top-level module the tree holds (EGNN-MC's
 ``Scan_EGNNBlock_0``, PONITA's ``_ConvNextBlock_0``, SEGNN's ``mp_scan``,
-SEConv's ``Scan_SEConvLayer_0``); a family the port does not build, or a
-tree of none, raises.
+SEConv's ``Scan_SEConvLayer_0``, EquiformerV2's ``Scan_TransBlock_0``); a
+family the port does not build, or a tree of none, raises.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .models.equiformer_v2 import EquiformerV2, SO2Conv
 from .models.ponita import CALIB_STATS, PONITA
 from .models.segnn import SEGNN, SEConv
 
@@ -101,12 +107,14 @@ def linear_name(k: int) -> str:
     return f"{LINEAR}{k}"
 
 
-FAMILIES = ("egnn_mc", "ponita", "segnn", "seconv")
+FAMILIES = ("egnn_mc", "ponita", "segnn", "seconv", "equiformer_v2")
 # the top-level module that marks each family's flax tree, and state_dict key
 _JAX_MARKER = {"egnn_mc": "Scan_EGNNBlock_0", "ponita": "_ConvNextBlock_0",
-               "segnn": "mp_scan", "seconv": "Scan_SEConvLayer_0"}
+               "segnn": "mp_scan", "seconv": "Scan_SEConvLayer_0",
+               "equiformer_v2": "Scan_TransBlock_0"}
 _PORT_MARKER = {"egnn_mc": "layers.0.edge_w1", "ponita": "blocks.0.conv.spatial.kernel",
-                "segnn": "layers.0.message1.tp.b_0", "seconv": "layers.0.conv.b_0"}
+                "segnn": "layers.0.message1.tp.b_0", "seconv": "layers.0.conv.b_0",
+                "equiformer_v2": "blocks.0.SO2Attention_0.alpha_dot"}
 
 _TP, _GATE = "SteerableTensorProduct_", "SteerableTPSwishGate_"
 # (port module, flax path, scanned) of every module with parameters of the
@@ -217,7 +225,24 @@ def flax_layer_paths(model) -> list:
     ``TorchLinear_1``, each readout ``TorchLinear_k`` and its ``Dense_0``.
     SEGNN: ``embedding``, ``pre_pool1`` with its ``SteerableTensorProduct_0``
     and ``GateActivation_0``, ``pre_pool2``; SEConv the same modules under
-    its names (the scanned layers are not seen)."""
+    its names (the scanned layers are not seen).  EquiformerV2: each
+    top-level module under its own name (a ``TorchLinear_k`` also as
+    ``TorchLinear_k/Dense_0``) and each of its children, the activation as
+    its flax class's first instance; the scanned blocks and an ``SO2Conv``
+    that returns its extra channels beside its output (a tuple) are not
+    seen."""
+    if isinstance(model, EquiformerV2):
+        out = []
+        for name, child in model.named_children():
+            if name == "blocks":
+                continue
+            out.append((child, [name, f"{name}/Dense_0"] if name.startswith(LINEAR) else [name]))
+            for sub, grand in child.named_children():
+                if isinstance(grand, SO2Conv) and grand.extra:
+                    continue
+                flax = f"{type(grand).__name__}_0" if sub == "act" else sub
+                out.append((grand, [f"{name}/{flax}"]))
+        return out + [(model, [""])]
     if isinstance(model, (SEGNN, SEConv)):
         segnn = isinstance(model, SEGNN)
         emb, pool1, pool2 = (("embedding", "pre_pool1", "pre_pool2") if segnn
@@ -274,6 +299,8 @@ def params_from_jax(params: Dict[str, Any], model_type: Optional[str] = None,
     family = _family(model_type, jax_family(params), "the params tree")
     if family == "ponita":
         return _ponita_from_jax(params, calib)
+    if family == "equiformer_v2":
+        return _eqv2_from_jax(params)
     if family in _STEERABLE_MODULES:
         return _steerable_from_jax(params, family)
     p = params.get("params", params)
@@ -330,6 +357,89 @@ def _steerable_from_jax(params: Dict[str, Any], family: str) -> "OrderedDict[str
                     sd[f"{port.format(i)}.{name}"] = _tensor(leaf[i])
             else:
                 sd[f"{port}.{name}"] = _tensor(leaf)
+    return sd
+
+
+_EQV2_SCAN = "Scan_TransBlock_0"
+
+
+def _eqv2_leaf(mods: list, leaf: str) -> Tuple[list, str, bool]:
+    """EquiformerV2's rule between a port key and a flax path: ``(modules,
+    leaf, transposed)`` of the flax path, from the port key's modules and
+    leaf name.  A ``TorchLinear_k`` holds its ``Dense_0`` (``kernel`` the
+    transposed ``weight``), a bare ``Dense_k`` its ``kernel``, a
+    ``LayerNorm_k`` its ``scale``, an embedding its ``embedding``; every
+    other leaf keeps its name."""
+    parent = mods[-1] if mods else ""
+    if parent.startswith(LINEAR):
+        return mods + ["Dense_0"], {"weight": "kernel"}.get(leaf, leaf), leaf == "weight"
+    if parent.startswith("Dense_"):
+        return mods, "kernel", True
+    if parent.startswith("LayerNorm_"):
+        return mods, {"weight": "scale"}.get(leaf, leaf), False
+    if parent == "Embed_0" or parent.endswith("embedding"):
+        return mods, "embedding", False
+    return mods, leaf, False
+
+
+def _eqv2_to_jax(sd) -> Dict[str, Any]:
+    """The port's EquiformerV2 ``state_dict`` as the flax tree: each key's
+    path by :func:`_eqv2_leaf`, the blocks stacked on a leading axis under
+    ``Scan_TransBlock_0``."""
+    p: Dict[str, Any] = {}
+    stacked: Dict[tuple, list] = {}
+    for key, t in sd.items():
+        parts = key.split(".")
+        layer = None
+        if parts[0] == "blocks":
+            layer, parts = int(parts[1]), [_EQV2_SCAN] + parts[2:]
+        mods, leaf, transposed = _eqv2_leaf(parts[:-1], parts[-1])
+        a = _array(t)
+        a = a.T.copy() if transposed else a
+        if layer is None:
+            node = p
+            for k in mods:
+                node = node.setdefault(k, {})
+            node[leaf] = a
+        else:
+            stacked.setdefault(tuple(mods) + (leaf,), []).append((layer, a))
+    for path, items in stacked.items():
+        node = p
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.stack([a for _, a in sorted(items, key=lambda i: i[0])])
+    return {"params": p}
+
+
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _eqv2_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
+    p = params.get("params", params)
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for path, leaf in _flat(p):
+        mods, name = list(path[:-1]), path[-1]
+        if len(mods) >= 2 and mods[-1] == "Dense_0" and mods[-2].startswith(LINEAR):
+            mods, key_leaf, transposed = mods[:-1], {"kernel": "weight"}.get(name, name), \
+                name == "kernel"
+        elif mods and mods[-1].startswith("Dense_"):
+            key_leaf, transposed = "weight", True
+        elif mods and mods[-1].startswith("LayerNorm_"):
+            key_leaf, transposed = {"scale": "weight"}.get(name, name), False
+        else:
+            key_leaf, transposed = ("weight" if name == "embedding" else name), False
+        arr = np.asarray(leaf)
+        if mods and mods[0] == _EQV2_SCAN:
+            for i in range(arr.shape[0]):
+                sd[".".join(["blocks", str(i)] + mods[1:] + [key_leaf])] = _tensor(
+                    arr[i].T if transposed else arr[i])
+        else:
+            sd[".".join(mods + [key_leaf])] = _tensor(arr.T if transposed else arr)
     return sd
 
 
@@ -406,6 +516,8 @@ def params_to_jax(sd, model_type: Optional[str] = None) -> Dict[str, Any]:
     family = _family(model_type, port_family(sd), "the state_dict")
     if family == "ponita":
         return _ponita_to_jax(sd)
+    if family == "equiformer_v2":
+        return _eqv2_to_jax(sd)
     if family in _STEERABLE_MODULES:
         return _steerable_to_jax(sd, family)
     p: Dict[str, Any] = {EMBEDDING: _dense(sd["embedding.weight"], sd["embedding.bias"])}
