@@ -8,9 +8,9 @@ and its C++ macro library (g++) from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, then drives the port's
 paths through ``rollout.self_feed.run_self_feed`` with the committed N=100
 checkpoint of EGNN-MC (6 layers, width 128, fully connected), PONITA's
-paths with a fresh full-width model (phases 25-28), SEGNN's with its
-committed 10M checkpoint (phases 29-33) and EquiformerV2's with its committed
-10M checkpoint (phases 34-38): the bench
+paths with a fresh full-width model (phases 25-29), SEGNN's with its
+committed 10M checkpoint (phases 30-34) and EquiformerV2's with its committed
+10M checkpoint (phases 35-39): the bench
 workload (B=64 sims of N=100 bodies, dense edge stage K1) and the big-N path
 (B=8 sims of N=512 bodies, streaming edge stage K3), each in f32 and in the
 mixed-bf16 model (``compute_dtype="bfloat16"``: hidden and message stack in
@@ -101,43 +101,53 @@ bf16, coordinates, geometry and integration in f32):
                    CPU's float64; the parameter count 9,990,041 (parameters and
                    calibration statistics)
  26. ponita-rollout  GT at the reference workload (B=64, N=5, 10000 substeps,
-                   T=1000) through one K2-leapfrog launch, 999 self-feed steps (no
-                   kernel), six-macro KS score; 20 steps on the card against the CPU's
-                   float64 on 4 sims; the first 200 steps repeated from the same GT
-                   bitwise equal, and their steps/s warm
+                   T=1000) through one K2-leapfrog launch, 100 self-feed steps (no
+                   kernel; the battery rolls 999), six-macro KS score; 20 steps on
+                   the card against the CPU's float64 on 4 sims; the 100 steps
+                   repeated from the same GT bitwise equal, and their steps/s warm
  27. train-ponita  the train command with the queue's argv (--main.model_type ponita
                    --model.num_layers 5 --model.hidden_features 480, B=64, N=5) from
                    a fresh initialisation that calibrates on its first batch: 2
-                   epochs of 20 steps, its 200-step evaluation and KS score, the
-                   checkpoint read back bitwise; step ms, busy share, peak memory
- 28. hpo-ponita    hpo.run_study("ponita", 2 trials, param_small) at the reference
+                   epochs of 20 steps, the checkpoint read back bitwise and in the
+                   JAX layout (params, AdamW's mu and nu, calib included), its
+                   100-step evaluation and KS score; step ms, busy share, peak
+                   memory; then resumed from a copy of that checkpoint on another
+                   dataloader seed: 10 steps, the AdamW count and the epoch going on
+                   from the saved ones, the calibration the saved one (not run
+                   again on the resumed run's first batch)
+ 28. battery-ponita  [train-ponita]'s checkpoint through the converter, its forward on
+                   [ponita]'s GT frame against the CPU's float64; `cli self-feed
+                   --draws 1 --seed 281` on its run dir (its bytes unchanged): 999
+                   steps, 1 K2-leapfrog launch; six- and five-macro p a draw
+ 29. hpo-ponita    hpo.run_study("ponita", 2 trials, param_small) at the reference
                    default: one epoch of 10 steps and a 20-step evaluation a trial
- 29. segnn         the committed SEGNN checkpoint (docs/results/segnn10m_r5:
+ 30. segnn         the committed SEGNN checkpoint (docs/results/segnn10m_r5:
                    6 layers, width 448, hidden irreps 224x0e+224x1o) through the
                    converter: a forward at B=64, N=5 on a fresh GT frame against
                    the same model in float64 on the CPU, its ms beside its bound
                    and its device busy share; O(3) equivariance on the card with
                    center_mode "nodes" (a rotation with a reflection); the
                    parameter count 10,557,344
- 30. segnn-rollout  GT at the reference workload through one K2-leapfrog
-                   launch, 999 self-feed steps (no kernel), six-macro KS score; 20
-                   steps on the card against the CPU's float64 on 4 sims; the
-                   first 200 steps repeated from the same GT bitwise equal, their
-                   steps/s warm
- 31. train-segnn   the train command with the queue's argv (--main.model_type segnn
+ 31. segnn-rollout  GT at the reference workload through one K2-leapfrog
+                   launch, 100 self-feed steps (no kernel; the battery rolls 999),
+                   six-macro KS score; 20 steps on the card against the CPU's
+                   float64 on 4 sims; the 100 steps repeated from the same GT
+                   bitwise equal, their steps/s warm
+ 32. train-segnn   the train command with the queue's argv (--main.model_type segnn
                    --model.num_layers 6 --model.hidden_features 448, B=64, N=5)
                    resumed from the committed checkpoint and its AdamW state: 2
-                   epochs of 20 steps, its 200-step evaluation and KS score, the
-                   checkpoint read back bitwise in the JAX layout, one step against
-                   the CPU's float64 step ([train]'s gates); step ms, busy share,
-                   peak memory; then a fresh initialisation, 10 steps, losses finite
- 32. battery-segnn  `cli self-feed --draws 1 --seed 281` on a run dir of the queue's
-                   argv around the committed checkpoint (its bytes unchanged): 1
-                   K2-leapfrog launch; six- and five-macro p (in (0, 1]) beside the
-                   committed 12-draw battery of the seed
- 33. hpo-segnn     hpo.run_study("segnn", 2 trials, param_small) at the reference
+                   epochs of 20 steps, the checkpoint read back bitwise and in the
+                   JAX layout, its 100-step evaluation and KS score, one step
+                   against the CPU's float64 step ([train]'s gates); step ms, busy
+                   share, peak memory; then a fresh initialisation, 10 steps,
+                   losses finite
+ 33. battery-segnn  `cli self-feed --draws 1 --seed 281` on a run dir of the queue's
+                   argv around the committed checkpoint (its bytes unchanged): 999
+                   steps, 1 K2-leapfrog launch; six- and five-macro p (in (0, 1])
+                   beside the committed 12-draw battery of the seed
+ 34. hpo-segnn     hpo.run_study("segnn", 2 trials, param_small) at the reference
                    default: one epoch of 10 steps and a 20-step evaluation a trial
- 34. eqv2          the committed EquiformerV2 checkpoint (docs/results/
+ 35. eqv2          the committed EquiformerV2 checkpoint (docs/results/
                    eqv2_10m_L8c128_cont: 8 blocks, 128 channels, 8 heads, lmax 2,
                    mmax 1) through the converter: an eval-mode forward at B=64,
                    N=5 on a fresh GT frame against the same model in float64 on
@@ -146,31 +156,32 @@ bf16, coordinates, geometry and integration in f32):
                    equivariance on the card; rotation equivariance of a fresh
                    full-width model with the equivariant velocity gate; the
                    parameter count 9,689,010
- 35. eqv2-rollout  GT at the reference workload through one K2-leapfrog launch,
-                   999 self-feed steps in training mode with live dropout (masks
-                   from a seeded generator on the card), six-macro KS score; 20
-                   eval-mode steps on the card against the CPU's float64 on 4
-                   sims; the first 200 steps repeated from the same GT and the
-                   same dropout seed bitwise equal, their steps/s warm
- 36. train-eqv2    the train command with the queue's argv (--main.model_type
+ 36. eqv2-rollout  GT at the reference workload through one K2-leapfrog launch,
+                   100 self-feed steps in training mode with live dropout (masks
+                   from a seeded generator on the card; the battery rolls 999),
+                   six-macro KS score; 20 eval-mode steps on the card against the
+                   CPU's float64 on 4 sims; the 100 steps repeated from the same GT
+                   and the same dropout seed bitwise equal, their steps/s warm
+ 37. train-eqv2    the train command with the queue's argv (--main.model_type
                    equiformer_v2 --model.num_layers 8 --model.sphere_channels 128
                    --model.attn_hidden_channels 128 --model.ffn_hidden_channels 128
                    --model.num_heads 8 --model.remat true, B=64, N=5) resumed from
                    the committed checkpoint, its AdamW state and Noam step: 2
-                   epochs of 20 steps with live dropout, its 200-step evaluation
-                   and KS score, the checkpoint read back bitwise in the JAX
-                   layout, one step against the CPU's float64 step with both
+                   epochs of 20 steps with live dropout, the checkpoint read back
+                   bitwise and in the JAX layout, its 100-step evaluation and KS
+                   score, one step against the CPU's float64 step with both
                    dropout rates at 0 ([train]'s gates); step ms, busy share, peak
                    memory with and without remat; then a fresh initialisation, 10
                    steps, losses finite
- 37. battery-eqv2  `cli self-feed --draws 1 --seed 281` on a run dir of the queue's
+ 38. battery-eqv2  `cli self-feed --draws 1 --seed 281` on a run dir of the queue's
                    argv around the committed checkpoint (its bytes unchanged, train
-                   mode on): 1 K2-leapfrog launch; six- and five-macro p (in
-                   (0, 1]) and survival beside the committed 12-draw battery
- 38. hpo-eqv2      hpo.run_study("equiformer_v2", 2 trials, param_small) at the
-                   reference default: one epoch of 10 steps and a 20-step
-                   evaluation a trial
- 39. bign          bign_bench rows: steps/s and peak memory, dense K1 against
+                   mode on): 999 steps, 1 K2-leapfrog launch; six- and five-macro p
+                   (in (0, 1]) and survival beside the committed 12-draw battery
+ 39. hpo-equiformer_v2  hpo.run_study("equiformer_v2", 2 trials, param_small) at
+                   the reference default: one epoch of 10 steps and a 20-step
+                   evaluation a trial, each trial's widths and count those the
+                   JAX package's width bisection gives its sampled trial
+ 40. bign          bign_bench rows: steps/s and peak memory, dense K1 against
                    streaming K3, at (N,B) = (256,16), (512,8), (1024,2), (4096,1)
 
 Each phase prints one line with its result and elapsed seconds.  Any failed
@@ -325,12 +336,20 @@ PONITA_FWD_RTOL, PONITA_CALIB_RTOL = 1e-4, 1e-5
 # spread a 1e-7 nudge of frame 0 gives the CPU alone where that is larger
 PONITA_CMP_B, PONITA_ROLL_RTOL, PONITA_NUDGE_FACTOR = 4, 1e-3, 100.0
 # the families' training phases: 2 epochs of 20 steps (cut from 1000 steps an
-# epoch), their evaluation cut to 200 steps (the smoke's depth; the queue
-# rolls 999), and a fresh run of 10 steps after a resumed one
-FAMILY_TRAIN_EPOCHS, FAMILY_TRAIN_STEPS, FAMILY_FRESH_STEPS = 2, 20, 10
-FAMILY_EVAL_FRAMES = 201
-# a repeated rollout is held bitwise over its first 200 steps
-REPEAT_FRAMES = 201
+# epoch), their evaluation cut to 100 steps (the smoke's depth; the queue
+# rolls 999), and a second run of 10 steps: fresh after a resumed run,
+# resumed from the checkpoint it wrote after a fresh one (its first batch
+# drawn from another dataloader seed, so that a calibration run again on it
+# would show)
+FAMILY_TRAIN_EPOCHS, FAMILY_TRAIN_STEPS, FAMILY_AFTER_STEPS = 2, 20, 10
+FAMILY_EVAL_FRAMES = 101
+RESUME_DATA_SEED = 1
+# the families' rollout phases roll 100 steps and repeat them bitwise; the
+# batteries roll the reference's 999
+REPEAT_FRAMES = 101
+# a PONITA battery of one draw on the fresh run's run dir
+PONITA_DRAWS = 1
+PONITA_FRAMES = PONITA_SUBSTEPS // SAMPLE_FREQ
 
 # SEGNN: the committed 10M checkpoint (L6 w448, lmax 1, hidden irreps
 # 224x0e+224x1o, epoch 110), trained by the queue step
@@ -383,6 +402,16 @@ EQV2_FRESH_SEED = 34
 # spread where that is larger
 EQV2_CMP_B, EQV2_ROLL_RTOL, EQV2_NUDGE_FACTOR = 4, 1e-3, 100.0
 EQV2_DRAWS = 1
+# the two param_small trials of the study (seed 0): the sampled trials'
+# widths and counts as the JAX package's adjust_width_to_target gives them
+# (tests/test_torch_eqv2_train.py holds these against it).  The bisection
+# steps by 16 and stops outside the 7% band of 1,800,000 for both; the study
+# goes on with them, as the JAX package's does
+EQV2_HPO_WANT = (
+    (dict(num_layers=8, num_heads=4, sphere_channels=48, attn_hidden_channels=48,
+          ffn_hidden_channels=48), 2_379_506),
+    (dict(num_layers=6, num_heads=8, sphere_channels=48, attn_hidden_channels=48,
+          ffn_hidden_channels=48), 2_040_738))
 # the forward's bounds: f32 operations at the card's peak, and the bytes an
 # eager forward moves through its S2 grids (each grid written and read twice:
 # the product into the grid, the SiLU, the product out of it)
@@ -927,20 +956,21 @@ def main() -> None:
             return self.gt
 
     def drive(model_, bb: int, nn_: int, substeps: int, seed: int, edge_kernel,
-              train_mode: bool = False, rng=None) -> dict:
+              train_mode: bool = False, rng=None, frames=None) -> dict:
         """One counted run of a path: fresh GT through K2, then the self-feed
-        rollout, which must launch ``edge_kernel`` once per layer and step (a
-        model without an edge stage: None, no kernel at all) and no other
-        kernel.  ``train_mode`` rolls out in training mode, a model with
-        dropout drawing its masks from the seed ``rng``."""
-        frames = substeps // SAMPLE_FREQ
+        rollout over its first ``frames`` (all of the GT's where None), which
+        must launch ``edge_kernel`` once per layer and step (a model without
+        an edge stage: None, no kernel at all) and no other kernel.
+        ``train_mode`` rolls out in training mode, a model with dropout
+        drawing its masks from the seed ``rng``."""
+        frames = frames or substeps // SAMPLE_FREQ
         ds = TimedDataset(otf.GravityDatasetOtf(
             batch_size=bb, sim_length=substeps, sample_freq=SAMPLE_FREQ, num_nodes=nn_,
             interaction_strength=G_CONST, softening=SOFTENING, seed=seed, device=dev,
         ))
         reset_counts()
         loc_gt, vel_gt, loc_pred, vel_pred, survived_min = self_feed.run_self_feed(
-            model_, ds, train_mode=train_mode, rng=rng)
+            model_, ds, num_steps=frames, train_mode=train_mode, rng=rng)
         sync()
         t_end = time.perf_counter()
         total = counts()
@@ -1685,18 +1715,18 @@ def main() -> None:
     def family_rollout(family: str, model_, cpu_model, bb: int, nn_: int, substeps: int,
                        seed: int, cmp_b: int, rtol: float, nudge_factor: float,
                        train_mode: bool = False, dropout_seed=None) -> dict:
-        """A family's rollout at the reference workload: GT through one
-        K2-leapfrog launch, the counted self-feed rollout (no kernel; in
-        training mode with ``train_mode``, dropout masks from
-        ``dropout_seed``), the six-macro score; COMPARE_STEPS eval-mode steps
-        on the card against the CPU's float64 on the first ``cmp_b`` sims,
-        within ``rtol`` of the largest position, or ``nudge_factor`` times the
-        spread a 1e-7 nudge of frame 0 gives the CPU alone where that is
-        larger; the first REPEAT_FRAMES - 1 steps repeated from the same GT
-        (and dropout seed) bitwise equal, and timed warm.  Returns the
-        phase's fields."""
-        tag, frames = f"{family}-rollout", substeps // SAMPLE_FREQ
-        run_f = drive(model_, bb, nn_, substeps, seed, None, train_mode, dropout_seed)
+        """A family's rollout from GT at the reference workload (one
+        K2-leapfrog launch): the counted self-feed rollout over its first
+        REPEAT_FRAMES (no kernel; in training mode with ``train_mode``,
+        dropout masks from ``dropout_seed``; the family's battery rolls all
+        999 steps), the six-macro score; COMPARE_STEPS eval-mode steps on the
+        card against the CPU's float64 on the first ``cmp_b`` sims, within
+        ``rtol`` of the largest position, or ``nudge_factor`` times the spread
+        a 1e-7 nudge of frame 0 gives the CPU alone where that is larger; the
+        rollout repeated from the same GT (and dropout seed) bitwise equal,
+        and timed warm.  Returns the phase's fields."""
+        tag, frames = f"{family}-rollout", REPEAT_FRAMES
+        run_f = drive(model_, bb, nn_, substeps, seed, None, train_mode, dropout_seed, frames)
         eval_counts[f"{family}_rollout"] = run_f["counts"]
         model_.eval()
         score(f"{family}-score", run_f["loc_gt"], run_f["vel_gt"], run_f["loc_pred"],
@@ -1727,9 +1757,8 @@ def main() -> None:
         sync()
         warm_s = time.perf_counter() - t
         counted({}, f"{tag} (repeated)")
-        if not (torch.equal(loc2, run_f["loc_pred"][:, :REPEAT_FRAMES])
-                and torch.equal(vel2, run_f["vel_pred"][:, :REPEAT_FRAMES])):
-            fail(f"{tag}: the first {REPEAT_FRAMES - 1} steps repeated from the same GT differ")
+        if not (torch.equal(loc2, run_f["loc_pred"]) and torch.equal(vel2, run_f["vel_pred"])):
+            fail(f"{tag}: the {REPEAT_FRAMES - 1} steps repeated from the same GT differ")
         model_.eval()
         return dict(B=bb, N=nn_, steps=frames - 1, train_mode=train_mode,
                     dropout_seed=dropout_seed, leapfrog_launches=run_f["counts"]["leapfrog"],
@@ -1743,27 +1772,30 @@ def main() -> None:
                        "cmp_sims": cmp_b,
                        "survived_min_card/cpu64": f"{int(surv_k.min())}/{int(surv_c.min())}"})
 
-    def family_battery(family: str, ckpt: str, argv, draws: int, frames: int):
-        """`cli self-feed --draws D --seed BATTERY_SEED` on a run dir of the
-        family's queue argv around its committed checkpoint (its bytes
-        unchanged): D K2-leapfrog launches and no other kernel; each draw's
-        survived and combined p on the six- and five-macro bases, six-macro p
-        in (0, 1].  Returns ``(seconds, the phase's fields)``."""
+    def family_battery(family: str, ckpt: str, draws: int, frames: int, argv=None):
+        """`cli self-feed --draws D --seed BATTERY_SEED --steps frames` on a
+        run dir of the family's queue ``argv`` around the checkpoint ``ckpt``
+        (the run dir that holds ``ckpt`` where ``argv`` is None), whose
+        model.ckpt is ``ckpt``'s bytes after it: D K2-leapfrog launches and no
+        other kernel; each draw's survived and combined p on the six- and
+        five-macro bases, six-macro p in (0, 1].  Returns ``(seconds, the
+        phase's fields)``."""
         tag = f"battery-{family}"
         t0 = time.perf_counter()
+        with open(ckpt, "rb") as f:
+            ckpt_bytes = f.read()
         with tempfile.TemporaryDirectory() as tmp:
-            run_dir_f = restore.make_run_dir(os.path.join(tmp, f"{family}10m"), argv, ckpt)
-            with open(ckpt, "rb") as f:
-                ckpt_bytes = f.read()
+            run_dir_f = (os.path.dirname(ckpt) if argv is None
+                         else restore.make_run_dir(os.path.join(tmp, f"{family}10m"), argv, ckpt))
             reset_counts()
             cli.main(["self-feed", "--run_dir", run_dir_f, "--draws", str(draws),
-                      "--seed", str(BATTERY_SEED)])
+                      "--seed", str(BATTERY_SEED), "--steps", str(frames)])
             sync()
             seconds = time.perf_counter() - t0
             eval_counts[f"battery_{family}"] = counted({"leapfrog": draws}, tag)
             with open(os.path.join(run_dir_f, "model.ckpt"), "rb") as f:
                 if f.read() != ckpt_bytes:
-                    fail(f"{tag}: the run dir's model.ckpt is not the committed bytes")
+                    fail(f"{tag}: the run dir's model.ckpt is not {ckpt}'s bytes")
             del ckpt_bytes
             with open(os.path.join(run_dir_f, "generated_trajectories",
                                    "self_feed_draws.json")) as f:
@@ -1794,31 +1826,42 @@ def main() -> None:
         return {(prefix, np.shape(tree))}
 
     def family_train(family: str, ckpt, argv, payload, epoch: int, count: int,
-                     n_params: int, extra=None):
+                     n_params: int, extra=None, workdir=None):
         """The train command with a family's queue argv at the reference
         workload, resumed from its committed checkpoint ``ckpt`` (read as
         ``payload``; epoch ``epoch``, AdamW count ``count``), or from a fresh
         initialisation where ``ckpt`` is None: FAMILY_TRAIN_EPOCHS epochs of
-        FAMILY_TRAIN_STEPS steps, its self-feed evaluation
-        (FAMILY_EVAL_FRAMES - 1 steps, one K2-leapfrog launch) and KS score,
-        the checkpoint read back bitwise (in the committed checkpoint's JAX
-        layout where there is one); step ms, the step's split, busy share and
-        peak memory.  ``extra(run, scene, y)`` runs on the trainer before it
-        is dropped.  After a resumed run, a fresh initialisation,
-        FAMILY_FRESH_STEPS steps, every loss finite.  Returns the phase's
-        fields, ``extra``'s result and the last run's model."""
+        FAMILY_TRAIN_STEPS steps; the checkpoint it wrote read back bitwise
+        (``train_run``) and in the JAX layout (params, AdamW's mu and nu with
+        the keys and shapes of ``params_to_jax`` of the model, PONITA's calib
+        included, and of the committed checkpoint where there is one; its
+        count the run's); its self-feed evaluation (FAMILY_EVAL_FRAMES - 1
+        steps, one K2-leapfrog launch) and KS score; step ms, the step's
+        split, busy share and peak memory.  ``extra(run, scene, y)`` runs on
+        the trainer before it is dropped.  Then a second run of
+        FAMILY_AFTER_STEPS steps, every loss finite: after a resumed run a
+        fresh initialisation; after a fresh run a resume from a copy of the
+        checkpoint it wrote, with another dataloader seed, whose AdamW count
+        and epoch go on from the saved ones and whose statistics that are no
+        parameter (PONITA's calibration) stay the saved ones.  The runs are
+        made in ``workdir`` (a temporary directory where None).  Returns the
+        phase's fields, ``extra``'s result, the second run's model and the
+        first run's directory."""
         tag = f"train-{family}"
         frames = FAMILY_EVAL_FRAMES
         common = ["--trainer.save_model_every", "1", "--trainer.test_macros_every", "1000",
-                  "--trainer.self_feed_limit_steps", str(frames), "--dataloader.seed", "0"]
-        with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+                  "--trainer.self_feed_limit_steps", str(frames)]
+        with contextlib.ExitStack() as stack:
+            if workdir is None:
+                workdir = stack.enter_context(tempfile.TemporaryDirectory())
+            stack.enter_context(contextlib.chdir(workdir))
             if ckpt is None:
                 start = ["--trainer.train_steps", str(FAMILY_TRAIN_EPOCHS), "--trainer.seed", "0"]
             else:
-                start = ["--trainer.model_path", shutil.copy(ckpt, tmp),
+                start = ["--trainer.model_path", shutil.copy(ckpt, workdir),
                          "--trainer.train_steps", str(epoch + FAMILY_TRAIN_EPOCHS)]
             run = train_run(start + argv + common + [
-                "--trainer.steps_per_epoch", str(FAMILY_TRAIN_STEPS),
+                "--dataloader.seed", "0", "--trainer.steps_per_epoch", str(FAMILY_TRAIN_STEPS),
                 "--trainer.run_name", f"{family}10m"], tag, FAMILY_TRAIN_EPOCHS,
                 FAMILY_TRAIN_STEPS)
             trainer = run["trainer"]
@@ -1827,23 +1870,26 @@ def main() -> None:
             if trainer.n_params != n_params:
                 fail(f"{tag}: n_params {trainer.n_params}, want {n_params}")
             train_counts[f"train_{family}"] = run["counts"]
-            if payload is not None:
-                written = weights.read_checkpoint(os.path.join(trainer.save_dir_path,
-                                                               "model.ckpt"))
-                layout = key_shapes(payload["params"])
-                if not (key_shapes(written["params"]) == layout
-                        and key_shapes(written["opt_state"]["mu"]) == layout
-                        and key_shapes(written["opt_state"]["nu"]) == layout):
-                    fail(f"{tag}: the written checkpoint's params / mu / nu leave the JAX "
-                         "layout of the committed checkpoint")
-                del written
+            run_dir_f = os.path.abspath(trainer.save_dir_path)
+            saved = os.path.join(run_dir_f, "model.ckpt")
+            written = weights.read_checkpoint(saved)
+            layout = key_shapes(weights.params_to_jax(trainer.model.state_dict()))
+            if not (key_shapes(written["params"]) == layout
+                    and key_shapes(written["opt_state"]["mu"]) == layout
+                    and key_shapes(written["opt_state"]["nu"]) == layout
+                    and (payload is None or key_shapes(payload["params"]) == layout)
+                    and int(written["opt_state"]["count"]) == run["count"]):
+                fail(f"{tag}: the written checkpoint's params / mu / nu / count leave the JAX "
+                     "layout of the model" + ("" if payload is None else
+                                              " and of the committed checkpoint"))
+            del written
             reset_counts()
             t = time.perf_counter()
             survived = trainer.run_self_feed_eval()
             sync()
             eval_s_f = time.perf_counter() - t
             train_counts[f"train_{family}_eval"] = counted({"leapfrog": 1}, f"{tag} evaluation")
-            eval_dir = os.path.join(trainer.save_dir_path, "checkpoints", str(trainer.step_count))
+            eval_dir = os.path.join(run_dir_f, "checkpoints", str(trainer.step_count))
             read = artifacts.read_macro_jsons(eval_dir)
             _, macro_p_f = ks.macro_ks_pvalues({k: v["ground truth"] for k, v in read.items()},
                                                {k: v["predicted"] for k, v in read.items()})
@@ -1863,19 +1909,40 @@ def main() -> None:
             split_f = step_split(trainer, scene, y)
             busy_f, top_f, _ = top_kernels(lambda: trainer._train_step(scene, y))
             more = extra(run, scene, y) if extra else None
-            last_model = trainer.model
             del trainer, run["trainer"]
-        fresh = None
-        if ckpt is not None:
-            with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
-                fresh = train_run(argv + [
-                    "--trainer.steps_per_epoch", str(FAMILY_FRESH_STEPS),
-                    "--trainer.train_steps", "1", "--trainer.save_model_every", "1",
-                    "--trainer.test_macros_every", "1000", "--trainer.seed", "0",
-                    "--dataloader.seed", "0", "--trainer.run_name", "fresh"],
-                    f"{tag}-fresh", 1, FAMILY_FRESH_STEPS)
-                train_counts[f"train_{family}_fresh"] = fresh["counts"]
-                last_model = fresh.pop("trainer").model
+
+            # the second run in a directory of its own: a GT cache of the first
+            # run's would serve its first batch
+            kind = "resumed" if ckpt is None else "fresh"
+            os.makedirs(kind)
+            stack.enter_context(contextlib.chdir(kind))
+            if ckpt is None:
+                after_argv = ["--trainer.model_path", os.path.abspath(shutil.copy(saved, ".")),
+                              "--trainer.train_steps", str(FAMILY_TRAIN_EPOCHS + 1),
+                              "--dataloader.seed", str(RESUME_DATA_SEED)]
+            else:
+                after_argv = ["--trainer.train_steps", "1", "--trainer.seed", "0",
+                              "--dataloader.seed", "0"]
+            after = train_run(after_argv + argv + common + [
+                "--trainer.steps_per_epoch", str(FAMILY_AFTER_STEPS),
+                "--trainer.run_name", kind], f"{tag}-{kind}", 1, FAMILY_AFTER_STEPS)
+            train_counts[f"train_{family}_{kind}"] = after["counts"]
+            after_trainer = after.pop("trainer")
+            after_model, after_epoch = after_trainer.model, after_trainer.step_count
+            del after_trainer
+            kept = 0
+            if ckpt is None:
+                if (after["count0"] != run["count"] or after_epoch != FAMILY_TRAIN_EPOCHS + 1):
+                    fail(f"{tag}-resumed: AdamW count {after['count0']}, epoch {after_epoch} "
+                         f"after resuming at the saved count {run['count']}, epoch "
+                         f"{FAMILY_TRAIN_EPOCHS}")
+                back = weights.params_from_jax(weights.read_jax_checkpoint(saved))
+                names = {k for k, _ in after_model.named_parameters()}
+                stats = {k: v for k, v in after_model.state_dict().items() if k not in names}
+                if not all(torch.equal(v.cpu(), back[k]) for k, v in stats.items()):
+                    fail(f"{tag}-resumed: statistics that are no parameter differ from the saved "
+                         "checkpoint's: recomputed on the resumed run's first batch")
+                kept = len(stats)
         print(f"  {tag}: losses {' '.join(f'{x:.5f}' for x in run['epoch_losses'])}; AdamW count "
               f"{run['count0']} -> {run['count']}, lr {run['lr']:.6e} (Noam {run['noam']:.6e}); "
               f"step split {' '.join(f'{k}={v:.3f}' for k, v in split_f.items())}; device busy "
@@ -1889,21 +1956,25 @@ def main() -> None:
             busy_ms=("not measured" if busy_f is None else f"{busy_f:.3f}"),
             eval_s=f"{eval_s_f:.3f}", eval_rollout_steps=frames - 1, survived=survived,
             macro_combined_p=f"{macro_p_f:.3e}", energy_combined_p=f"{energy_p_f:.3e}",
-            energy_p="[" + " ".join(f"{k}={v:.3e}" for k, v in energy_ps.items()) + "]")
-        if fresh is not None:
-            fields.update(fresh_steps=FAMILY_FRESH_STEPS,
-                          fresh_loss_first=f"{fresh['losses'][0].item():.5f}",
-                          fresh_loss_last=f"{fresh['losses'][-1].item():.5f}")
-        return fields, more, last_model
+            energy_p="[" + " ".join(f"{k}={v:.3e}" for k, v in energy_ps.items()) + "]",
+            checkpoint="bitwise, JAX layout" + (" with calib" if family == "ponita" else ""))
+        if ckpt is None:
+            fields.update(resumed_steps=FAMILY_AFTER_STEPS,
+                          resumed_count=f"{after['count0']}->{after['count']}",
+                          resumed_epoch=FAMILY_TRAIN_EPOCHS + 1, resumed_kept_stats=kept)
+        else:
+            fields.update(fresh_steps=FAMILY_AFTER_STEPS)
+        fields.update(after_loss_first=f"{after['losses'][0].item():.5f}",
+                      after_loss_last=f"{after['losses'][-1].item():.5f}")
+        return fields, more, after_model, run_dir_f
 
-    def family_hpo(family: str, tag=None, in_band: bool = True) -> None:
+    def family_hpo(family: str, want=None) -> None:
         """Two param_small trials of ``family`` at the reference default, each
         one epoch of 10 steps and a 20-step evaluation: every trial done, its
-        value finite and its count within the budget (or, where the width
-        bisection's steps of 16 cannot reach the band, ``in_band`` False: the
-        widths and count the bisection gives, as the JAX package's does);
-        K2-leapfrog launches only."""
-        tag = tag or f"hpo-{family}"
+        value finite and its count within the budget, or, where ``want``
+        gives them, its widths and count those of ``want``; K2-leapfrog
+        launches only."""
+        tag = f"hpo-{family}"
         t0 = time.perf_counter()
         target = hpo.PARAM_TARGETS["param_small"]
         with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
@@ -1915,13 +1986,11 @@ def main() -> None:
             got = counts()
             with open(os.path.join("hpo", f"{family}_param_small_trials.jsonl")) as f:
                 trials = [json.loads(line) for line in f]
-        for t in trials:
-            if in_band:
+        for i, t in enumerate(trials):
+            if want is None:
                 budget = abs(t["n_params"] - target) <= hpo.PARAM_TOLERANCE * target
             else:
-                sampled = hpo.trial_to_overrides(family, t["params"])[0]
-                budget = (t["model_kwargs"], t["n_params"]) == hpo.adjust_width_to_target(
-                    family, sampled, target)
+                budget = i < len(want) and (t["model_kwargs"], t["n_params"]) == want[i]
             if not (t["status"] == "done" and np.isfinite(t["value"]) and budget):
                 fail(f"{tag}: trial {t}")
         others = {k: v for k, v in got.items() if k != "leapfrog"}
@@ -2005,10 +2074,10 @@ def main() -> None:
            leapfrog_launches=eval_counts["ponita"]["leapfrog"])
 
     # ----------------------------------------------------- 26. ponita-rollout
-    # GT at the reference workload through one K2-leapfrog launch, 999 counted
-    # self-feed steps (no kernel), the six-macro score; 20 steps on the card
-    # against the CPU's float64; the first 200 steps repeated bitwise, and
-    # timed warm
+    # GT at the reference workload through one K2-leapfrog launch, 100 counted
+    # self-feed steps (no kernel; [battery-ponita] rolls 999), the six-macro
+    # score; 20 steps on the card against the CPU's float64; the 100 steps
+    # repeated bitwise, and timed warm
     t0 = time.perf_counter()
     info = family_rollout("ponita", pmodel, pcpu, PONITA_B, PONITA_N, PONITA_SUBSTEPS, 21,
                           PONITA_CMP_B, PONITA_ROLL_RTOL, PONITA_NUDGE_FACTOR)
@@ -2017,20 +2086,53 @@ def main() -> None:
 
     # ------------------------------------------------------- 27. train-ponita
     # the queue's argv from a fresh initialisation, which calibrates on its
-    # first batch: 2 epochs of 20 steps and a 200-step evaluation
+    # first batch: 2 epochs of 20 steps and a 100-step evaluation; then a
+    # resume from the checkpoint it wrote (JAX layout, calib and AdamW
+    # included): 10 steps, the count and epoch going on, the calibration kept.
+    # Its run dir stays for [battery-ponita]
     t0 = time.perf_counter()
-    info, _, fresh_model = family_train("ponita", None, PONITA_ARGV, None, 0, 0, PONITA_PARAMS)
-    convs = [blk.conv for blk in fresh_model.blocks]
+    ponita_tmp = tempfile.TemporaryDirectory()
+    info, _, resumed_model, run_dir_p = family_train("ponita", None, PONITA_ARGV, None, 0, 0,
+                                                     PONITA_PARAMS, workdir=ponita_tmp.name)
+    convs = [blk.conv for blk in resumed_model.blocks]
     if any(float(getattr(c, s_)) == 1.0 for c in convs for s_ in ponita.CALIB_STATS):
         fail("train-ponita: the fresh run's model was not calibrated on its first batch")
-    del fresh_model, convs
-    report("train-ponita", t0, B=PONITA_B, N=PONITA_N, **info,
-           checkpoint="bitwise, JAX layout with calib", fresh_calibrated=True)
+    del resumed_model, convs
+    report("train-ponita", t0, B=PONITA_B, N=PONITA_N, **info, fresh_calibrated=True)
 
-    # --------------------------------------------------------- 28. hpo-ponita
+    # ----------------------------------------------------- 28. battery-ponita
+    # [train-ponita]'s run dir: the checkpoint it wrote through the converter,
+    # its forward on [ponita]'s GT frame on the card against the same
+    # parameters and calibration in float64 on the CPU; then `cli self-feed
+    # --draws 1 --seed 281` on the run dir, 999 steps; a class, not a gate
+    t0 = time.perf_counter()
+    payload_p = weights.read_checkpoint(os.path.join(run_dir_p, "model.ckpt"))
+    sd_p = weights.params_from_jax(payload_p["params"], "ponita")
+    pmodel = models.create_model("ponita", device=dev, **PONITA_KW)
+    pmodel.load_state_dict(sd_p)
+    pmodel.eval()
+    pcpu = models.create_model("ponita", device="cpu", dtype=torch.float64, **PONITA_KW)
+    pcpu.load_state_dict(sd_p)
+    pcpu.eval()
+    with torch.no_grad():
+        out_card = pmodel(scene_p, fc(scene_p))
+        out_cpu = pcpu(scene_c, fc(scene_c))
+    ckpt_err = (out_card.double().cpu() - out_cpu).abs().max().item()
+    ckpt_scale = out_cpu.abs().max().item()
+    if not (torch.isfinite(out_card).all() and ckpt_err <= PONITA_FWD_RTOL * ckpt_scale):
+        fail(f"battery-ponita: the written checkpoint's forward on the card differs from the "
+             f"CPU's float64 one by {ckpt_err} (max |out| {ckpt_scale}, rtol {PONITA_FWD_RTOL})")
+    del payload_p, sd_p, pmodel, pcpu, out_card, out_cpu
+    _, info = family_battery("ponita", os.path.join(run_dir_p, "model.ckpt"), PONITA_DRAWS,
+                             PONITA_FRAMES)
+    ponita_tmp.cleanup()
+    report("battery-ponita", t0, B=PONITA_B, N=PONITA_N, ckpt_fwd_max_abs_err=f"{ckpt_err:.3e}",
+           ckpt_max_abs_out=f"{ckpt_scale:.3e}", ckpt_rtol=PONITA_FWD_RTOL, **info)
+
+    # --------------------------------------------------------- 29. hpo-ponita
     family_hpo("ponita")
 
-    # -------------------------------------------------------------- 29. segnn
+    # -------------------------------------------------------------- 30. segnn
     # the committed SEGNN checkpoint through the converter, on the card: a
     # forward on a fresh GT frame against the same model in float64 on the
     # CPU, the parameter count, and O(3) equivariance with center_mode
@@ -2113,19 +2215,20 @@ def main() -> None:
            o3_max_abs_err=f"{equiv_err:.3e}", o3_rtol=SEGNN_EQUIV_RTOL,
            leapfrog_launches=eval_counts["segnn"]["leapfrog"])
 
-    # ------------------------------------------------------ 30. segnn-rollout
+    # ------------------------------------------------------ 31. segnn-rollout
+    # 100 steps ([battery-segnn] rolls 999), as [ponita-rollout]
     t0 = time.perf_counter()
     info = family_rollout("segnn", smodel, scpu, SEGNN_B, SEGNN_N, SEGNN_SUBSTEPS, 32,
                           SEGNN_CMP_B, SEGNN_ROLL_RTOL, SEGNN_NUDGE_FACTOR)
     del scpu
     report("segnn-rollout", t0, **info)
 
-    # -------------------------------------------------------- 31. train-segnn
+    # -------------------------------------------------------- 32. train-segnn
     # the queue's argv resumed from the committed checkpoint, with one step
     # against the same step on the CPU in float64 ([train]'s gates), then a
     # fresh run
     t0 = time.perf_counter()
-    info, (p_err_s, up_err_s, card_loss_s, cpu_loss_s), fresh_model = family_train(
+    info, (p_err_s, up_err_s, card_loss_s, cpu_loss_s), fresh_model, _ = family_train(
         "segnn", SEGNN_CKPT, SEGNN_ARGV, payload_s, SEGNN_EPOCH, SEGNN_COUNT, SEGNN_PARAMS,
         extra=lambda run_, scene_, y_: step_vs_cpu("train-segnn", run_, payload_s, SEGNN_KW,
                                                    scene_, y_))
@@ -2134,16 +2237,16 @@ def main() -> None:
           f"{card_loss_s:.8f} / {cpu_loss_s:.8f}, params max rel err {p_err_s:.3e} (limit "
           f"{TRAIN_PARAM_RTOL}), update max rel err {up_err_s:.3e} (limit {TRAIN_UPDATE_RTOL})",
           flush=True)
-    report("train-segnn", t0, B=SEGNN_B, N=SEGNN_N, **info, checkpoint="bitwise, JAX layout",
+    report("train-segnn", t0, B=SEGNN_B, N=SEGNN_N, **info,
            cmp_param_err=f"{p_err_s:.3e}", cmp_update_err=f"{up_err_s:.3e}")
 
-    # ------------------------------------------------------ 32. battery-segnn
+    # ------------------------------------------------------ 33. battery-segnn
     # `cli self-feed --draws 1 --seed 281` on a run dir of the queue's argv
     # around the committed checkpoint, beside the committed 12-draw battery of
     # the same seed; a class, not a gate
     t0 = time.perf_counter()
-    battery_s_s, info = family_battery("segnn", SEGNN_CKPT, SEGNN_ARGV, SEGNN_DRAWS,
-                                       SEGNN_FRAMES)
+    battery_s_s, info = family_battery("segnn", SEGNN_CKPT, SEGNN_DRAWS, SEGNN_FRAMES,
+                                       SEGNN_ARGV)
     ref_six = battery.committed(BATTERY_SEED, battery.SEGNN_COMMITTED)["six"]
     ref_s = battery.spread(ref_six)
     report("battery-segnn", t0, battery_s_s, B=SEGNN_B, N=SEGNN_N, **info,
@@ -2151,10 +2254,10 @@ def main() -> None:
            committed_six_median=f"{ref_s['median']:.4g}")
     del payload_s, smodel
 
-    # --------------------------------------------------------- 33. hpo-segnn
+    # --------------------------------------------------------- 34. hpo-segnn
     family_hpo("segnn")
 
-    # --------------------------------------------------------------- 34. eqv2
+    # --------------------------------------------------------------- 35. eqv2
     # the committed EquiformerV2 checkpoint through the converter, on the
     # card: an eval-mode forward on a fresh GT frame against the same model in
     # float64 on the CPU, its ms, busy share and kernels beside its bound and
@@ -2245,12 +2348,12 @@ def main() -> None:
            rot_max_abs_out=f"{rot_scale:.3e}", rot_rtol=EQV2_ROT_RTOL,
            leapfrog_launches=eval_counts["eqv2"]["leapfrog"])
 
-    # ------------------------------------------------------- 35. eqv2-rollout
-    # GT at the reference workload through one K2-leapfrog launch, 999 counted
+    # ------------------------------------------------------- 36. eqv2-rollout
+    # GT at the reference workload through one K2-leapfrog launch, 100 counted
     # self-feed steps in training mode with live dropout (masks seeded with
-    # EQV2_DROPOUT_SEED), the six-macro score; 20 eval-mode steps on the card
-    # against the CPU's float64; the first 200 steps repeated from the same GT
-    # and dropout seed bitwise, and timed warm
+    # EQV2_DROPOUT_SEED; [battery-eqv2] rolls 999), the six-macro score; 20
+    # eval-mode steps on the card against the CPU's float64; the 100 steps
+    # repeated from the same GT and dropout seed bitwise, and timed warm
     t0 = time.perf_counter()
     info = family_rollout("eqv2", emodel, ecpu, EQV2_B, EQV2_N, EQV2_SUBSTEPS, 42, EQV2_CMP_B,
                           EQV2_ROLL_RTOL, EQV2_NUDGE_FACTOR, train_mode=True,
@@ -2258,7 +2361,7 @@ def main() -> None:
     del ecpu
     report("eqv2-rollout", t0, **info)
 
-    # --------------------------------------------------------- 36. train-eqv2
+    # --------------------------------------------------------- 37. train-eqv2
     # the queue's argv resumed from the committed checkpoint with its AdamW
     # state and Noam step (dropout live, from the run's seeded generator); one
     # step against the same step on the CPU in float64 with both dropout rates
@@ -2278,7 +2381,7 @@ def main() -> None:
         return cmp_, plain_
 
     t0 = time.perf_counter()
-    info, ((p_err_e, up_err_e, card_loss_e, cpu_loss_e), no_remat), fresh_model = family_train(
+    info, ((p_err_e, up_err_e, card_loss_e, cpu_loss_e), no_remat), fresh_model, _ = family_train(
         "eqv2", battery.EQV2_CKPT, eqv2_argv, payload_e, EQV2_EPOCH, EQV2_COUNT, EQV2_PARAMS,
         extra=eqv2_extra)
     del fresh_model
@@ -2287,18 +2390,18 @@ def main() -> None:
           f"{TRAIN_PARAM_RTOL}), update max rel err {up_err_e:.3e} (limit {TRAIN_UPDATE_RTOL}); "
           f"without remat {no_remat['ms']:.3f} ms a step, peak "
           f"{no_remat['peak_above_start_mib']:.1f} MiB above the start", flush=True)
-    report("train-eqv2", t0, B=EQV2_B, N=EQV2_N, **info, checkpoint="bitwise, JAX layout",
+    report("train-eqv2", t0, B=EQV2_B, N=EQV2_N, **info,
            cmp_param_err=f"{p_err_e:.3e}", cmp_update_err=f"{up_err_e:.3e}",
            no_remat_ms_per_step=f"{no_remat['ms']:.3f}",
            no_remat_peak_above_start_mib=f"{no_remat['peak_above_start_mib']:.1f}")
 
-    # ------------------------------------------------------- 37. battery-eqv2
+    # ------------------------------------------------------- 38. battery-eqv2
     # `cli self-feed --draws 1 --seed 281` on a run dir of the queue's argv
     # around the committed checkpoint (train mode, live dropout), beside the
     # committed 12-draw battery of the same seed; a class, not a gate
     t0 = time.perf_counter()
-    battery_e_s, info = family_battery("eqv2", battery.EQV2_CKPT, eqv2_argv, EQV2_DRAWS,
-                                       EQV2_FRAMES)
+    battery_e_s, info = family_battery("eqv2", battery.EQV2_CKPT, EQV2_DRAWS, EQV2_FRAMES,
+                                       eqv2_argv)
     ref_six_e = battery.committed(BATTERY_SEED, battery.EQV2_COMMITTED)["six"]
     ref_e = battery.spread(ref_six_e)
     report("battery-eqv2", t0, battery_e_s, B=EQV2_B, N=EQV2_N, **info,
@@ -2307,13 +2410,11 @@ def main() -> None:
            committed_six_worst=f"{ref_e['worst']:.4g}")
     del payload_e, emodel
 
-    # ---------------------------------------------------------- 38. hpo-eqv2
-    # the width bisection steps by 16 and can stop outside the 7% band (the
-    # first trial, L8 with 4 heads, ends at width 48 and 2,379,506
-    # parameters); the study goes on with it, as the JAX package's does
-    family_hpo("equiformer_v2", tag="hpo-eqv2", in_band=False)
+    # ------------------------------------------------- 39. hpo-equiformer_v2
+    # each trial's widths and count the JAX package's bisection's (EQV2_HPO_WANT)
+    family_hpo("equiformer_v2", EQV2_HPO_WANT)
 
-    # --------------------------------------------------------------- 39. bign
+    # --------------------------------------------------------------- 40. bign
     t0 = time.perf_counter()
     state = bign_bench.seeded_state(2)
     rows = []
@@ -2425,8 +2526,9 @@ def main() -> None:
         })
     # each kernel's launches on the training paths: [train]'s training (its
     # first GT batch included), [train]'s evaluation, [train-n5], and
-    # [train-ponita]'s fresh training and its evaluation, [train-segnn]'s and
-    # [train-eqv2]'s resumed training, its evaluation and its fresh run
+    # [train-ponita]'s fresh training, its evaluation and its resumed run,
+    # [train-segnn]'s and [train-eqv2]'s resumed training, its evaluation and
+    # its fresh run
     counter_of = {"egnn_messages (K1)": "k1", "gravity (K2)": "k2",
                   "gravity leapfrog (K2-leapfrog)": "leapfrog", "egnn_stream (K3)": "k3",
                   "egnn_messages bf16 (K1-bf16)": "k1_bf16",
@@ -2436,9 +2538,9 @@ def main() -> None:
         entry["launches_train"] = {path: c[counter_of[entry["name"]]]
                                    for path, c in train_counts.items()}
         # ... and on the evaluation layer's paths, PONITA's ([ponita],
-        # [ponita-rollout], [hpo-ponita]), SEGNN's ([segnn], [segnn-rollout],
-        # [battery-segnn], [hpo-segnn]) and EquiformerV2's ([eqv2],
-        # [eqv2-rollout], [battery-eqv2], [hpo-eqv2])
+        # [ponita-rollout], [battery-ponita], [hpo-ponita]), SEGNN's ([segnn],
+        # [segnn-rollout], [battery-segnn], [hpo-segnn]) and EquiformerV2's
+        # ([eqv2], [eqv2-rollout], [battery-eqv2], [hpo-equiformer_v2])
         entry["launches_eval"] = {path: c[counter_of[entry["name"]]]
                                   for path, c in eval_counts.items()}
     print(f"total {time.perf_counter() - T_START:.2f} s on {card}", flush=True)

@@ -419,20 +419,25 @@ def _flat(tree, prefix=()):
             yield prefix + (k,), v
 
 
+def _eqv2_port_leaf(mods: list, name: str) -> Tuple[list, str, bool]:
+    """The inverse of :func:`_eqv2_leaf`: ``(modules, leaf, transposed)`` of
+    the port key whose flax path is ``mods`` and ``name``, the first of the
+    few keys that can map there (a ``TorchLinear``'s owner of ``Dense_0``,
+    then the path's own modules; ``weight``, ``bias``, then the name)."""
+    owners = [mods[:-1]] if mods[-1:] == ["Dense_0"] else []
+    for own in owners + [mods]:
+        for leaf in ("weight", "bias", name):
+            flax_mods, flax_leaf, transposed = _eqv2_leaf(own, leaf)
+            if flax_mods == mods and flax_leaf == name:
+                return own, leaf, transposed
+    raise KeyError(f"no EquiformerV2 key maps to {'/'.join(mods + [name])}")
+
+
 def _eqv2_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
     p = params.get("params", params)
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     for path, leaf in _flat(p):
-        mods, name = list(path[:-1]), path[-1]
-        if len(mods) >= 2 and mods[-1] == "Dense_0" and mods[-2].startswith(LINEAR):
-            mods, key_leaf, transposed = mods[:-1], {"kernel": "weight"}.get(name, name), \
-                name == "kernel"
-        elif mods and mods[-1].startswith("Dense_"):
-            key_leaf, transposed = "weight", True
-        elif mods and mods[-1].startswith("LayerNorm_"):
-            key_leaf, transposed = {"scale": "weight"}.get(name, name), False
-        else:
-            key_leaf, transposed = ("weight" if name == "embedding" else name), False
+        mods, key_leaf, transposed = _eqv2_port_leaf(list(path[:-1]), path[-1])
         arr = np.asarray(leaf)
         if mods and mods[0] == _EQV2_SCAN:
             for i in range(arr.shape[0]):

@@ -27,6 +27,7 @@
 """
 
 import importlib
+import importlib.util
 import os
 import shutil
 
@@ -62,6 +63,9 @@ cli = importlib.import_module(PORT + ".cli")
 Scene = importlib.import_module(PORT + ".core.scene").Scene
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+SMOKE = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(SMOKE)
 CKPT = os.path.join(REPO, "docs", "results", "eqv2_10m_L8c128_cont", "ckpt_130_model.ckpt")
 N, FRAMES = 5, 20
 QUEUE = ["--main.model_type", "equiformer_v2", "--model.num_layers", "8",
@@ -301,7 +305,8 @@ def test_hpo_runs_an_equiformer_study(tmp_path):
     lockstep, and its count theirs.  At width steps of 16 the bisection can
     stop outside the 7% band (the first trial, L8 with 4 heads, ends at
     width 48 and 2,379,506 parameters), and the study goes on with it, as the
-    JAX package's does."""
+    JAX package's does.  ``chip_smoke.py`` holds the card's study to the same
+    widths and counts (its ``EQV2_HPO_WANT``)."""
     seen = []
     best = TH.run_study("equiformer_v2", trials=2, mode="param_small", study_dir=str(tmp_path),
                         objective_fn=lambda mk, tr: seen.append(mk) or -float(len(seen)))
@@ -313,5 +318,6 @@ def test_hpo_runs_an_equiformer_study(tmp_path):
         want = JH.adjust_width_to_target(
             "equiformer_v2", JH.trial_to_overrides("equiformer_v2", sampled)[0], 1_800_000)
         assert (mk, TH._count_params("equiformer_v2", mk, 5)) == want
+        assert want == SMOKE.EQV2_HPO_WANT[len(history)]
         history.append({"params": sampled, "value": -float(len(history) + 1)})
     assert seen[0]["sphere_channels"] == 48 and seen[0]["num_layers"] == 8
