@@ -8,9 +8,12 @@ and its C++ macro library (g++) from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, then drives the port's
 paths through ``rollout.self_feed.run_self_feed`` with the committed N=100
 checkpoint of EGNN-MC (6 layers, width 128, fully connected), PONITA's
-paths with a fresh full-width model (phases 25-29), SEGNN's with its
-committed 10M checkpoint (phases 30-34) and EquiformerV2's with its committed
-10M checkpoint (phases 35-39): the bench
+paths with a fresh model of its 10M run's width at depth 2 (phases 25-29),
+SEGNN's with a fresh
+model of its 10M run's width at depth 2 (phases 30-34), EquiformerV2's with
+its committed 10M checkpoint (phases 35-39), GraphTransformer's with its
+committed 10M checkpoint (phases 40-44) and PaiNN's with a fresh model at
+the width of its stability run (phases 45-48): the bench
 workload (B=64 sims of N=100 bodies, dense edge stage K1) and the big-N path
 (B=8 sims of N=512 bodies, streaming edge stage K3), each in f32 and in the
 mixed-bf16 model (``compute_dtype="bfloat16"``: hidden and message stack in
@@ -94,19 +97,20 @@ bf16, coordinates, geometry and integration in f32):
                    reference default (N=5, B=64): one epoch of 10 steps and a
                    20-step evaluation through K1 a trial, finite values, parameter
                    counts within the budget
- 25. ponita        a fresh PONITA at the size of its committed 10M run (5 layers,
-                   width 480, 20 orientations) from a seed: its calibration on a
-                   fresh GT frame at B=64, N=5 on the card against the same on
-                   the CPU in float64 (15 statistics), its forward against the
-                   CPU's float64; the parameter count 9,990,041 (parameters and
-                   calibration statistics)
+ 25. ponita        a fresh PONITA at the width of its committed 10M run (width
+                   480, 20 orientations) and depth 2 (the run's 5 cut to give the
+                   smoke's time to the later families) from a seed: its
+                   calibration on a fresh GT frame at B=64, N=5 on the card
+                   against the same on the CPU in float64 (6 statistics), its
+                   forward against the CPU's float64; the parameter count
+                   4,075,946 (parameters and calibration statistics)
  26. ponita-rollout  GT at the reference workload (B=64, N=5, 10000 substeps,
                    T=1000) through one K2-leapfrog launch, 100 self-feed steps (no
                    kernel; the battery rolls 999), six-macro KS score; 20 steps on
                    the card against the CPU's float64 on 4 sims; the 100 steps
                    repeated from the same GT bitwise equal, and their steps/s warm
  27. train-ponita  the train command with the queue's argv (--main.model_type ponita
-                   --model.num_layers 5 --model.hidden_features 480, B=64, N=5) from
+                   --model.num_layers 2 --model.hidden_features 480, B=64, N=5) from
                    a fresh initialisation that calibrates on its first batch: 2
                    epochs of 20 steps, the checkpoint read back bitwise and in the
                    JAX layout (params, AdamW's mu and nu, calib included), its
@@ -121,30 +125,33 @@ bf16, coordinates, geometry and integration in f32):
                    steps, 1 K2-leapfrog launch; six- and five-macro p a draw
  29. hpo-ponita    hpo.run_study("ponita", 2 trials, param_small) at the reference
                    default: one epoch of 10 steps and a 20-step evaluation a trial
- 30. segnn         the committed SEGNN checkpoint (docs/results/segnn10m_r5:
-                   6 layers, width 448, hidden irreps 224x0e+224x1o) through the
-                   converter: a forward at B=64, N=5 on a fresh GT frame against
-                   the same model in float64 on the CPU, its ms beside its bound
-                   and its device busy share; O(3) equivariance on the card with
+ 30. segnn         a fresh SEGNN at the width of its committed 10M run (width
+                   448, hidden irreps 224x0e+224x1o) and depth 2 (the run's 6 cut
+                   to give the smoke's time to the later families; the committed
+                   checkpoint stays out of the copy sent to the card) from a seed:
+                   a forward at B=64, N=5 on a fresh GT frame against the same
+                   model in float64 on the CPU, its ms beside its bound and its
+                   device busy share; O(3) equivariance on the card with
                    center_mode "nodes" (a rotation with a reflection); the
-                   parameter count 10,557,344
+                   parameter count 3,721,760
  31. segnn-rollout  GT at the reference workload through one K2-leapfrog
                    launch, 100 self-feed steps (no kernel; the battery rolls 999),
                    six-macro KS score; 20 steps on the card against the CPU's
                    float64 on 4 sims; the 100 steps repeated from the same GT
                    bitwise equal, their steps/s warm
- 32. train-segnn   the train command with the queue's argv (--main.model_type segnn
-                   --model.num_layers 6 --model.hidden_features 448, B=64, N=5)
-                   resumed from the committed checkpoint and its AdamW state: 2
-                   epochs of 20 steps, the checkpoint read back bitwise and in the
-                   JAX layout, its 100-step evaluation and KS score, one step
-                   against the CPU's float64 step ([train]'s gates); step ms, busy
-                   share, peak memory; then a fresh initialisation, 10 steps,
-                   losses finite
- 33. battery-segnn  `cli self-feed --draws 1 --seed 281` on a run dir of the queue's
-                   argv around the committed checkpoint (its bytes unchanged): 999
+ 32. train-segnn   the train command with the queue's argv at depth 2
+                   (--main.model_type segnn --model.num_layers 2
+                   --model.hidden_features 448, B=64, N=5) from a fresh
+                   initialisation: 2 epochs of 20 steps, the checkpoint read back
+                   bitwise and in the JAX layout, its 100-step evaluation and KS
+                   score, one step from that checkpoint against the CPU's float64
+                   step ([train]'s gates); step ms, busy share, peak memory; then
+                   resumed from a copy of that checkpoint on another dataloader
+                   seed: 10 steps, the AdamW count and the epoch going on
+ 33. battery-segnn  [train-segnn]'s checkpoint through the converter, its forward on
+                   [segnn]'s GT frame against the CPU's float64; `cli self-feed
+                   --draws 1 --seed 281` on its run dir (its bytes unchanged): 999
                    steps, 1 K2-leapfrog launch; six- and five-macro p (in (0, 1])
-                   beside the committed 12-draw battery of the seed
  34. hpo-segnn     hpo.run_study("segnn", 2 trials, param_small) at the reference
                    default: one epoch of 10 steps and a 20-step evaluation a trial
  35. eqv2          the committed EquiformerV2 checkpoint (docs/results/
@@ -181,7 +188,57 @@ bf16, coordinates, geometry and integration in f32):
                    the reference default: one epoch of 10 steps and a 20-step
                    evaluation a trial, each trial's widths and count those the
                    JAX package's width bisection gives its sampled trial
- 40. bign          bign_bench rows: steps/s and peak memory, dense K1 against
+ 40. gt            the committed GraphTransformer checkpoint (docs/results/gt10m_r5:
+                   8 layers, width 248, 8 heads of 31, feed-forward 2048) through
+                   the converter: an eval-mode forward at B=64, N=5 on a fresh GT
+                   frame against the same model in float64 on the CPU, its ms,
+                   device busy share and kernels beside its bound; permutation
+                   equivariance on the card; the parameter count 10,255,566
+ 41. gt-rollout    GT at the reference workload through one K2-leapfrog launch,
+                   100 self-feed steps in training mode with live dropout (masks
+                   from a seeded generator on the card: a broadcast [1, 1, N, N]
+                   attention mask and three full ones a layer; the battery rolls
+                   999), six-macro KS score; 20 eval-mode steps on the card
+                   against the CPU's float64 on 4 sims; the 100 steps repeated
+                   from the same GT and the same dropout seed bitwise equal, their
+                   steps/s warm
+ 42. train-gt      the train command with the queue's argv (--main.model_type
+                   graph_transformer --model.num_layers 8 --model.hidden_features
+                   248 --model.num_heads 8, B=64, N=5) resumed from the committed
+                   checkpoint, its AdamW state and Noam step: 2 epochs of 20 steps
+                   with live dropout, the checkpoint read back bitwise and in the
+                   JAX layout, its 100-step evaluation and KS score, one step
+                   against the CPU's float64 step with the dropout rate at 0
+                   ([train]'s gates); step ms, busy share, peak memory; then a
+                   fresh initialisation, 10 steps, losses finite
+ 43. battery-gt    `cli self-feed --draws 1 --seed 281` on a run dir of the queue's
+                   argv around the committed checkpoint (its bytes unchanged, train
+                   mode on): 999 steps, 1 K2-leapfrog launch; six- and five-macro p
+                   (in (0, 1]) and survival beside the committed 12-draw battery
+ 44. hpo-gt        hpo.run_study("graph_transformer", 2 trials, param_small) at the
+                   reference default: one epoch of 10 steps and a 20-step
+                   evaluation a trial, widths a multiple of the heads
+ 45. painn         a fresh PaiNN at the size of its stability run
+                   (docs/results/painn_stab_v5e/run_config.yaml: width 192, 6
+                   layers, 64 RBF, cutoff 10, with that run's stability toggles)
+                   from a seed: a forward at B=64, N=5 on a fresh GT frame against
+                   the CPU's float64, its ms, busy share and kernels beside its
+                   bound; rotation, translation and permutation equivariance on
+                   the card; the parameter count 7,467,648
+ 46. painn-rollout  GT at the reference workload through one K2-leapfrog launch,
+                   100 self-feed steps (no kernel), six-macro KS score; 20 steps
+                   on the card against the CPU's float64 on 4 sims; the 100 steps
+                   repeated from the same GT bitwise equal, their steps/s warm
+ 47. train-painn   the train command with the stability run's argv from a fresh
+                   initialisation: 2 epochs of 20 steps, the checkpoint read back
+                   bitwise and in the JAX layout, its 100-step evaluation and KS
+                   score, one step from that checkpoint against the CPU's float64
+                   step ([train]'s gates); step ms, busy share, peak memory; then
+                   resumed from a copy of that checkpoint on another dataloader
+                   seed: 10 steps, the AdamW count and the epoch going on
+ 48. hpo-painn     hpo.run_study("painn", 2 trials, param_small) at the reference
+                   default: one epoch of 10 steps and a 20-step evaluation a trial
+ 49. bign          bign_bench rows: steps/s and peak memory, dense K1 against
                    streaming K3, at (N,B) = (256,16), (512,8), (1024,2), (4096,1)
 
 Each phase prints one line with its result and elapsed seconds.  Any failed
@@ -315,20 +372,21 @@ INF_STEPS = 20
 # HPO at the reference default: trials of one epoch of 10 steps, 20-step evaluations
 HPO_TRIALS, HPO_EVAL_STEPS = 2, 20
 
-# PONITA at the size of its committed 10M run (L5 h480, 20 orientations,
-# scripts/queues/tpu_queue48.sh:63-64; the checkpoint stays out of the copy
-# sent to the card), from a fresh initialisation made from a seed and
-# calibrated on its first batch, at the reference workload (N=5, B=64,
+# PONITA at the width of its committed 10M run (h480, 20 orientations;
+# scripts/queues/tpu_queue48.sh:63-64 trained it at L5) and depth 2 (cut to
+# give the smoke's time to the later families; the checkpoint stays out of
+# the copy sent to the card), from a fresh initialisation made from a seed
+# and calibrated on its first batch, at the reference workload (N=5, B=64,
 # sim_length 10000: T=1000, 999 rollout steps)
-PONITA_KW = dict(num_layers=5, hidden_features=480)
-PONITA_ARGV = ["--main.model_type", "ponita", "--model.num_layers", "5",
+PONITA_KW = dict(num_layers=2, hidden_features=480)
+PONITA_ARGV = ["--main.model_type", "ponita", "--model.num_layers", "2",
                "--model.hidden_features", "480"]
-PONITA_PARAMS = 9_990_041  # 9,990,026 parameters and 15 calibration statistics
+PONITA_PARAMS = 4_075_946  # 4,075,940 parameters and 6 calibration statistics
 PONITA_B, PONITA_N, PONITA_SUBSTEPS = 64, 5, 10000
 PONITA_SEED = 12
-# the card's f32 forward against the CPU's float64 one: 5 layers of f32 sums
+# the card's f32 forward against the CPU's float64 one: layers of f32 sums
 # (over 4 senders, 480 and 1920 channels, 20 orientations) hold ~1e-6 of the
-# largest output; 1e-4 of it is the gate.  The calibration's 15 statistics:
+# largest output; 1e-4 of it is the gate.  The calibration's statistics:
 # 1e-5 relative (population stds of f32 tensors of 3-15M elements)
 PONITA_FWD_RTOL, PONITA_CALIB_RTOL = 1e-4, 1e-5
 # the card's 20 closed-loop steps against the CPU's float64 ones, on the first
@@ -351,19 +409,22 @@ REPEAT_FRAMES = 101
 PONITA_DRAWS = 1
 PONITA_FRAMES = PONITA_SUBSTEPS // SAMPLE_FREQ
 
-# SEGNN: the committed 10M checkpoint (L6 w448, lmax 1, hidden irreps
-# 224x0e+224x1o, epoch 110), trained by the queue step
-# scripts/queues/tpu_queue48.sh:55-56 at the reference workload (N=5, B=64,
-# sim_length 10000: T=1000, 999 rollout steps, num_neighbors 4)
-SEGNN_CKPT = os.path.join(REPO, "docs", "results", "segnn10m_r5", "ckpt_110_model.ckpt")
-SEGNN_KW = dict(num_layers=6, hidden_features=448)
-SEGNN_ARGV = ["--main.model_type", "segnn", "--model.num_layers", "6",
+# SEGNN at the width of its committed 10M run (w448, lmax 1, hidden irreps
+# 224x0e+224x1o; the queue step scripts/queues/tpu_queue48.sh:55-56 trained
+# it at L6) and depth 2, from a fresh initialisation made from a seed, at
+# the reference workload (N=5, B=64, sim_length 10000: T=1000, 999 rollout
+# steps, num_neighbors 4).  The committed checkpoint stays out of the copy
+# sent to the card (GraphTransformer's takes its room), and depth 2 gives
+# the smoke's time to the later families; the CPU tests hold the committed
+# checkpoint against the JAX package
+SEGNN_KW = dict(num_layers=2, hidden_features=448)
+SEGNN_ARGV = ["--main.model_type", "segnn", "--model.num_layers", "2",
               "--model.hidden_features", "448"]
-SEGNN_PARAMS = 10_557_344
+SEGNN_PARAMS = 3_721_760
 SEGNN_B, SEGNN_N, SEGNN_SUBSTEPS = 64, 5, 10000
 SEGNN_FRAMES = SEGNN_SUBSTEPS // SAMPLE_FREQ
-SEGNN_EPOCH, SEGNN_COUNT = 110, 110000  # the checkpoint's epoch and AdamW count
-# the card's f32 forward against the CPU's float64 one: 6 layers of f32 sums
+SEGNN_SEED = 13
+# the card's f32 forward against the CPU's float64 one: layers of f32 sums
 # (contractions up to 898 long, 4 senders) hold ~1e-6 of the largest output;
 # 1e-5 of it is the gate.  O(3): the center_mode "nodes" model on a scene
 # turned with a reflection and shifted, against its outputs turned the same
@@ -373,7 +434,7 @@ SEGNN_FWD_RTOL, SEGNN_EQUIV_RTOL = 1e-5, 1e-4
 # first SEGNN_CMP_B sims: within 1e-4 of the largest position, or 100 times
 # the spread a 1e-7 nudge of frame 0 gives the CPU alone where that is larger
 SEGNN_CMP_B, SEGNN_ROLL_RTOL, SEGNN_NUDGE_FACTOR = 4, 1e-4, 100.0
-# the battery: seed 281, 1 draw (the committed battery drew 12)
+# the battery: seed 281, 1 draw of [train-segnn]'s checkpoint
 SEGNN_DRAWS = 1
 
 # EquiformerV2: the committed 10M checkpoint (L8 c128, 8 heads, lmax 2,
@@ -416,6 +477,63 @@ EQV2_HPO_WANT = (
 # eager forward moves through its S2 grids (each grid written and read twice:
 # the product into the grid, the SiLU, the product out of it)
 EQV2_GRID_PASSES = 4
+
+# GraphTransformer: the committed 10M checkpoint (L8 h248, 8 heads of 31,
+# feed-forward 2048, epoch 130), trained by the queue step
+# scripts/queues/tpu_queue48.sh:58-60 at the reference workload (N=5, B=64,
+# sim_length 10000, full attention), with live dropout (0.1) in training and
+# in its rollouts
+GT_KW = dict(num_layers=8, hidden_features=248, num_heads=8)
+GT_PARAMS = 10_255_566
+GT_B, GT_N, GT_SUBSTEPS = 64, 5, 10000
+GT_FRAMES = GT_SUBSTEPS // SAMPLE_FREQ
+GT_EPOCH, GT_COUNT = 130, 130000  # the checkpoint's epoch and AdamW count
+GT_DROPOUT_SEED = 281
+# the card's f32 forward against the CPU's float64 one (8 layers of f32
+# sums up to 2048 long, softmaxes, LayerNorms): 1e-4 of the largest output.
+# A permutation of the bodies: the same sums in other positions, 1e-5
+GT_FWD_RTOL, GT_PERM_RTOL = 1e-4, 1e-5
+# 20 eval-mode closed-loop steps against the CPU's float64 ones, on the
+# first GT_CMP_B sims: 1e-3 of the largest position, or 100 times a 1e-7
+# nudge's spread where that is larger
+GT_CMP_B, GT_ROLL_RTOL, GT_NUDGE_FACTOR = 4, 1e-3, 100.0
+GT_DRAWS = 1
+# the key projections' biases get no gradient in exact arithmetic (the
+# softmax over keys ignores what they add to a query's every logit): in
+# float64 their gradient is rounding noise, ~1e-16 of their kernels' (a CPU
+# rehearsal of the committed checkpoint: 2.6e-17 to 3.0e-16)
+GT_KEY_BIAS_GRAD_RTOL = 1e-10
+
+# PaiNN at the size of its stability run (docs/results/painn_stab_v5e/
+# run_config.yaml: H192, L6, 64 RBF, cutoff 10, the stability toggles and
+# gradient clipping by norm 1.0; no checkpoint is committed), from a fresh
+# initialisation made from a seed, at the reference workload (N=5, B=64,
+# sim_length 10000, num_neighbors 4)
+PAINN_TOGGLES = dict(residual_scale_interaction=0.5, tanh_message_scale=5.0, filter_gain=0.5,
+                     clip_vector_msg_norm=10.0, clip_scalar_msg_value=10.0,
+                     residual_scale_mixing=0.5, tanh_mixing_scale=5.0, clip_mu_norm=20.0,
+                     clip_q_value=100.0)
+PAINN_KW = dict(hidden_features=192, num_layers=6, num_rbf=64, cutoff=10.0, **PAINN_TOGGLES)
+PAINN_ARGV = (["--main.model_type", "painn", "--trainer.clip_gradients_norm", "1.0"]
+              + [a for k, v in PAINN_TOGGLES.items() for a in (f"--model.{k}", str(v))])
+PAINN_PARAMS = 7_467_648
+PAINN_B, PAINN_N, PAINN_SUBSTEPS = 64, 5, 10000
+PAINN_SEED = 14
+# the card's f32 forward against the CPU's float64 one (6 layers of f32 sums
+# over 4 senders, 576 channels): 1e-4 of the largest output.  Rotation,
+# translation and permutation of the scene: two f32 forwards, each ~1e-6
+# from exact, 1e-4 of the largest output
+PAINN_FWD_RTOL, PAINN_EQUIV_RTOL = 1e-4, 1e-4
+PAINN_CMP_B, PAINN_ROLL_RTOL, PAINN_NUDGE_FACTOR = 4, 1e-3, 100.0
+
+# the two param_small trials of the GraphTransformer study (seed 0): the
+# sampled trials' widths and counts as the JAX package's
+# adjust_width_to_target gives them (tests/test_torch_gt_train.py holds these
+# against it); the second stops outside the 7% band of 1,800,000, its
+# feed-forward's 2048 setting the count at width 64, and the study goes on
+# with it, as the JAX package's does
+GT_HPO_WANT = ((dict(hidden_features=64, num_layers=6, num_heads=8), 1_696_070),
+               (dict(hidden_features=64, num_layers=8, num_heads=4), 2_258_374))
 
 # H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, dense bf16 on the tensor
 # cores, HBM3 bandwidth
@@ -1346,13 +1464,18 @@ def main() -> None:
         except Exception as e:  # a profiler that cannot trace the card fails no phase
             return None, f"not measured ({type(e).__name__}: {e})", None
 
-    def step_vs_cpu(tag: str, run: dict, payload, model_kw: dict, scene, y):
+    def step_vs_cpu(tag: str, run: dict, payload, model_kw: dict, scene, y,
+                    noise_only: tuple = ()):
         """One training step on the card (f32) against the same step on the
         CPU in float64, from ``payload``'s parameters and AdamW state, on the
         first TRAIN_CMP_B sims of ``(scene, y)``: each parameter within
         TRAIN_PARAM_RTOL of its largest value, each update within
-        TRAIN_UPDATE_RTOL of its largest update.  Returns both errors and both
-        losses."""
+        TRAIN_UPDATE_RTOL of its largest update.  A bias whose key ends with
+        one of ``noise_only`` gets no gradient in exact arithmetic, so its
+        step is AdamW's reading of rounding noise (float32 noise on the card,
+        float64 noise on the CPU) and its update is printed, not held; its
+        parameters are held within TRAIN_PARAM_RTOL of the largest value of
+        the kernel it biases.  Returns both errors and both losses."""
         trainer, a = run["trainer"], run["args"]
         sub = (Scene(*(t_[:TRAIN_CMP_B] for t_ in (scene.pos, scene.vel, scene.force,
                                                   scene.mass))), y[:TRAIN_CMP_B])
@@ -1375,20 +1498,33 @@ def main() -> None:
                           before, float(vec[0])))
             del m, o
         (card_p, card_b, card_loss), (cpu_p, cpu_b, cpu_loss) = after
-        p_err = up_err = 0.0
+        p_err = up_err = noise_err = 0.0
+        bad = []
         for k, want_p in cpu_p.items():
+            noise = bool(noise_only) and k.endswith(noise_only)
             # a tensor the loss never reaches stays zero with a zero update
             # (EquiformerV2's head bias adds to the l=0 row, which the output
             # does not read): its errors are held absolute, so they must be 0
-            scale = want_p.abs().max().item() or 1.0
+            ref = cpu_p[k[:-len("bias")] + "kernel"] if noise else want_p
+            scale = ref.abs().max().item() or 1.0
             e = (card_p[k] - want_p).abs().max().item() / scale
             du = (cpu_p[k] - cpu_b[k]).abs().max().item() or 1.0
             u = ((card_p[k] - card_b[k]) - (cpu_p[k] - cpu_b[k])).abs().max().item() / du
-            if not (e <= TRAIN_PARAM_RTOL and u <= TRAIN_UPDATE_RTOL):
-                fail(f"{tag}: after one step, {k} on the card differs from the CPU float64 step "
-                     f"by {e:.3e} of its largest value and its update by {u:.3e} of the largest "
-                     f"update (limits {TRAIN_PARAM_RTOL}, {TRAIN_UPDATE_RTOL})")
-            p_err, up_err = max(p_err, e), max(up_err, u)
+            if not (e <= TRAIN_PARAM_RTOL and (noise or u <= TRAIN_UPDATE_RTOL)):
+                bad.append(f"{k} by {e:.3e} of its largest value"
+                           + (" (of its kernel's)" if noise else f" and its update by {u:.3e}"))
+            p_err = max(p_err, e)
+            if noise:
+                noise_err = max(noise_err, u)
+            else:
+                up_err = max(up_err, u)
+        if bad:
+            fail(f"{tag}: after one step on the card, against the CPU float64 step (limits "
+                 f"{TRAIN_PARAM_RTOL}, {TRAIN_UPDATE_RTOL} of the largest update): "
+                 + "; ".join(bad))
+        if noise_only:
+            print(f"  {tag}: the biases {noise_only} (no gradient in exact arithmetic): update "
+                  f"differs by {noise_err:.3e} of the CPU's, not held", flush=True)
         return p_err, up_err, card_loss, cpu_loss
 
     def busy_share(busy_ms, step_ms) -> str:
@@ -1968,13 +2104,41 @@ def main() -> None:
                       after_loss_last=f"{after['losses'][-1].item():.5f}")
         return fields, more, after_model, run_dir_f
 
-    def family_hpo(family: str, want=None) -> None:
+    def written(run_) -> dict:
+        """The checkpoint a run of ``train_run`` wrote, read back."""
+        return weights.read_checkpoint(os.path.join(run_["trainer"].save_dir_path, "model.ckpt"))
+
+    def written_forward(tag: str, family: str, run_dir_f: str, model_kw: dict, scene_f,
+                        rtol: float):
+        """The checkpoint in ``run_dir_f`` through the converter: its forward
+        on ``scene_f`` on the card against the same parameters (and PONITA's
+        calibration) in float64 on the CPU, within ``rtol`` of the largest
+        output.  Returns the error and that output."""
+        sd_f = weights.params_from_jax(
+            weights.read_checkpoint(os.path.join(run_dir_f, "model.ckpt"))["params"], family)
+        card_m = models.create_model(family, device=dev, **model_kw)
+        cpu_m = models.create_model(family, device="cpu", dtype=torch.float64, **model_kw)
+        card_m.load_state_dict(sd_f)
+        cpu_m.load_state_dict(sd_f)
+        card_m.eval()
+        cpu_m.eval()
+        scene_c = cpu64(scene_f)
+        with torch.no_grad():
+            out_k = card_m(scene_f, fc(scene_f))
+            out_c = cpu_m(scene_c, fc(scene_c))
+        err, scale = (out_k.double().cpu() - out_c).abs().max().item(), out_c.abs().max().item()
+        if not (torch.isfinite(out_k).all() and err <= rtol * scale):
+            fail(f"{tag}: the written checkpoint's forward on the card differs from the CPU's "
+                 f"float64 one by {err} (max |out| {scale}, rtol {rtol})")
+        return err, scale
+
+    def family_hpo(family: str, want=None, tag=None) -> None:
         """Two param_small trials of ``family`` at the reference default, each
         one epoch of 10 steps and a 20-step evaluation: every trial done, its
         value finite and its count within the budget, or, where ``want``
         gives them, its widths and count those of ``want``; K2-leapfrog
-        launches only."""
-        tag = f"hpo-{family}"
+        launches only.  The phase is ``tag`` (``hpo-<family>`` where None)."""
+        tag = tag or f"hpo-{family}"
         t0 = time.perf_counter()
         target = hpo.PARAM_TARGETS["param_small"]
         with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
@@ -2007,7 +2171,7 @@ def main() -> None:
                best_value=f"{best['value']:.4f}", leapfrog_launches=got["leapfrog"])
 
     # ------------------------------------------------------------- 25. ponita
-    # a fresh full-width PONITA (L5 h480) from a seed, calibrated on its first
+    # a fresh PONITA of its 10M run's width (h480, L2) from a seed, calibrated on its first
     # batch (a fresh GT frame) on the card and, from the same parameters, on
     # the CPU in float64, as the trainer calibrates; its forward on that frame
     # against the CPU's float64; the parameter count.  PONITA is plain
@@ -2106,23 +2270,8 @@ def main() -> None:
     # parameters and calibration in float64 on the CPU; then `cli self-feed
     # --draws 1 --seed 281` on the run dir, 999 steps; a class, not a gate
     t0 = time.perf_counter()
-    payload_p = weights.read_checkpoint(os.path.join(run_dir_p, "model.ckpt"))
-    sd_p = weights.params_from_jax(payload_p["params"], "ponita")
-    pmodel = models.create_model("ponita", device=dev, **PONITA_KW)
-    pmodel.load_state_dict(sd_p)
-    pmodel.eval()
-    pcpu = models.create_model("ponita", device="cpu", dtype=torch.float64, **PONITA_KW)
-    pcpu.load_state_dict(sd_p)
-    pcpu.eval()
-    with torch.no_grad():
-        out_card = pmodel(scene_p, fc(scene_p))
-        out_cpu = pcpu(scene_c, fc(scene_c))
-    ckpt_err = (out_card.double().cpu() - out_cpu).abs().max().item()
-    ckpt_scale = out_cpu.abs().max().item()
-    if not (torch.isfinite(out_card).all() and ckpt_err <= PONITA_FWD_RTOL * ckpt_scale):
-        fail(f"battery-ponita: the written checkpoint's forward on the card differs from the "
-             f"CPU's float64 one by {ckpt_err} (max |out| {ckpt_scale}, rtol {PONITA_FWD_RTOL})")
-    del payload_p, sd_p, pmodel, pcpu, out_card, out_cpu
+    ckpt_err, ckpt_scale = written_forward("battery-ponita", "ponita", run_dir_p, PONITA_KW,
+                                           scene_p, PONITA_FWD_RTOL)
     _, info = family_battery("ponita", os.path.join(run_dir_p, "model.ckpt"), PONITA_DRAWS,
                              PONITA_FRAMES)
     ponita_tmp.cleanup()
@@ -2133,17 +2282,16 @@ def main() -> None:
     family_hpo("ponita")
 
     # -------------------------------------------------------------- 30. segnn
-    # the committed SEGNN checkpoint through the converter, on the card: a
-    # forward on a fresh GT frame against the same model in float64 on the
-    # CPU, the parameter count, and O(3) equivariance with center_mode
-    # "nodes".  SEGNN is plain PyTorch: no kernel but the GT's
+    # a fresh SEGNN at its 10M run's width (w448) and depth 2, from a seed, on
+    # the card: a forward on a fresh GT frame against the same model in
+    # float64 on the CPU, the parameter count, and O(3) equivariance with
+    # center_mode "nodes".  SEGNN is plain PyTorch: no kernel but the GT's
     t0 = time.perf_counter()
-    payload_s = weights.read_checkpoint(SEGNN_CKPT)
-    smodel = models.create_model("segnn", device=dev, **SEGNN_KW)
-    smodel.load_state_dict(weights.params_from_jax(payload_s["params"], "segnn"))
-    smodel.eval()
+    torch.manual_seed(SEGNN_SEED)
     scpu = models.create_model("segnn", device="cpu", dtype=torch.float64, **SEGNN_KW)
-    scpu.load_state_dict(smodel.state_dict())
+    smodel = models.create_model("segnn", device=dev, **SEGNN_KW)
+    smodel.load_state_dict(scpu.state_dict())
+    smodel.eval()
     scpu.eval()
     n_params_s = models.count_params(smodel)
     n_params_s_hpo = hpo._count_params("segnn", SEGNN_KW, SEGNN_N)
@@ -2206,7 +2354,8 @@ def main() -> None:
           f"{top_fwd_s}", flush=True)
     report("segnn", t0, B=SEGNN_B, N=SEGNN_N, layers=SEGNN_KW["num_layers"],
            width=SEGNN_KW["hidden_features"], hidden_irreps=repr(smodel.hidden_irreps),
-           n_params=n_params_s, fwd_max_abs_err=f"{fwd_err_s:.3e}",
+           init=f"fresh, seed {SEGNN_SEED}", n_params=n_params_s,
+           fwd_max_abs_err=f"{fwd_err_s:.3e}",
            max_abs_out=f"{fwd_scale_s:.3e}", rtol=SEGNN_FWD_RTOL, fwd_ms=f"{fwd_ms_s:.4f}",
            fwd_bound_ms=f"{fwd_bound_s:.4f}", fwd_bound_by=fwd_by_s,
            fwd_gflop=f"{fwd_flops_s / 1e9:.2f}",
@@ -2220,39 +2369,43 @@ def main() -> None:
     t0 = time.perf_counter()
     info = family_rollout("segnn", smodel, scpu, SEGNN_B, SEGNN_N, SEGNN_SUBSTEPS, 32,
                           SEGNN_CMP_B, SEGNN_ROLL_RTOL, SEGNN_NUDGE_FACTOR)
-    del scpu
+    del scpu, smodel
     report("segnn-rollout", t0, **info)
 
     # -------------------------------------------------------- 32. train-segnn
-    # the queue's argv resumed from the committed checkpoint, with one step
-    # against the same step on the CPU in float64 ([train]'s gates), then a
-    # fresh run
+    # the queue's argv at depth 2 from a fresh initialisation, with one step
+    # from the checkpoint it wrote against the same step on the CPU in
+    # float64 ([train]'s gates); then a resume from that checkpoint.  Its run
+    # dir stays for [battery-segnn]
     t0 = time.perf_counter()
-    info, (p_err_s, up_err_s, card_loss_s, cpu_loss_s), fresh_model, _ = family_train(
-        "segnn", SEGNN_CKPT, SEGNN_ARGV, payload_s, SEGNN_EPOCH, SEGNN_COUNT, SEGNN_PARAMS,
-        extra=lambda run_, scene_, y_: step_vs_cpu("train-segnn", run_, payload_s, SEGNN_KW,
+    segnn_tmp = tempfile.TemporaryDirectory()
+    info, (p_err_s, up_err_s, card_loss_s, cpu_loss_s), resumed_model, run_dir_sg = family_train(
+        "segnn", None, SEGNN_ARGV, None, 0, 0, SEGNN_PARAMS, workdir=segnn_tmp.name,
+        extra=lambda run_, scene_, y_: step_vs_cpu("train-segnn", run_, written(run_), SEGNN_KW,
                                                    scene_, y_))
-    del fresh_model
-    print(f"  train-segnn: one step, card f32 vs CPU f64 on {TRAIN_CMP_B} sims: loss "
-          f"{card_loss_s:.8f} / {cpu_loss_s:.8f}, params max rel err {p_err_s:.3e} (limit "
-          f"{TRAIN_PARAM_RTOL}), update max rel err {up_err_s:.3e} (limit {TRAIN_UPDATE_RTOL})",
-          flush=True)
+    del resumed_model
+    print(f"  train-segnn: one step from the written checkpoint, card f32 vs CPU f64 on "
+          f"{TRAIN_CMP_B} sims: loss {card_loss_s:.8f} / {cpu_loss_s:.8f}, params max rel err "
+          f"{p_err_s:.3e} (limit {TRAIN_PARAM_RTOL}), update max rel err {up_err_s:.3e} (limit "
+          f"{TRAIN_UPDATE_RTOL})", flush=True)
     report("train-segnn", t0, B=SEGNN_B, N=SEGNN_N, **info,
            cmp_param_err=f"{p_err_s:.3e}", cmp_update_err=f"{up_err_s:.3e}")
 
     # ------------------------------------------------------ 33. battery-segnn
-    # `cli self-feed --draws 1 --seed 281` on a run dir of the queue's argv
-    # around the committed checkpoint, beside the committed 12-draw battery of
-    # the same seed; a class, not a gate
+    # [train-segnn]'s run dir: the checkpoint it wrote through the converter,
+    # its forward on [segnn]'s GT frame on the card against the CPU's float64;
+    # then `cli self-feed --draws 1 --seed 281` on the run dir, 999 steps; a
+    # class, not a gate
     t0 = time.perf_counter()
-    battery_s_s, info = family_battery("segnn", SEGNN_CKPT, SEGNN_DRAWS, SEGNN_FRAMES,
-                                       SEGNN_ARGV)
-    ref_six = battery.committed(BATTERY_SEED, battery.SEGNN_COMMITTED)["six"]
-    ref_s = battery.spread(ref_six)
-    report("battery-segnn", t0, battery_s_s, B=SEGNN_B, N=SEGNN_N, **info,
-           committed_draws=len(ref_six), committed_six_best=f"{ref_s['best']:.4g}",
-           committed_six_median=f"{ref_s['median']:.4g}")
-    del payload_s, smodel
+    ckpt_err_s, ckpt_scale_s = written_forward("battery-segnn", "segnn", run_dir_sg, SEGNN_KW,
+                                               scene_s, SEGNN_FWD_RTOL)
+    battery_s_s, info = family_battery("segnn", os.path.join(run_dir_sg, "model.ckpt"),
+                                       SEGNN_DRAWS, SEGNN_FRAMES)
+    segnn_tmp.cleanup()
+    report("battery-segnn", t0, battery_s_s, B=SEGNN_B, N=SEGNN_N,
+           ckpt_fwd_max_abs_err=f"{ckpt_err_s:.3e}", ckpt_max_abs_out=f"{ckpt_scale_s:.3e}",
+           ckpt_rtol=SEGNN_FWD_RTOL, **info)
+    del scene_s, scene_sc
 
     # --------------------------------------------------------- 34. hpo-segnn
     family_hpo("segnn")
@@ -2414,7 +2567,270 @@ def main() -> None:
     # each trial's widths and count the JAX package's bisection's (EQV2_HPO_WANT)
     family_hpo("equiformer_v2", EQV2_HPO_WANT)
 
-    # --------------------------------------------------------------- 40. bign
+    # ----------------------------------------------------------------- 40. gt
+    # the committed GraphTransformer checkpoint through the converter, on the
+    # card: an eval-mode forward on a fresh GT frame against the same model in
+    # float64 on the CPU, its ms, busy share and kernels beside its bound, the
+    # parameter count, permutation equivariance.  GraphTransformer is plain
+    # PyTorch: no kernel but the GT's
+    t0 = time.perf_counter()
+    payload_g = weights.read_checkpoint(battery.GT_CKPT)
+    gmodel = models.create_model("graph_transformer", device=dev, **GT_KW)
+    gmodel.load_state_dict(weights.params_from_jax(payload_g["params"], "graph_transformer"))
+    gmodel.eval()
+    gcpu = models.create_model("graph_transformer", device="cpu", dtype=torch.float64, **GT_KW)
+    gcpu.load_state_dict(gmodel.state_dict())
+    gcpu.eval()
+    n_params_g = models.count_params(gmodel)
+    n_params_g_hpo = hpo._count_params("graph_transformer", GT_KW, GT_N)
+    if n_params_g != GT_PARAMS or n_params_g_hpo != GT_PARAMS:
+        fail(f"gt: {n_params_g} parameters ({n_params_g_hpo} by hpo), want {GT_PARAMS}")
+    reset_counts()
+    gt_g = otf.GravityDatasetOtf(
+        batch_size=GT_B, sim_length=GT_SUBSTEPS, sample_freq=SAMPLE_FREQ,
+        num_nodes=GT_N, interaction_strength=G_CONST, softening=SOFTENING, seed=50,
+        device=dev).get_ground_truth_trajectories()
+    sync()
+    eval_counts["gt"] = counted({"leapfrog": 1}, "gt")
+    scene_g = Scene(pos=gt_g[0][:, 0], vel=gt_g[1][:, 0], force=gt_g[2][:, 0], mass=gt_g[3])
+    scene_gc = cpu64(scene_g)
+    with torch.no_grad():
+        out_card = gmodel(scene_g, fc(scene_g))
+        out_cpu = gcpu(scene_gc, fc(scene_gc))
+        fwd_ms_g = cuda_ms(lambda: gmodel(scene_g, fc(scene_g)), iters=20)
+        busy_g, top_g, launches_g = top_kernels(lambda: gmodel(scene_g, fc(scene_g)), n=8)
+    fwd_err_g = (out_card.double().cpu() - out_cpu).abs().max().item()
+    fwd_scale_g = out_cpu.abs().max().item()
+    if not (torch.isfinite(out_card).all() and fwd_err_g <= GT_FWD_RTOL * fwd_scale_g):
+        fail(f"gt: the card's forward differs from the CPU's float64 one by {fwd_err_g} "
+             f"(max |out| {fwd_scale_g}, rtol {GT_FWD_RTOL})")
+    # permutation: the bodies reordered, the outputs reordered the same way
+    perm = torch.tensor([3, 0, 4, 1, 2], device=dev)
+    moved = Scene(pos=scene_g.pos[:, perm], vel=scene_g.vel[:, perm],
+                  force=scene_g.force[:, perm], mass=scene_g.mass[:, perm])
+    with torch.no_grad():
+        perm_err_g = (gmodel(moved, fc(moved)) - out_card[:, perm]).abs().max().item()
+    if not perm_err_g <= GT_PERM_RTOL * fwd_scale_g:
+        fail(f"gt: permutation off by {perm_err_g} (max |out| {fwd_scale_g})")
+    # the forward's operations (multiply-adds count 2) per token: the
+    # embedding, per layer the four projections, the two feed-forward
+    # products and the attention's two products over N keys, the head; its
+    # bytes the parameters, the scene and the output once
+    H_, F_, L_ = GT_KW["hidden_features"], gmodel.dim_feedforward, GT_KW["num_layers"]
+    tokens = GT_B * GT_N
+    fwd_flops_g = 2.0 * tokens * (6 * H_ + L_ * (4 * H_ * H_ + 2 * H_ * F_ + 2 * GT_N * H_)
+                                  + 2 * H_ * H_ + H_ * 6)
+    fwd_bytes_g = 4.0 * (n_params_g + tokens * 6 + tokens * 6)
+    fwd_bound_g, fwd_by_g = bound_ms(fwd_bytes_g, fwd_flops_g)
+    del gt_g, moved
+    print(f"  gt: forward, device busy {busy_share(busy_g, fwd_ms_g)}, {launches_g} kernels; "
+          f"top kernels: {top_g}", flush=True)
+    report("gt", t0, B=GT_B, N=GT_N, layers=L_, width=H_, heads=GT_KW["num_heads"],
+           dim_feedforward=F_, n_params=n_params_g, fwd_max_abs_err=f"{fwd_err_g:.3e}",
+           max_abs_out=f"{fwd_scale_g:.3e}", rtol=GT_FWD_RTOL, fwd_ms=f"{fwd_ms_g:.4f}",
+           fwd_bound_ms=f"{fwd_bound_g:.4f}", fwd_bound_by=fwd_by_g,
+           fwd_gflop=f"{fwd_flops_g / 1e9:.2f}",
+           fwd_busy_ms=("not measured" if busy_g is None else f"{busy_g:.3f}"),
+           fwd_kernels=launches_g, perm_max_abs_err=f"{perm_err_g:.3e}", perm_rtol=GT_PERM_RTOL,
+           leapfrog_launches=eval_counts["gt"]["leapfrog"])
+
+    # --------------------------------------------------------- 41. gt-rollout
+    # GT at the reference workload through one K2-leapfrog launch, 100 counted
+    # self-feed steps in training mode with live dropout (masks seeded with
+    # GT_DROPOUT_SEED; [battery-gt] rolls 999), the six-macro score; 20
+    # eval-mode steps on the card against the CPU's float64; the 100 steps
+    # repeated from the same GT and dropout seed bitwise, and timed warm
+    t0 = time.perf_counter()
+    info = family_rollout("gt", gmodel, gcpu, GT_B, GT_N, GT_SUBSTEPS, 52, GT_CMP_B,
+                          GT_ROLL_RTOL, GT_NUDGE_FACTOR, train_mode=True,
+                          dropout_seed=GT_DROPOUT_SEED)
+    del gcpu, gmodel
+    report("gt-rollout", t0, **info)
+
+    # ----------------------------------------------------------- 42. train-gt
+    # the queue's argv resumed from the committed checkpoint with its AdamW
+    # state and Noam step (dropout live, from the run's seeded generator); one
+    # step against the same step on the CPU in float64 with the dropout rate
+    # at 0 (the card's and the CPU's generators draw different masks), at
+    # [train]'s gates; then a fresh run
+    gt_argv = list(battery.GT_RUN_ARGV)
+    quiet_g = dict(GT_KW, dropout=0.0)
+
+    def gt_extra(run_, scene_, y_):
+        # the key projections' biases add q . b_k to each of a query's logits
+        # alike, which the softmax over keys ignores: no gradient in exact
+        # arithmetic, so step_vs_cpu holds their parameters only.  The
+        # premise, in float64 on the CPU: their gradient is rounding noise
+        # beside their kernels'
+        trainer_ = run_["trainer"]
+        m = models.create_model("graph_transformer", device="cpu", dtype=torch.float64, **quiet_g)
+        m.load_state_dict(weights.params_from_jax(payload_g["params"], "graph_transformer"))
+        m.train()
+        sub = Scene(*(t_[:TRAIN_CMP_B].cpu().double() for t_ in (scene_.pos, scene_.vel,
+                                                                 scene_.force, scene_.mass)))
+        loss_, _ = trainer_.loss_fn(m(sub, graph.knn_mask(sub.pos, trainer_.num_neighbors)), sub,
+                                    y_[:TRAIN_CMP_B].cpu().double())
+        loss_.backward()
+        ratio = max((blk.MultiHeadDotProductAttention_0.key.bias.grad.abs().max()
+                     / blk.MultiHeadDotProductAttention_0.key.kernel.grad.abs().max()).item()
+                    for blk in m.blocks)
+        if not ratio <= GT_KEY_BIAS_GRAD_RTOL:
+            fail(f"train-gt: the key biases' float64 gradient is {ratio:.3e} of their kernels' "
+                 f"(limit {GT_KEY_BIAS_GRAD_RTOL}): not zero in exact arithmetic")
+        del m, loss_
+        return step_vs_cpu("train-gt", run_, payload_g, quiet_g, scene_, y_,
+                           noise_only=("key.bias",)), ratio
+
+    t0 = time.perf_counter()
+    info, ((p_err_g, up_err_g, card_loss_g, cpu_loss_g), key_ratio), fresh_model, _ = \
+        family_train("gt", battery.GT_CKPT, gt_argv, payload_g, GT_EPOCH, GT_COUNT, GT_PARAMS,
+                     extra=gt_extra)
+    del fresh_model
+    print(f"  train-gt: one step, card f32 vs CPU f64 on {TRAIN_CMP_B} sims (no dropout): loss "
+          f"{card_loss_g:.8f} / {cpu_loss_g:.8f}, params max rel err {p_err_g:.3e} (limit "
+          f"{TRAIN_PARAM_RTOL}), update max rel err {up_err_g:.3e} (limit {TRAIN_UPDATE_RTOL}); "
+          f"the key biases' f64 gradient {key_ratio:.3e} of their kernels'", flush=True)
+    report("train-gt", t0, B=GT_B, N=GT_N, **info,
+           cmp_param_err=f"{p_err_g:.3e}", cmp_update_err=f"{up_err_g:.3e}",
+           key_bias_grad_ratio=f"{key_ratio:.3e}")
+
+    # --------------------------------------------------------- 43. battery-gt
+    # `cli self-feed --draws 1 --seed 281` on a run dir of the queue's argv
+    # around the committed checkpoint (train mode, live dropout), beside the
+    # committed 12-draw battery of the same seed; survived 999 is the gate,
+    # the p a class
+    t0 = time.perf_counter()
+    battery_g_s, info = family_battery("gt", battery.GT_CKPT, GT_DRAWS, GT_FRAMES, gt_argv)
+    if info["survived"] != ",".join([str(GT_FRAMES - 1)] * GT_DRAWS):
+        fail(f"battery-gt: survived {info['survived']}, want {GT_FRAMES - 1} in every draw")
+    ref_six_g = battery.committed(BATTERY_SEED, battery.GT_COMMITTED)["six"]
+    ref_g = battery.spread(ref_six_g)
+    report("battery-gt", t0, battery_g_s, B=GT_B, N=GT_N, **info,
+           committed_draws=len(ref_six_g), committed_six_best=f"{ref_g['best']:.4g}",
+           committed_six_median=f"{ref_g['median']:.4g}",
+           committed_six_worst=f"{ref_g['worst']:.4g}")
+    del payload_g
+
+    # ------------------------------------------------------------- 44. hpo-gt
+    # each trial's widths and count the JAX package's bisection's (GT_HPO_WANT)
+    family_hpo("graph_transformer", GT_HPO_WANT, tag="hpo-gt")
+
+    # -------------------------------------------------------------- 45. painn
+    # a fresh PaiNN at the size of its stability run, from a seed: a forward
+    # on a fresh GT frame on the card against the same model in float64 on
+    # the CPU, its ms, busy share and kernels beside its bound, the parameter
+    # count; rotation, translation and permutation equivariance.  PaiNN is
+    # plain PyTorch: no kernel but the GT's
+    t0 = time.perf_counter()
+    torch.manual_seed(PAINN_SEED)
+    ncpu = models.create_model("painn", device="cpu", dtype=torch.float64, **PAINN_KW)
+    nmodel = models.create_model("painn", device=dev, **PAINN_KW)
+    nmodel.load_state_dict(ncpu.state_dict())
+    nmodel.eval()
+    ncpu.eval()
+    n_params_n = models.count_params(nmodel)
+    n_params_n_hpo = hpo._count_params("painn", PAINN_KW, PAINN_N)
+    if n_params_n != PAINN_PARAMS or n_params_n_hpo != PAINN_PARAMS:
+        fail(f"painn: {n_params_n} parameters ({n_params_n_hpo} by hpo), want {PAINN_PARAMS}")
+    reset_counts()
+    gt_n = otf.GravityDatasetOtf(
+        batch_size=PAINN_B, sim_length=PAINN_SUBSTEPS, sample_freq=SAMPLE_FREQ,
+        num_nodes=PAINN_N, interaction_strength=G_CONST, softening=SOFTENING, seed=60,
+        device=dev).get_ground_truth_trajectories()
+    sync()
+    eval_counts["painn"] = counted({"leapfrog": 1}, "painn")
+    scene_n = Scene(pos=gt_n[0][:, 0], vel=gt_n[1][:, 0], force=gt_n[2][:, 0], mass=gt_n[3])
+    scene_nc = cpu64(scene_n)
+    with torch.no_grad():
+        out_card = nmodel(scene_n, fc(scene_n))
+        out_cpu = ncpu(scene_nc, fc(scene_nc))
+        fwd_ms_n = cuda_ms(lambda: nmodel(scene_n, fc(scene_n)), iters=20)
+        busy_n, top_n, launches_n = top_kernels(lambda: nmodel(scene_n, fc(scene_n)), n=8)
+    fwd_err_n = (out_card.double().cpu() - out_cpu).abs().max().item()
+    fwd_scale_n = out_cpu.abs().max().item()
+    if not (torch.isfinite(out_card).all() and fwd_err_n <= PAINN_FWD_RTOL * fwd_scale_n):
+        fail(f"painn: the card's forward differs from the CPU's float64 one by {fwd_err_n} "
+             f"(max |out| {fwd_scale_n}, rtol {PAINN_FWD_RTOL})")
+    # rotation (a proper one), translation and permutation of the scene: both
+    # output vectors turn with the scene and follow its bodies, and a shift
+    # changes nothing
+    q, r = torch.linalg.qr(torch.randn((3, 3), generator=torch.Generator().manual_seed(61),
+                                       dtype=torch.float64))
+    R = q * torch.sign(torch.diagonal(r))
+    R = (R if torch.det(R) > 0 else -R).float().to(dev)
+    perm = torch.tensor([3, 0, 4, 1, 2], device=dev)
+    moves = {
+        "rot": (Scene(pos=scene_n.pos @ R.T, vel=scene_n.vel @ R.T, force=scene_n.force @ R.T,
+                      mass=scene_n.mass),
+                torch.cat([out_card[..., :3] @ R.T, out_card[..., 3:] @ R.T], dim=-1)),
+        "trans": (Scene(pos=scene_n.pos + torch.tensor([1.5, -0.5, 2.0], device=dev),
+                        vel=scene_n.vel, force=scene_n.force, mass=scene_n.mass), out_card),
+        "perm": (Scene(pos=scene_n.pos[:, perm], vel=scene_n.vel[:, perm],
+                       force=scene_n.force[:, perm], mass=scene_n.mass[:, perm]),
+                 out_card[:, perm]),
+    }
+    equiv_n = {}
+    for name, (moved, want_m) in moves.items():
+        with torch.no_grad():
+            got_m = nmodel(moved, fc(moved))
+        equiv_n[name] = (got_m - want_m).abs().max().item()
+        if not (torch.isfinite(got_m).all()
+                and equiv_n[name] <= PAINN_EQUIV_RTOL * want_m.abs().max().item()):
+            fail(f"painn: {name} off by {equiv_n[name]} (max |out| {want_m.abs().max().item()}, "
+                 f"rtol {PAINN_EQUIV_RTOL})")
+    # the forward's operations (multiply-adds count 2): per layer the filter
+    # MLP on the edge rows, the source MLP, the equivariant linear and the
+    # mixing MLP on the node rows; the embeddings and the two readouts
+    H_, R_, L_ = PAINN_KW["hidden_features"], PAINN_KW["num_rbf"], PAINN_KW["num_layers"]
+    e_rows, n_rows = PAINN_B * PAINN_N * PAINN_N, PAINN_B * PAINN_N
+    fwd_flops_n = 2.0 * (
+        L_ * (e_rows * (R_ * H_ + 3 * H_ * H_) + n_rows * (3 * H_ * H_ + 9 * H_ * H_)
+              + n_rows * (3 * 2 * H_ * H_ + 2 * H_ * 3 * H_ + 9 * H_ * H_))
+        + n_rows * 2 * (2 * H_ + H_ * H_) + n_rows * 2 * (2 * H_ * H_ + 3 * H_ * H_ + 3 * H_))
+    fwd_bytes_n = 4.0 * (n_params_n + n_rows * 10 + n_rows * 6)
+    fwd_bound_n, fwd_by_n = bound_ms(fwd_bytes_n, fwd_flops_n)
+    del gt_n, moves
+    print(f"  painn: forward, device busy {busy_share(busy_n, fwd_ms_n)}, {launches_n} kernels; "
+          f"top kernels: {top_n}", flush=True)
+    report("painn", t0, B=PAINN_B, N=PAINN_N, layers=L_, width=H_, num_rbf=R_,
+           init=f"fresh, seed {PAINN_SEED}", n_params=n_params_n,
+           fwd_max_abs_err=f"{fwd_err_n:.3e}", max_abs_out=f"{fwd_scale_n:.3e}",
+           rtol=PAINN_FWD_RTOL, fwd_ms=f"{fwd_ms_n:.4f}", fwd_bound_ms=f"{fwd_bound_n:.4f}",
+           fwd_bound_by=fwd_by_n, fwd_gflop=f"{fwd_flops_n / 1e9:.2f}",
+           fwd_busy_ms=("not measured" if busy_n is None else f"{busy_n:.3f}"),
+           fwd_kernels=launches_n, equiv_rtol=PAINN_EQUIV_RTOL,
+           **{f"{k}_max_abs_err": f"{v:.3e}" for k, v in equiv_n.items()},
+           leapfrog_launches=eval_counts["painn"]["leapfrog"])
+
+    # ------------------------------------------------------ 46. painn-rollout
+    # 100 steps, as [ponita-rollout]
+    t0 = time.perf_counter()
+    info = family_rollout("painn", nmodel, ncpu, PAINN_B, PAINN_N, PAINN_SUBSTEPS, 62,
+                          PAINN_CMP_B, PAINN_ROLL_RTOL, PAINN_NUDGE_FACTOR)
+    del ncpu, nmodel, scene_n, scene_nc
+    report("painn-rollout", t0, **info)
+
+    # -------------------------------------------------------- 47. train-painn
+    # the stability run's argv from a fresh initialisation, with one step
+    # from the checkpoint it wrote against the same step on the CPU in
+    # float64 ([train]'s gates); then a resume from that checkpoint
+    t0 = time.perf_counter()
+    info, (p_err_n, up_err_n, card_loss_n, cpu_loss_n), resumed_model, _ = family_train(
+        "painn", None, PAINN_ARGV, None, 0, 0, PAINN_PARAMS,
+        extra=lambda run_, scene_, y_: step_vs_cpu("train-painn", run_, written(run_), PAINN_KW,
+                                                   scene_, y_))
+    del resumed_model
+    print(f"  train-painn: one step from the written checkpoint, card f32 vs CPU f64 on "
+          f"{TRAIN_CMP_B} sims: loss {card_loss_n:.8f} / {cpu_loss_n:.8f}, params max rel err "
+          f"{p_err_n:.3e} (limit {TRAIN_PARAM_RTOL}), update max rel err {up_err_n:.3e} (limit "
+          f"{TRAIN_UPDATE_RTOL})", flush=True)
+    report("train-painn", t0, B=PAINN_B, N=PAINN_N, **info,
+           cmp_param_err=f"{p_err_n:.3e}", cmp_update_err=f"{up_err_n:.3e}")
+
+    # ---------------------------------------------------------- 48. hpo-painn
+    family_hpo("painn")
+
+    # --------------------------------------------------------------- 49. bign
     t0 = time.perf_counter()
     state = bign_bench.seeded_state(2)
     rows = []
@@ -2526,9 +2942,9 @@ def main() -> None:
         })
     # each kernel's launches on the training paths: [train]'s training (its
     # first GT batch included), [train]'s evaluation, [train-n5], and
-    # [train-ponita]'s fresh training, its evaluation and its resumed run,
-    # [train-segnn]'s and [train-eqv2]'s resumed training, its evaluation and
-    # its fresh run
+    # [train-ponita]'s, [train-segnn]'s and [train-painn]'s fresh training,
+    # its evaluation and its resumed run, [train-eqv2]'s and [train-gt]'s
+    # resumed training, its evaluation and its fresh run
     counter_of = {"egnn_messages (K1)": "k1", "gravity (K2)": "k2",
                   "gravity leapfrog (K2-leapfrog)": "leapfrog", "egnn_stream (K3)": "k3",
                   "egnn_messages bf16 (K1-bf16)": "k1_bf16",
@@ -2539,8 +2955,10 @@ def main() -> None:
                                    for path, c in train_counts.items()}
         # ... and on the evaluation layer's paths, PONITA's ([ponita],
         # [ponita-rollout], [battery-ponita], [hpo-ponita]), SEGNN's ([segnn],
-        # [segnn-rollout], [battery-segnn], [hpo-segnn]) and EquiformerV2's
-        # ([eqv2], [eqv2-rollout], [battery-eqv2], [hpo-equiformer_v2])
+        # [segnn-rollout], [battery-segnn], [hpo-segnn]), EquiformerV2's
+        # ([eqv2], [eqv2-rollout], [battery-eqv2], [hpo-equiformer_v2]),
+        # GraphTransformer's ([gt], [gt-rollout], [battery-gt], [hpo-gt]) and
+        # PaiNN's ([painn], [painn-rollout], [hpo-painn])
         entry["launches_eval"] = {path: c[counter_of[entry["name"]]]
                                   for path, c in eval_counts.items()}
     print(f"total {time.perf_counter() - T_START:.2f} s on {card}", flush=True)

@@ -2,7 +2,7 @@
 bases, through the ``self-feed`` main.
 
     python -m extending_the_n_body_benchmark_a_cross_model_study_of_geometric_deep_learning_architectures_tpu_torch.battery \\
-        [--family egnn_mc|ponita|segnn|equiformer_v2] [--seeds 281 9272] [--compute-dtypes float32 bfloat16] \\
+        [--family egnn_mc|ponita|segnn|equiformer_v2|graph_transformer] [--seeds 281 9272] [--compute-dtypes float32 bfloat16] \\
         [--draws 6] [--batch-size B] [--checkpoint PATH] [--device cuda] [--out DIR]
 
 For each compute dtype it builds a run dir around the checkpoint (by default
@@ -28,7 +28,12 @@ rolled out in training mode with live dropout, as the run's
 ``self_feed_train_mode`` says) in a run dir of its queue step
 (``scripts/queues/tpu_queue44.sh:43-48``, the same workload), beside the
 committed ``draws_ckpt130_1.json`` (seed 281) and ``draws2_ckpt130_1.json``
-(seed 9272).
+(seed 9272).  ``--family graph_transformer`` scores GraphTransformer (by
+default the committed ``docs/results/gt10m_r5/ckpt_130_model.ckpt``, L8
+h248, 8 heads, in f32, rolled out in training mode with live dropout) in a
+run dir of its queue step (``scripts/queues/tpu_queue48.sh:58-60``, the
+same workload), beside the committed ``draws_ckpt130.json`` (seed 281) and
+``draws2_ckpt130.json`` (seed 9272).
 
 Each draw is scored on two bases:
 
@@ -85,6 +90,13 @@ EQV2_RUN_ARGV = ["--main.model_type", "equiformer_v2", "--model.num_layers", "8"
                  "--model.remat", "true"]
 EQV2_COMMITTED = {281: os.path.join(EQV2_DIR, "draws_ckpt130_1.json"),
                   9272: os.path.join(EQV2_DIR, "draws2_ckpt130_1.json")}
+# the committed GraphTransformer checkpoint, the run that trained it and its batteries
+GT_DIR = os.path.join(REPO, "docs", "results", "gt10m_r5")
+GT_CKPT = os.path.join(GT_DIR, "ckpt_130_model.ckpt")
+GT_RUN_ARGV = ["--main.model_type", "graph_transformer", "--model.num_layers", "8",
+               "--model.hidden_features", "248", "--model.num_heads", "8"]
+GT_COMMITTED = {281: os.path.join(GT_DIR, "draws_ckpt130.json"),
+                9272: os.path.join(GT_DIR, "draws2_ckpt130.json")}
 # the study protocol that trained the checkpoint (README section 3)
 STUDY_RUN_ARGV = ["--dataloader.batch_size", "16",
                   "--dataloader.gravity_dataset.num_atoms", "100",
@@ -171,8 +183,8 @@ def run_battery(run_dir: str, seed: int, draws: int, device: str, out: str,
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--family", choices=["egnn_mc", "ponita", "segnn", "equiformer_v2"],
-                   default="egnn_mc")
+    p.add_argument("--family", default="egnn_mc",
+                   choices=["egnn_mc", "ponita", "segnn", "equiformer_v2", "graph_transformer"])
     p.add_argument("--seeds", type=int, nargs="+", default=[281, 9272])
     p.add_argument("--compute-dtypes", nargs="+", default=["float32", "bfloat16"],
                    choices=["float32", "bfloat16"])
@@ -191,7 +203,8 @@ def main(argv=None):
     # the families at the reference workload: (checkpoint, run argv, committed batteries)
     queued = {"ponita": (PONITA_CKPT, PONITA_RUN_ARGV, {}),
               "segnn": (SEGNN_CKPT, SEGNN_RUN_ARGV, SEGNN_COMMITTED),
-              "equiformer_v2": (EQV2_CKPT, EQV2_RUN_ARGV, EQV2_COMMITTED)}.get(args.family)
+              "equiformer_v2": (EQV2_CKPT, EQV2_RUN_ARGV, EQV2_COMMITTED),
+              "graph_transformer": (GT_CKPT, GT_RUN_ARGV, GT_COMMITTED)}.get(args.family)
     default_ckpt = queued[0] if queued else CKPT
     if args.checkpoint is None:
         args.checkpoint = default_ckpt

@@ -88,6 +88,8 @@ class OfflineSegnnDataLoader:
 
 DATALOADER_REGISTRY: Dict[str, Type] = {
     "egnn_mc_nbody": NBodyDataLoader,
+    "painn_nbody": NBodyDataLoader,
+    "graph_transformer_nbody": NBodyDataLoader,
     "ponita_nbody": NBodyDataLoader,
     "segnn_nbody": NBodyDataLoader,
     "seconv_nbody": NBodyDataLoader,

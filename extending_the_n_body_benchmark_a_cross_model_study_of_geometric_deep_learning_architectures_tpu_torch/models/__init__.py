@@ -1,10 +1,11 @@
 """Model registry: ``create_model(model_type, **overrides)``.
 
 Counterpart of the JAX package's ``models/__init__.py``; the port knows
-``egnn_mc``, ``ponita``, ``segnn``, ``seconv`` and ``equiformer_v2``, with the
-JAX package's defaults for them.  Every model is an ``nn.Module`` with the
-dense interface ``model(scene, mask) -> [B, N, 3k]``; a model with live
-dropout (EquiformerV2 in training mode) also takes ``generator=``, a
+``egnn_mc``, ``painn``, ``graph_transformer``, ``ponita``, ``segnn``,
+``seconv`` and ``equiformer_v2``, with the JAX package's defaults for them.
+Every model is an ``nn.Module`` with the dense interface ``model(scene, mask)
+-> [B, N, 3k]``; a model with live dropout (GraphTransformer and
+EquiformerV2 in training mode) also takes ``generator=``, a
 ``torch.Generator`` that draws its masks (:func:`needs_generator`).
 """
 
@@ -16,11 +17,15 @@ import torch
 
 from .egnn_mc import EGNNMC
 from .equiformer_v2 import EquiformerV2
+from .graph_transformer import GraphTransformer
+from .painn import PaiNN
 from .ponita import PONITA
 from .segnn import SEGNN, SEConv
 
-MODEL_REGISTRY: Dict[str, Any] = {"egnn_mc": EGNNMC, "ponita": PONITA, "segnn": SEGNN,
-                                  "seconv": SEConv, "equiformer_v2": EquiformerV2}
+MODEL_REGISTRY: Dict[str, Any] = {"egnn_mc": EGNNMC, "painn": PaiNN,
+                                  "graph_transformer": GraphTransformer, "ponita": PONITA,
+                                  "segnn": SEGNN, "seconv": SEConv,
+                                  "equiformer_v2": EquiformerV2}
 
 MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
     "egnn_mc": dict(
@@ -36,6 +41,15 @@ MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
         norm_diff=True,
         tanh=True,
     ),
+    "painn": dict(
+        hidden_features=192,
+        num_layers=6,
+        num_rbf=64,
+        cutoff=10.0,
+        use_velocity_input=True,
+        include_velocity_norm=True,
+    ),
+    "graph_transformer": dict(hidden_features=96, num_layers=4, num_heads=4),
     "ponita": dict(hidden_features=128, num_layers=8),
     "segnn": dict(hidden_features=96, lmax_attr=1, lmax_h=1, num_layers=20),
     "seconv": dict(hidden_features=96, lmax_attr=1, lmax_h=1, num_layers=8),
@@ -70,14 +84,14 @@ def create_model(model_type: str, device="cuda", dtype=torch.float32, **override
 
 def has_edge_stage(model) -> bool:
     """Whether ``model`` has an edge stage whose form ``edge_impl`` chooses
-    (EGNN-MC's kernel or dense forms); PONITA, SEGNN, SEConv and EquiformerV2 have
-    none."""
+    (EGNN-MC's kernel or dense forms); no other family has one."""
     return hasattr(model, "edge_impl")
 
 
 def needs_generator(model) -> bool:
     """Whether ``model`` draws dropout masks in its forward now (and so takes
-    ``generator=``): EquiformerV2 in training mode with a rate above 0."""
+    ``generator=``): GraphTransformer or EquiformerV2 in training mode with a
+    rate above 0."""
     return bool(getattr(model, "draws_dropout", False))
 
 

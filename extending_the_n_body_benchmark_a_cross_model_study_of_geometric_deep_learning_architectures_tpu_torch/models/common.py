@@ -18,6 +18,12 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def cast_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` in ``like``'s dtype (parameters are applied in the input's
+    dtype), with no op where they already agree."""
+    return t if t.dtype == like.dtype else t.to(like.dtype)
+
+
 def torch_kernel_init(t: torch.Tensor):
     """In place: ``U(+-1/sqrt(fan_in))`` for an ``[in, out]`` kernel."""
     bound = 1.0 / math.sqrt(t.shape[0])

@@ -50,18 +50,12 @@ from torch.utils.checkpoint import checkpoint
 from ..core import graph as G
 from ..core.scene import Scene
 from ..ops import so3_edge as SE
-from .common import LayerNorm, TorchLinear
+from .common import LayerNorm, TorchLinear, cast_like
 
 LMAX = 2
 KFULL = 9  # (LMAX+1)^2
 AVG_DEGREE = 23.395238876342773
 DISTANCE_WIDTH = 1024  # every distance expansion's width
-
-
-def _cast(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """``t`` in ``like``'s dtype (parameters are applied in the input's
-    dtype), with no op where they already agree."""
-    return t if t.dtype == like.dtype else t.to(like.dtype)
 
 
 def _uniform_(t: torch.Tensor, bound: float) -> torch.Tensor:
@@ -108,8 +102,8 @@ def _concat_atom_edge(owner: nn.Module, prefix: str, x_edge: torch.Tensor,
     """``[x_edge, source, target]`` over the dense edge grid: the source is
     the sender (broadcast on axis 2), the target the receiver (axis 1)."""
     B, N = charges.shape
-    src = _cast(getattr(owner, f"{prefix}source_embedding")(charges), x_edge)
-    tgt = _cast(getattr(owner, f"{prefix}target_embedding")(charges), x_edge)
+    src = cast_like(getattr(owner, f"{prefix}source_embedding")(charges), x_edge)
+    tgt = cast_like(getattr(owner, f"{prefix}target_embedding")(charges), x_edge)
     c = src.shape[-1]
     return torch.cat([x_edge, src[:, None, :, :].expand(B, N, N, c),
                       tgt[:, :, None, :].expand(B, N, N, c)], dim=-1)
@@ -166,9 +160,9 @@ class SO3Linear(nn.Module):
         self.rows = _per_l_rows(mmax)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [..., K, C_in]
-        w = _cast(self.weight, x)
+        w = cast_like(self.weight, x)
         outs = [F.linear(x[..., a:b, :], w[l]) for l, (a, b) in enumerate(self.rows)]
-        outs[0] = outs[0] + _cast(self.bias, x)
+        outs[0] = outs[0] + cast_like(self.bias, x)
         return torch.cat(outs, dim=-2)
 
 
@@ -196,8 +190,8 @@ class RMSNormSH(nn.Module):
         norm = torch.sum(x * x * balance, dim=(-2, -1), keepdim=True) / C  # [..., 1, 1]
         inv = (norm + self.eps) ** -0.5
         expand = SE.index_on_device(("l_of", lmax, None), lambda: l_of, x)
-        out = x * inv * _cast(self.affine_weight, x).index_select(0, expand)
-        return out + _cast(self.affine_bias, x) * e0
+        out = x * inv * cast_like(self.affine_weight, x).index_select(0, expand)
+        return out + cast_like(self.affine_bias, x) * e0
 
 
 class SO2Conv(nn.Module):
@@ -253,7 +247,7 @@ class SO2Conv(nn.Module):
             start += 2 * n
             if self.radial:
                 pair = pair * rad[mi + 1][..., None, :]
-            out = F.linear(pair, _cast(getattr(self, f"Dense_{mi}").weight, pair))
+            out = F.linear(pair, cast_like(getattr(self, f"Dense_{mi}").weight, pair))
             x_r, x_i = out.chunk(2, dim=-1)
             pieces += [(x_r[..., 0, :] - x_i[..., 1, :]).reshape(lead + (n, self.m_out)),
                        (x_r[..., 1, :] + x_i[..., 0, :]).reshape(lead + (n, self.m_out))]
@@ -400,7 +394,7 @@ class SO2Attention(nn.Module):
         if self.use_attn_renorm:
             a = self.LayerNorm_0(a)
         a = smooth_leaky_relu(a)
-        alpha = torch.sum(a * _cast(self.alpha_dot, a), dim=-1)  # [B,N,N,H]
+        alpha = torch.sum(a * cast_like(self.alpha_dot, a), dim=-1)  # [B,N,N,H]
         no_edge = ~adj[..., None]
         alpha = torch.softmax(alpha.masked_fill(no_edge, -1e9), dim=2)  # over senders
         alpha = alpha.masked_fill(no_edge, 0.0)
@@ -663,9 +657,9 @@ class EquiformerV2(nn.Module):
         # charge, and their mass (1) stands in
         q = scene.charge if scene.charge is not None else scene.mass
         charges = torch.clamp(q[..., 0].to(torch.int64), 0, self.max_num_elements - 1)
-        sphere = _cast(self.Embed_0(charges), pos)
+        sphere = cast_like(self.Embed_0(charges), pos)
         if self.equivariant_embedding:
-            vel = scene.vel[..., [1, 2, 0]][..., None] * _cast(self.vel_gate, pos)
+            vel = scene.vel[..., [1, 2, 0]][..., None] * cast_like(self.vel_gate, pos)
         else:
             vel = self.TorchLinear_0(scene.vel).reshape(B, N, 3, C)
         x = torch.cat([sphere[:, :, None, :], vel, pos.new_zeros(B, N, KFULL - 4, C)], dim=-2)
@@ -681,7 +675,7 @@ class EquiformerV2(nn.Module):
             x_edge = torch.exp(coeff * (dist - offsets) ** 2)
         else:  # exponential_decay
             x_edge = getattr(self, self.distance_linear)(
-                torch.exp(-_cast(self.decay_scale, pos) * torch.abs(dist)))
+                torch.exp(-cast_like(self.decay_scale, pos) * torch.abs(dist)))
         if self.share_atom_edge:
             x_edge = _concat_atom_edge(self, "shared_", x_edge, charges)
 

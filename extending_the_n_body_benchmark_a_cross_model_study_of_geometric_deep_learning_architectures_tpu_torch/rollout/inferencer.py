@@ -53,8 +53,8 @@ class Inferencer:
         """Autoregressive rollout from ``scene0``: ``(loc [B,T,N,3],
         vel [B,T,N,3], steps_survived)``.  ``num_neighbors=None`` is fully
         connected; ``rng`` (an int, 0 for None) seeds the dropout masks of a
-        model that draws them in the run's rollout mode (EquiformerV2 in
-        training mode), fresh every step."""
+        model that draws them in the run's rollout mode (GraphTransformer or
+        EquiformerV2 in training mode), fresh every step."""
         key = (num_steps, num_neighbors)
         if key not in self._rollouts:
             self._rollouts[key] = make_rollout_fn(

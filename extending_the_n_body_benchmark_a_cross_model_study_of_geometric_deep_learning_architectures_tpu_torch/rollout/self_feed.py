@@ -10,10 +10,11 @@ wait on the device inside the loop.  Semantics kept:
   (the force is never predicted);
 * a sim whose next state has ``|pos| > 1e9`` or a non-finite value freezes:
   its state stops updating, and ``survived [B]`` counts its unfrozen steps;
-* a model in training mode with live dropout (EquiformerV2) draws fresh
-  masks every step, from one ``torch.Generator`` on the scene's device
-  seeded with the rollout's integer ``rng`` (0 without one): the same seed
-  gives the same rollout, bit for bit, though not the JAX package's stream.
+* a model in training mode with live dropout (GraphTransformer,
+  EquiformerV2) draws fresh masks every step, from one ``torch.Generator``
+  on the scene's device seeded with the rollout's integer ``rng`` (0 without
+  one): the same seed gives the same rollout, bit for bit, though not the
+  JAX package's stream.
 """
 
 from __future__ import annotations
@@ -99,9 +100,9 @@ def run_self_feed(
 
     ``train_mode`` rolls out with the model in training mode (``model.train()``,
     else ``model.eval()``), as the JAX package's rollout does: a model with
-    dropout (EquiformerV2) then draws fresh masks every step, from a generator
-    seeded with the integer ``rng`` (0 for None); a model without dropout gives
-    the same numbers in either mode.
+    dropout (GraphTransformer, EquiformerV2) then draws fresh masks every step,
+    from a generator seeded with the integer ``rng`` (0 for None); a model
+    without dropout gives the same numbers in either mode.
 
     Returns ``(loc_actual, vel_actual, loc_pred, vel_pred, steps_survived)``
     with ``[B, T, N, 3]`` tensors and the minimum over sims of ``survived``.

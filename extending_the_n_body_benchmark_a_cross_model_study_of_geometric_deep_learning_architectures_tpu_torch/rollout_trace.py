@@ -1,6 +1,6 @@
 """Where a rollout step's time goes on the card: device busy time against wall time.
 
-    python -m extending_the_n_body_benchmark_a_cross_model_study_of_geometric_deep_learning_architectures_tpu_torch.rollout_trace [--family egnn_mc|segnn|equiformer_v2] [--runs 3]
+    python -m extending_the_n_body_benchmark_a_cross_model_study_of_geometric_deep_learning_architectures_tpu_torch.rollout_trace [--family egnn_mc|segnn|equiformer_v2|graph_transformer] [--runs 3]
 
 ``egnn_mc`` (the default) rolls the committed N=100 checkpoint (EGNN-MC
 6 x 128, fully connected, B=64) out from fresh ground truth (seed 0, 2000
@@ -11,8 +11,11 @@ evaluation's 999 steps (10000 substeps), in f32, as ``[segnn-rollout]``
 does; ``equiformer_v2`` the committed EquiformerV2 checkpoint (L8 c128, N=5,
 B=64) over the same 999 steps, in training mode with live dropout (the
 evaluation's mode, masks seeded with 0); its trace of ~1.3M kernels takes
-minutes to read (~15 minutes in all).  Each config runs once to warm up, then ``--runs`` times untraced
-(wall ms a step: host clock, synchronised at the end), then once under
+minutes to read (~15 minutes in all); ``graph_transformer`` the committed
+GraphTransformer checkpoint (L8 h248, 8 heads, N=5, B=64) over the same 999
+steps, in training mode with live dropout, as ``[gt-rollout]`` rolls it.
+Each config runs once to warm up, then ``--runs`` times untraced (wall ms a
+step: host clock, synchronised at the end), then once under
 ``torch.profiler``: the summed time of the CUDA kernels a step, the edge
 kernel's part of it, and the device's idle share of the traced wall time;
 then once more untraced, after the trace (whether tracing changed the
@@ -44,6 +47,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(REPO, "docs", "results", "fidelity_n100", "egnn_n100_ckpt_30_model.ckpt")
 SEGNN_CKPT = os.path.join(REPO, "docs", "results", "segnn10m_r5", "ckpt_110_model.ckpt")
 EQV2_CKPT = os.path.join(REPO, "docs", "results", "eqv2_10m_L8c128_cont", "ckpt_130_model.ckpt")
+GT_CKPT = os.path.join(REPO, "docs", "results", "gt10m_r5", "ckpt_130_model.ckpt")
 SAMPLE_FREQ = 10
 # family -> (checkpoint, B, N, substeps, model kwargs, configs: (name, kwargs, train mode))
 FAMILIES = {
@@ -55,6 +59,9 @@ FAMILIES = {
                       {"num_layers": 8, "sphere_channels": 128, "attn_hidden_channels": 128,
                        "ffn_hidden_channels": 128, "num_heads": 8},
                       (("f32-train", {}, True),)),
+    "graph_transformer": (GT_CKPT, 64, 5, 10000,
+                          {"num_layers": 8, "hidden_features": 248, "num_heads": 8},
+                          (("f32-train", {}, True),)),
 }
 EDGE_KERNEL = "egnn_edge_kernel"  # K1's __global__ name in csrc/egnn_messages.cu
 

@@ -18,10 +18,11 @@ Epochs, metric names, checkpoints, crash handling, the run-dir layout
 (``debug_layer_stats_every``, ``evaluation.layer_stats``) are the JAX
 trainer's, and so is PONITA's one-time calibration of its convolution kernels
 on the first training batch (``models.ponita.calibrate_params``), before a
-checkpoint is loaded over it.  A model with live dropout (EquiformerV2) draws
-each step's masks from one ``torch.Generator`` on the device, seeded with the
-run's ``seed`` (0 without one), where the JAX trainer splits a key a step: the
-streams differ, and the same seed gives the same run.  Not ported yet, and refused: the multi-device
+checkpoint is loaded over it.  A model with live dropout (GraphTransformer,
+EquiformerV2) draws each step's masks from one ``torch.Generator`` on the
+device, seeded with the run's ``seed`` (0 without one), where the JAX trainer
+splits a key a step: the streams differ, and the same seed gives the same
+run.  Not ported yet, and refused: the multi-device
 mesh.  On the card the edge kernel K1 and the GT
 integrator compute float32 (K1 also bf16 operands in the mixed model), so a
 ``double``, ``bfloat16`` or ``autocast`` run there needs the model's

@@ -9,19 +9,24 @@ pickle gives it (a namedtuple's fields), without importing any of them;
 :func:`read_jax_checkpoint` returns its ``params`` tree.
 
 :func:`params_from_jax` maps that flax tree onto the port's model's
-``state_dict``, for the ported families, EGNN-MC, PONITA, SEGNN, SEConv and
-EquiformerV2:
+``state_dict``, for the ported families, EGNN-MC, PONITA, SEGNN, SEConv,
+EquiformerV2, GraphTransformer and PaiNN:
 flax ``Dense`` kernels are ``[in, out]`` (an ``nn.Linear`` weight is ``[out,
 in]``), EGNN-MC's ``Scan_EGNNBlock_0/*`` leaves carry a leading layer axis,
 PONITA's tree has, beside ``params``, the ``calib`` collection (three
 statistics a convolution, which its convolutions keep as buffers), and the
 leaves of SEGNN's ``mp_scan`` and SEConv's ``Scan_SEConvLayer_0`` carry a
 leading layer axis; their tensor products' ``w_{a}_{b}_{c}`` and ``b_{c}``
-keep flax's names and shapes.  EquiformerV2's modules carry their flax names,
-so a key maps to its path by rule (``_eqv2_leaf``): ``TorchLinear`` and bare
-``Dense`` kernels transposed, LayerNorm ``scale`` as ``weight``, embeddings'
-``embedding`` as ``weight``, the blocks of ``Scan_TransBlock_0`` split from
-(and stacked on) its leading axis.
+keep flax's names and shapes.  EquiformerV2's, GraphTransformer's and
+PaiNN's modules carry their flax names, so a key maps to its path by one
+rule (``_flax_leaf``): ``TorchLinear`` and bare ``Dense`` kernels
+transposed, an ``MLP``'s ``layers.k`` its ``TorchLinear_k``, LayerNorm
+``scale`` as ``weight``, embeddings' ``embedding`` as ``weight``, every other
+leaf (GraphTransformer's attention kernels in flax's shapes, PaiNN's
+``[in, out]`` ``EquivariantLinear`` weights) under its own name; the port's
+``blocks.k`` are EquiformerV2's ``Scan_TransBlock_0`` and PaiNN's
+``Scan_PaiNNBlock_0``, split from (and stacked on) their leading axis, and
+GraphTransformer's ``_EncoderLayer_k``.
 :func:`params_to_jax` is its inverse, for the port's own checkpoints.
 :func:`opt_state_from_jax` finds AdamW's state (optax's
 ``ScaleByAdamState(count, mu, nu)``, or the port's ``{"count", "mu", "nu"}``)
@@ -31,7 +36,8 @@ not parameters.
 The family of a tree is the one a caller names (``model_type``) or, when it
 names none, the one whose top-level module the tree holds (EGNN-MC's
 ``Scan_EGNNBlock_0``, PONITA's ``_ConvNextBlock_0``, SEGNN's ``mp_scan``,
-SEConv's ``Scan_SEConvLayer_0``, EquiformerV2's ``Scan_TransBlock_0``); a
+SEConv's ``Scan_SEConvLayer_0``, EquiformerV2's ``Scan_TransBlock_0``,
+GraphTransformer's ``_EncoderLayer_0``, PaiNN's ``Scan_PaiNNBlock_0``); a
 family the port does not build, or a tree of none, raises.
 """
 
@@ -46,6 +52,8 @@ import numpy as np
 import torch
 
 from .models.equiformer_v2 import EquiformerV2, SO2Conv
+from .models.graph_transformer import GraphTransformer
+from .models.painn import PaiNN
 from .models.ponita import CALIB_STATS, PONITA
 from .models.segnn import SEGNN, SEConv
 
@@ -107,14 +115,24 @@ def linear_name(k: int) -> str:
     return f"{LINEAR}{k}"
 
 
-FAMILIES = ("egnn_mc", "ponita", "segnn", "seconv", "equiformer_v2")
+FAMILIES = ("egnn_mc", "ponita", "segnn", "seconv", "equiformer_v2", "graph_transformer",
+            "painn")
 # the top-level module that marks each family's flax tree, and state_dict key
 _JAX_MARKER = {"egnn_mc": "Scan_EGNNBlock_0", "ponita": "_ConvNextBlock_0",
                "segnn": "mp_scan", "seconv": "Scan_SEConvLayer_0",
-               "equiformer_v2": "Scan_TransBlock_0"}
+               "equiformer_v2": "Scan_TransBlock_0", "graph_transformer": "_EncoderLayer_0",
+               "painn": "Scan_PaiNNBlock_0"}
 _PORT_MARKER = {"egnn_mc": "layers.0.edge_w1", "ponita": "blocks.0.conv.spatial.kernel",
                 "segnn": "layers.0.message1.tp.b_0", "seconv": "layers.0.conv.b_0",
-                "equiformer_v2": "blocks.0.SO2Attention_0.alpha_dot"}
+                "equiformer_v2": "blocks.0.SO2Attention_0.alpha_dot",
+                "graph_transformer": "blocks.0.MultiHeadDotProductAttention_0.query.kernel",
+                "painn": "blocks.0._Interaction_0.MLP_0.layers.0.weight"}
+# the families whose modules carry their flax names: the flax module of the
+# port's ``blocks.k``, and whether it is scanned (the layers stacked on a
+# leading axis of one module's leaves)
+_NAMED_BLOCKS = {"equiformer_v2": ("Scan_TransBlock_0", True),
+                 "graph_transformer": ("_EncoderLayer_{}", False),
+                 "painn": ("Scan_PaiNNBlock_0", True)}
 
 _TP, _GATE = "SteerableTensorProduct_", "SteerableTPSwishGate_"
 # (port module, flax path, scanned) of every module with parameters of the
@@ -230,7 +248,14 @@ def flax_layer_paths(model) -> list:
     ``TorchLinear_k/Dense_0``) and each of its children, the activation as
     its flax class's first instance; the scanned blocks and an ``SO2Conv``
     that returns its extra channels beside its output (a tuple) are not
-    seen."""
+    seen.  GraphTransformer and PaiNN: every module at most two flax
+    modules deep under its flax path (GraphTransformer's encoder layers as
+    ``_EncoderLayer_k``, their dropouts among them; a top-level
+    ``TorchLinear_k`` also as ``TorchLinear_k/Dense_0``); PaiNN's scanned
+    blocks are not seen."""
+    if isinstance(model, (GraphTransformer, PaiNN)):
+        return _named_layer_paths(model, "painn" if isinstance(model, PaiNN)
+                                  else "graph_transformer")
     if isinstance(model, EquiformerV2):
         out = []
         for name, child in model.named_children():
@@ -271,6 +296,20 @@ def flax_layer_paths(model) -> list:
     return out + [(model, [""])]
 
 
+def _named_layer_paths(model, family: str) -> list:
+    out = []
+    for name, module in model.named_modules():
+        if not name or isinstance(module, torch.nn.ModuleList):
+            continue
+        flax, layer = _flax_modules(name.split("."), family)
+        if layer is not None or len(flax) > 2:
+            continue
+        path = "/".join(flax)
+        top_linear = len(flax) == 1 and path.startswith(LINEAR)
+        out.append((module, [path, f"{path}/Dense_0"] if top_linear else [path]))
+    return out + [(model, [""])]
+
+
 def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C"))  # a writable copy
 
@@ -299,8 +338,8 @@ def params_from_jax(params: Dict[str, Any], model_type: Optional[str] = None,
     family = _family(model_type, jax_family(params), "the params tree")
     if family == "ponita":
         return _ponita_from_jax(params, calib)
-    if family == "equiformer_v2":
-        return _eqv2_from_jax(params)
+    if family in _NAMED_BLOCKS:
+        return _named_from_jax(params, family)
     if family in _STEERABLE_MODULES:
         return _steerable_from_jax(params, family)
     p = params.get("params", params)
@@ -360,16 +399,14 @@ def _steerable_from_jax(params: Dict[str, Any], family: str) -> "OrderedDict[str
     return sd
 
 
-_EQV2_SCAN = "Scan_TransBlock_0"
-
-
-def _eqv2_leaf(mods: list, leaf: str) -> Tuple[list, str, bool]:
-    """EquiformerV2's rule between a port key and a flax path: ``(modules,
-    leaf, transposed)`` of the flax path, from the port key's modules and
-    leaf name.  A ``TorchLinear_k`` holds its ``Dense_0`` (``kernel`` the
-    transposed ``weight``), a bare ``Dense_k`` its ``kernel``, a
-    ``LayerNorm_k`` its ``scale``, an embedding its ``embedding``; every
-    other leaf keeps its name."""
+def _flax_leaf(mods: list, leaf: str) -> Tuple[list, str, bool]:
+    """The rule between a port key and a flax path for the families whose
+    modules carry their flax names: ``(modules, leaf, transposed)`` of the
+    flax path, from the port key's modules (an ``MLP``'s ``layers.k`` read as
+    its ``TorchLinear_k``) and leaf name.  A ``TorchLinear_k`` holds its
+    ``Dense_0`` (``kernel`` the transposed ``weight``), a bare ``Dense_k`` its
+    ``kernel``, a ``LayerNorm_k`` its ``scale``, an embedding its
+    ``embedding``; every other leaf keeps its name."""
     parent = mods[-1] if mods else ""
     if parent.startswith(LINEAR):
         return mods + ["Dense_0"], {"weight": "kernel"}.get(leaf, leaf), leaf == "weight"
@@ -382,35 +419,6 @@ def _eqv2_leaf(mods: list, leaf: str) -> Tuple[list, str, bool]:
     return mods, leaf, False
 
 
-def _eqv2_to_jax(sd) -> Dict[str, Any]:
-    """The port's EquiformerV2 ``state_dict`` as the flax tree: each key's
-    path by :func:`_eqv2_leaf`, the blocks stacked on a leading axis under
-    ``Scan_TransBlock_0``."""
-    p: Dict[str, Any] = {}
-    stacked: Dict[tuple, list] = {}
-    for key, t in sd.items():
-        parts = key.split(".")
-        layer = None
-        if parts[0] == "blocks":
-            layer, parts = int(parts[1]), [_EQV2_SCAN] + parts[2:]
-        mods, leaf, transposed = _eqv2_leaf(parts[:-1], parts[-1])
-        a = _array(t)
-        a = a.T.copy() if transposed else a
-        if layer is None:
-            node = p
-            for k in mods:
-                node = node.setdefault(k, {})
-            node[leaf] = a
-        else:
-            stacked.setdefault(tuple(mods) + (leaf,), []).append((layer, a))
-    for path, items in stacked.items():
-        node = p
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = np.stack([a for _, a in sorted(items, key=lambda i: i[0])])
-    return {"params": p}
-
-
 def _flat(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, Mapping):
@@ -419,33 +427,99 @@ def _flat(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def _eqv2_port_leaf(mods: list, name: str) -> Tuple[list, str, bool]:
-    """The inverse of :func:`_eqv2_leaf`: ``(modules, leaf, transposed)`` of
+def _port_leaf(mods: list, name: str) -> Tuple[list, str, bool]:
+    """The inverse of :func:`_flax_leaf`: ``(modules, leaf, transposed)`` of
     the port key whose flax path is ``mods`` and ``name``, the first of the
     few keys that can map there (a ``TorchLinear``'s owner of ``Dense_0``,
     then the path's own modules; ``weight``, ``bias``, then the name)."""
     owners = [mods[:-1]] if mods[-1:] == ["Dense_0"] else []
     for own in owners + [mods]:
         for leaf in ("weight", "bias", name):
-            flax_mods, flax_leaf, transposed = _eqv2_leaf(own, leaf)
+            flax_mods, flax_leaf, transposed = _flax_leaf(own, leaf)
             if flax_mods == mods and flax_leaf == name:
                 return own, leaf, transposed
-    raise KeyError(f"no EquiformerV2 key maps to {'/'.join(mods + [name])}")
+    raise KeyError(f"no port key maps to {'/'.join(mods + [name])}")
 
 
-def _eqv2_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
+def _flax_modules(parts: list, family: str) -> Tuple[list, Optional[int]]:
+    """The flax modules of a port module path (``parts``) of a family whose
+    modules carry their flax names: ``blocks.k`` read as the family's block
+    module, an ``MLP``'s ``layers.k`` as its ``TorchLinear_k``; and ``k``
+    where the block is scanned (None elsewhere)."""
+    block, scanned = _NAMED_BLOCKS[family]
+    layer = None
+    if parts[:1] == ["blocks"]:
+        layer, parts = int(parts[1]), [block.format(parts[1])] + parts[2:]
+    mods, it = [], iter(parts)
+    for comp in it:
+        mods.append(f"{LINEAR}{next(it)}" if comp == "layers" else comp)
+    return mods, layer if scanned else None
+
+
+def _named_to_flax(key: str, family: str) -> Tuple[list, Optional[int], bool]:
+    """``(flax path, layer, transposed)`` of a port key of a family whose
+    modules carry their flax names: the modules by :func:`_flax_modules`,
+    the leaf by :func:`_flax_leaf`."""
+    parts = key.split(".")
+    mods, layer = _flax_modules(parts[:-1], family)
+    mods, leaf, transposed = _flax_leaf(mods, parts[-1])
+    return mods + [leaf], layer, transposed
+
+
+def _flax_to_named(path: tuple, family: str) -> Tuple[str, bool, bool]:
+    """The inverse of :func:`_named_to_flax`: ``(port key, scanned,
+    transposed)`` of a flax path, the key holding ``{}`` where a scanned
+    leaf's layer goes."""
+    block, scanned = _NAMED_BLOCKS[family]
+    mods, leaf, transposed = _port_leaf(list(path[:-1]), path[-1])
+    first, out = (mods or [""])[0], []
+    if scanned and first == block:
+        out, mods = ["blocks", "{}"], mods[1:]
+    elif not scanned and first.startswith(block.format("")):
+        out, mods = ["blocks", first[len(block.format("")):]], mods[1:]
+    for j, comp in enumerate(mods):
+        if comp.startswith(LINEAR) and j and mods[j - 1].startswith("MLP_"):
+            out += ["layers", comp[len(LINEAR):]]  # an MLP's k-th linear
+        else:
+            out.append(comp)
+    return ".".join(out + [leaf]), out[:2] == ["blocks", "{}"], transposed
+
+
+def _named_from_jax(params: Dict[str, Any], family: str) -> "OrderedDict[str, torch.Tensor]":
     p = params.get("params", params)
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     for path, leaf in _flat(p):
-        mods, key_leaf, transposed = _eqv2_port_leaf(list(path[:-1]), path[-1])
+        key, scanned, transposed = _flax_to_named(path, family)
         arr = np.asarray(leaf)
-        if mods and mods[0] == _EQV2_SCAN:
-            for i in range(arr.shape[0]):
-                sd[".".join(["blocks", str(i)] + mods[1:] + [key_leaf])] = _tensor(
-                    arr[i].T if transposed else arr[i])
-        else:
-            sd[".".join(mods + [key_leaf])] = _tensor(arr.T if transposed else arr)
+        for i, a in (enumerate(arr) if scanned else [(None, arr)]):
+            sd[key.format(i)] = _tensor(a.T if transposed else a)
     return sd
+
+
+def _named_to_jax(sd, family: str) -> Dict[str, Any]:
+    """A ``state_dict`` (a model's or one module's) of a family whose modules
+    carry their flax names as the flax tree: each key's path by
+    :func:`_named_to_flax`, a scanned block's layers stacked on a leading
+    axis."""
+    p: Dict[str, Any] = {}
+    stacked: Dict[tuple, list] = {}
+    for key, t in sd.items():
+        path, layer, transposed = _named_to_flax(key, family)
+        a = _array(t)
+        a = a.T.copy() if transposed else a
+        if layer is None:
+            node = p
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = a
+        else:
+            stacked.setdefault(tuple(path), []).append((layer, a))
+    for path, items in stacked.items():
+        node = p
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.stack([a for _, a in sorted(items, key=lambda i: i[0])])
+    return {"params": p}
 
 
 def _leaf_names(sd, prefix: str) -> list:
@@ -521,8 +595,8 @@ def params_to_jax(sd, model_type: Optional[str] = None) -> Dict[str, Any]:
     family = _family(model_type, port_family(sd), "the state_dict")
     if family == "ponita":
         return _ponita_to_jax(sd)
-    if family == "equiformer_v2":
-        return _eqv2_to_jax(sd)
+    if family in _NAMED_BLOCKS:
+        return _named_to_jax(sd, family)
     if family in _STEERABLE_MODULES:
         return _steerable_to_jax(sd, family)
     p: Dict[str, Any] = {EMBEDDING: _dense(sd["embedding.weight"], sd["embedding.bias"])}

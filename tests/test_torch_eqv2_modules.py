@@ -3,7 +3,7 @@ float64 on the CPU.
 
 Each port module gets its seeded float64 initialisation; its ``state_dict``
 becomes the flax module's params through the converter's EquiformerV2 rule
-(``weights._eqv2_to_jax``: the port's modules carry the flax names), and
+(``weights._named_to_jax``: the port's modules carry the flax names), and
 both run on the same numpy inputs.  Every output agrees within 1e-12 of its
 largest value:
 
@@ -43,7 +43,7 @@ def _rng(seed):
 
 
 def _flax(module):
-    return {"params": weights._eqv2_to_jax(module.state_dict())["params"]}
+    return {"params": weights._named_to_jax(module.state_dict(), "equiformer_v2")["params"]}
 
 
 def _assert_rel(got, want, what=""):
