@@ -12,8 +12,10 @@ paths with a fresh model of its 10M run's width at depth 2 (phases 25-29),
 SEGNN's with a fresh
 model of its 10M run's width at depth 2 (phases 30-34), EquiformerV2's with
 its committed 10M checkpoint (phases 35-39), GraphTransformer's with its
-committed 10M checkpoint (phases 40-44) and PaiNN's with a fresh model at
-the width of its stability run (phases 45-48): the bench
+committed 10M checkpoint (phases 40-44), PaiNN's with a fresh model at
+the width of its stability run and depth 2 (phases 45-48), CGENN's with a
+fresh model at its 10M run's shape (phases 49-52) and GMN's with a fresh
+model at its defaults (phases 53-56): the bench
 workload (B=64 sims of N=100 bodies, dense edge stage K1) and the big-N path
 (B=8 sims of N=512 bodies, streaming edge stage K3), each in f32 and in the
 mixed-bf16 model (``compute_dtype="bfloat16"``: hidden and message stack in
@@ -218,13 +220,14 @@ bf16, coordinates, geometry and integration in f32):
  44. hpo-gt        hpo.run_study("graph_transformer", 2 trials, param_small) at the
                    reference default: one epoch of 10 steps and a 20-step
                    evaluation a trial, widths a multiple of the heads
- 45. painn         a fresh PaiNN at the size of its stability run
-                   (docs/results/painn_stab_v5e/run_config.yaml: width 192, 6
-                   layers, 64 RBF, cutoff 10, with that run's stability toggles)
+ 45. painn         a fresh PaiNN at the width of its stability run
+                   (docs/results/painn_stab_v5e/run_config.yaml: width 192, 64
+                   RBF, cutoff 10, with that run's stability toggles) and depth 2
+                   (the run's 6 cut to give the smoke's time to CGENN and GMN)
                    from a seed: a forward at B=64, N=5 on a fresh GT frame against
                    the CPU's float64, its ms, busy share and kernels beside its
                    bound; rotation, translation and permutation equivariance on
-                   the card; the parameter count 7,467,648
+                   the card; the parameter count 2,687,616
  46. painn-rollout  GT at the reference workload through one K2-leapfrog launch,
                    100 self-feed steps (no kernel), six-macro KS score; 20 steps
                    on the card against the CPU's float64 on 4 sims; the 100 steps
@@ -238,11 +241,53 @@ bf16, coordinates, geometry and integration in f32):
                    seed: 10 steps, the AdamW count and the epoch going on
  48. hpo-painn     hpo.run_study("painn", 2 trials, param_small) at the reference
                    default: one epoch of 10 steps and a 20-step evaluation a trial
- 49. bign          bign_bench rows: steps/s and peak memory, dense K1 against
+ 49. cgenn         a fresh CGENN at its 10M run's shape (docs/results/
+                   cgenn_10m_L6h176_cont: 6 layers, 176 channels of Cl(3)
+                   multivectors, remat) from a seed: a forward at B=64, N=5 on a
+                   fresh GT frame against the CPU's float64, its ms, busy share,
+                   kernels and peak memory beside its bound; CGENN is
+                   near-equivariant only (its algebra's signature is a frozen
+                   metric's eigenvalues), so the card's output at a rotated scene
+                   is held against the CPU's float64 output at the same rotated
+                   scene, and the CPU's own rotation residual is printed;
+                   translation and permutation; the parameter count 9,814,466
+                   (also by hpo's meta-device count)
+ 50. cgenn-rollout  GT at the reference workload through one K2-leapfrog launch,
+                   100 self-feed steps (no kernel), six-macro KS score; 20 steps
+                   on the card against the CPU's float64 on 4 sims; the 100 steps
+                   repeated from the same GT bitwise equal, their steps/s warm
+ 51. train-cgenn   the train command with the 10M run's argv (--main.model_type
+                   cgenn --model.num_layers 6 --model.hidden_features 176
+                   --model.remat true, B=64, N=5) from a fresh initialisation: 2
+                   epochs of 20 steps, the checkpoint read back bitwise and in the
+                   JAX layout, its 100-step evaluation and KS score, one step from
+                   that checkpoint against the CPU's float64 step ([train]'s
+                   gates); step ms, busy share, peak memory; then resumed from a
+                   copy of that checkpoint on another dataloader seed: 10 steps,
+                   the AdamW count and the epoch going on
+ 52. hpo-cgenn     hpo.run_study("cgenn", 2 trials, param_small) at the reference
+                   default: one epoch of 10 steps and a 20-step evaluation a
+                   trial, each trial's widths and count the JAX bisection's
+                   (CGENN_HPO_WANT)
+ 53. gmn           a fresh GMN at its defaults (64 channels, 4 layers, 5 isolated
+                   bodies) from a seed: a forward at B=64, N=5 against the CPU's
+                   float64 beside its bound; rotation (exact for GMN),
+                   translation and permutation on the card; one forward each of
+                   a seeded stick (1, 2, 0) and hinge (0, 0, 2) composition on a
+                   seeded scene against the CPU's float64; the count 150,212
+ 54. gmn-rollout   as [cgenn-rollout]
+ 55. train-gmn     the train command (--main.model_type gmn, B=64, N=5) as
+                   [train-cgenn]
+ 56. hpo-gmn       hpo.run_study("gmn", 2 trials, mode="free") at the reference
+                   default (GMN's space has no width knob to bisect)
+ 57. bign          bign_bench rows: steps/s and peak memory, dense K1 against
                    streaming K3, at (N,B) = (256,16), (512,8), (1024,2), (4096,1)
 
-Each phase prints one line with its result and elapsed seconds.  Any failed
-check exits non-zero before the result is printed.  The second-to-last line
+Each phase prints one line with its result and elapsed seconds, and
+``[launch-probe]`` lines give the host's microseconds a tiny op at a few
+points of the run (the start, around the first torch.profiler trace, before
+the families' phases, the end).  Any failed check exits non-zero before the
+result is printed.  The second-to-last line
 is a JSON object with every kernel's launches on its path (and on the
 training and evaluation paths), its error against the plain version, its
 time, the plain version's time and its bound; the last line is ``{"ok":
@@ -257,6 +302,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import gc
 import json
 import os
 import shutil
@@ -352,6 +398,13 @@ N5_EPOCHS, N5_STEPS = 5, 10
 # rounding of the parameters being up to ~2.4e-3 of an update of 2.6e-4 x
 # the ratio of Adam's moments.
 TRAIN_CMP_B, TRAIN_PARAM_RTOL, TRAIN_UPDATE_RTOL = 4, 1e-4, 2e-2
+# a tensor no output reads (GMN's last node model) gets a zero gradient and
+# moves by its weight decay alone, ~1e-12 of itself a step: below 1e-10 of
+# the parameter on the CPU in float64, and invisible in float32, where its
+# card update is held within two float32 ulps of the parameter
+DECAY_ONLY_RTOL, F32_ULP = 1e-10, 2.0**-23
+# the host's cost of a launch, by PROBE_LAUNCHES tiny elementwise ops
+PROBE_LAUNCHES = 2000
 TIMED_STEPS = 10
 
 # the evaluation layer.  The GT-vs-GT floors at the committed protocols
@@ -504,22 +557,23 @@ GT_DRAWS = 1
 # rehearsal of the committed checkpoint: 2.6e-17 to 3.0e-16)
 GT_KEY_BIAS_GRAD_RTOL = 1e-10
 
-# PaiNN at the size of its stability run (docs/results/painn_stab_v5e/
-# run_config.yaml: H192, L6, 64 RBF, cutoff 10, the stability toggles and
-# gradient clipping by norm 1.0; no checkpoint is committed), from a fresh
-# initialisation made from a seed, at the reference workload (N=5, B=64,
-# sim_length 10000, num_neighbors 4)
+# PaiNN at the width of its stability run (docs/results/painn_stab_v5e/
+# run_config.yaml: H192, 64 RBF, cutoff 10, the stability toggles and
+# gradient clipping by norm 1.0; no checkpoint is committed) and depth 2 (the
+# run's 6 cut to give the smoke's time to CGENN and GMN, as PONITA's and
+# SEGNN's were), from a fresh initialisation made from a seed, at the
+# reference workload (N=5, B=64, sim_length 10000, num_neighbors 4)
 PAINN_TOGGLES = dict(residual_scale_interaction=0.5, tanh_message_scale=5.0, filter_gain=0.5,
                      clip_vector_msg_norm=10.0, clip_scalar_msg_value=10.0,
                      residual_scale_mixing=0.5, tanh_mixing_scale=5.0, clip_mu_norm=20.0,
                      clip_q_value=100.0)
-PAINN_KW = dict(hidden_features=192, num_layers=6, num_rbf=64, cutoff=10.0, **PAINN_TOGGLES)
-PAINN_ARGV = (["--main.model_type", "painn", "--trainer.clip_gradients_norm", "1.0"]
+PAINN_KW = dict(hidden_features=192, num_layers=2, num_rbf=64, cutoff=10.0, **PAINN_TOGGLES)
+PAINN_ARGV = (["--main.model_type", "painn", "--model.num_layers", "2",
+               "--trainer.clip_gradients_norm", "1.0"]
               + [a for k, v in PAINN_TOGGLES.items() for a in (f"--model.{k}", str(v))])
-PAINN_PARAMS = 7_467_648
-PAINN_B, PAINN_N, PAINN_SUBSTEPS = 64, 5, 10000
+PAINN_PARAMS = 2_687_616
 PAINN_SEED = 14
-# the card's f32 forward against the CPU's float64 one (6 layers of f32 sums
+# the card's f32 forward against the CPU's float64 one (2 layers of f32 sums
 # over 4 senders, 576 channels): 1e-4 of the largest output.  Rotation,
 # translation and permutation of the scene: two f32 forwards, each ~1e-6
 # from exact, 1e-4 of the largest output
@@ -534,6 +588,54 @@ PAINN_CMP_B, PAINN_ROLL_RTOL, PAINN_NUDGE_FACTOR = 4, 1e-3, 100.0
 # with it, as the JAX package's does
 GT_HPO_WANT = ((dict(hidden_features=64, num_layers=6, num_heads=8), 1_696_070),
                (dict(hidden_features=64, num_layers=8, num_heads=4), 2_258_374))
+
+# the reference workload of the fresh families' paths (PaiNN's, CGENN's and
+# GMN's): N=5, B=64, sim_length 10000
+REF_B, REF_N, REF_SUBSTEPS = 64, 5, 10000
+
+# CGENN at its 10M run's shape (docs/results/cgenn_10m_L6h176_cont: L6 h176,
+# remat; scripts/queues/tpu_queue39.sh:58-67; no checkpoint is committed),
+# from a fresh initialisation made from a seed, at the reference workload
+CGENN_KW = dict(hidden_features=176, num_layers=6, remat=True)
+CGENN_ARGV = ["--main.model_type", "cgenn", "--model.num_layers", "6",
+              "--model.hidden_features", "176", "--model.remat", "true"]
+CGENN_PARAMS = 9_814_466
+CGENN_SEED = 15
+# the card's f32 forward against the CPU's float64 one: 1e-4 of the largest
+# output.  CGENN is near-equivariant only (its algebra's signature is the
+# frozen metric's eigenvalues), so the rotated scene's output on the card is
+# held against the CPU's float64 output at the same rotated scene, within the
+# same 1e-4; translation and permutation as PaiNN's
+CGENN_FWD_RTOL, CGENN_EQUIV_RTOL = 1e-4, 1e-4
+CGENN_CMP_B, CGENN_ROLL_RTOL, CGENN_NUDGE_FACTOR = 4, 1e-3, 100.0
+# the tensors a fresh CGENN starts at zero: the gates' biases, the product's
+# normalisation logits, the linears' scalar-blade biases.  After [train-cgenn]'s
+# 40 steps their values are those steps' updates alone (one update is ~5% of
+# them), so [train]'s parameter gate (1e-4 of the largest value) would hold
+# their one-step update to ~2e-3 of itself, tighter than the 2e-2 every
+# tensor's update meets; float32 rounds the model's small gradient elements
+# as the JAX model's float32 does (tests/test_torch_cgenn_model.py), and
+# AdamW's update of each element reads its gradient relative to its own size.
+# They are held by the update gate
+CGENN_ZERO_INIT = (".b", "._Normalization_0.a", ".bias")
+# the two param_small trials of the CGENN study (seed 0): the widths and counts
+# of the JAX package's adjust_width_to_target (tests/test_torch_cgenn_train.py
+# holds these against it)
+CGENN_HPO_WANT = ((dict(hidden_features=80, num_layers=5), 1_720_962),
+                  (dict(hidden_features=64, num_layers=8), 1_776_386))
+
+# GMN at its defaults (h64, L4, 5 isolated bodies), fresh from a seed
+GMN_KW = dict(hidden_features=64, num_layers=4, n_isolated=5, n_stick=0, n_hinge=0)
+GMN_ARGV = ["--main.model_type", "gmn"]
+GMN_PARAMS = 150_212
+GMN_SEED = 16
+# rotation is exact for GMN: the card's output at the rotated scene against
+# the card's output turned, within 1e-4 of the largest output
+GMN_FWD_RTOL, GMN_EQUIV_RTOL = 1e-4, 1e-4
+GMN_CMP_B, GMN_ROLL_RTOL, GMN_NUDGE_FACTOR = 4, 1e-3, 100.0
+# the stick and hinge compositions, one forward each on a seeded scene against
+# the CPU's float64 (their data, the offline constrained sets, is not ported)
+GMN_COMPOSITIONS = ((1, 2, 0), (0, 0, 2))
 
 # H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, dense bf16 on the tensor
 # cores, HBM3 bandwidth
@@ -587,6 +689,25 @@ def eqv2_forward_cost(model, bb: int, nn_: int):
             + Nn * (L * (9 * HV * C + ffn_node) + 9 * HV * 2 + 3 * 3 * C))
     grid = 4.0 * EQV2_GRID_PASSES * G * ((L + 1) * E * H + L * Nn * F)
     return 2.0 * macs, grid
+
+
+def cgenn_forward_flops(C: int, L: int, bb: int, nn_: int) -> float:
+    """The operations of one CGENN forward (multiply-adds count 2) at ``bb``
+    sims of ``nn_`` bodies, every pair an edge row as the dense model computes
+    it: per layer two Clifford MLP sublayers on the edge rows and two on the
+    node rows (the node MLP's first reads ``2 C`` channels), each an
+    ``MVLinear`` (8 blades of an ``in x C`` product), the product's two
+    ``MVLinear``s and its two-step contraction (``C x 8 x 64``, then ``C x
+    64`` a row); the embedding and the readout.  The gates and norms
+    (elementwise, ~2% more) are left out."""
+    e_rows, n_rows = bb * nn_ * nn_, bb * nn_
+
+    def sublayer(rows: int, c_in: int) -> int:
+        return rows * C * (8 * (c_in + 2 * C) + 8 * 64 + 64)
+
+    macs = (L * (2 * sublayer(e_rows, C) + sublayer(n_rows, 2 * C) + sublayer(n_rows, C))
+            + n_rows * C * 3 * 8 + n_rows * 2 * C * 8)
+    return 2.0 * macs
 
 
 def tp_flops(tp) -> float:
@@ -661,6 +782,36 @@ def main() -> None:
         end.synchronize()
         return start.elapsed_time(end) / iters
 
+    probes = []
+
+    def launch_probe(where: str) -> None:
+        """The host's microseconds a launch at this point of the run: a sync,
+        then PROBE_LAUNCHES in-place adds on a 64-float tensor (dispatch and
+        launch, no new tensor), the same number of out-of-place adds (a new
+        tensor object each) with the garbage collector on and with it off,
+        and the collector's tracked objects.  One line; a failed probe fails
+        no phase."""
+        x = torch.zeros(64, device=dev)
+        times = {}
+        for name, fn in (("inplace", lambda: x.add_(1.0)), ("alloc", lambda: x + 1.0),
+                         ("alloc_gc_off", lambda: x + 1.0)):
+            if name == "alloc_gc_off":
+                gc.disable()
+            try:
+                sync()
+                t = time.perf_counter()
+                for _ in range(PROBE_LAUNCHES):
+                    fn()
+                sync()
+                times[name] = (time.perf_counter() - t) * 1e6 / PROBE_LAUNCHES
+            finally:
+                gc.enable()
+        probes.append((where, times))
+        print(f"[launch-probe] at={where!r} " + " ".join(f"{k}_us={v:.2f}" for k, v in
+                                                           times.items())
+              + f" gc_tracked_objects={len(gc.get_objects())} gc_counts={gc.get_count()} "
+              f"t={time.perf_counter() - T_START:.1f}", flush=True)
+
     # ------------------------------------------------------------ 1. device
     t0 = time.perf_counter()
     card = bign_bench.card_name()
@@ -679,6 +830,7 @@ def main() -> None:
            bf16_reduced_precision_reduction=(
                torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction),
            cublas_workspace_config=os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    launch_probe("start")
 
     # ------------------------------------------------------------- 2. build
     t0 = time.perf_counter()
@@ -1443,13 +1595,19 @@ def main() -> None:
         """``(device busy ms a call of step(), its top kernels, kernels a
         call)`` over 3 calls, from torch.profiler's kernel events (user
         annotations left out), or None, why there is no such list, and
-        None."""
+        None.  The first call probes the host's launch cost just before and
+        just after its trace."""
+        first = not any(where.endswith("first trace") for where, _ in probes)
         try:
+            if first:
+                launch_probe("before the first trace")
             acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
             with torch.profiler.profile(activities=acts) as prof:
                 for _ in range(3):
                     step()
                 sync()
+            if first:
+                launch_probe("after the first trace")
             by_name = collections.Counter()
             launches = 0
             for e in prof.events():
@@ -1465,7 +1623,7 @@ def main() -> None:
             return None, f"not measured ({type(e).__name__}: {e})", None
 
     def step_vs_cpu(tag: str, run: dict, payload, model_kw: dict, scene, y,
-                    noise_only: tuple = ()):
+                    noise_only: tuple = (), zero_init: tuple = ()):
         """One training step on the card (f32) against the same step on the
         CPU in float64, from ``payload``'s parameters and AdamW state, on the
         first TRAIN_CMP_B sims of ``(scene, y)``: each parameter within
@@ -1475,7 +1633,12 @@ def main() -> None:
         step is AdamW's reading of rounding noise (float32 noise on the card,
         float64 noise on the CPU) and its update is printed, not held; its
         parameters are held within TRAIN_PARAM_RTOL of the largest value of
-        the kernel it biases.  Returns both errors and both losses."""
+        the kernel it biases.  A tensor whose key ends with one of
+        ``zero_init`` starts at zero in a fresh model, so after the run's
+        steps its value is those steps' updates alone, and its parameter
+        error, which is its update error (both sides start from the same
+        parameters), is held by the update gate: within TRAIN_UPDATE_RTOL of
+        its largest update.  Returns both errors and both losses."""
         trainer, a = run["trainer"], run["args"]
         sub = (Scene(*(t_[:TRAIN_CMP_B] for t_ in (scene.pos, scene.vel, scene.force,
                                                   scene.mass))), y[:TRAIN_CMP_B])
@@ -1498,8 +1661,8 @@ def main() -> None:
                           before, float(vec[0])))
             del m, o
         (card_p, card_b, card_loss), (cpu_p, cpu_b, cpu_loss) = after
-        p_err = up_err = noise_err = 0.0
-        bad = []
+        p_err = up_err = noise_err = young_err = 0.0
+        bad, decay_only = [], []
         for k, want_p in cpu_p.items():
             noise = bool(noise_only) and k.endswith(noise_only)
             # a tensor the loss never reaches stays zero with a zero update
@@ -1510,13 +1673,27 @@ def main() -> None:
             e = (card_p[k] - want_p).abs().max().item() / scale
             du = (cpu_p[k] - cpu_b[k]).abs().max().item() or 1.0
             u = ((card_p[k] - card_b[k]) - (cpu_p[k] - cpu_b[k])).abs().max().item() / du
-            if not (e <= TRAIN_PARAM_RTOL and (noise or u <= TRAIN_UPDATE_RTOL)):
-                bad.append(f"{k} by {e:.3e} of its largest value"
-                           + (" (of its kernel's)" if noise else f" and its update by {u:.3e}"))
-            p_err = max(p_err, e)
+            young = bool(zero_init) and k.endswith(zero_init)
+            if young:  # its whole value is the run's updates
+                e = (card_p[k] - want_p).abs().max().item() / du
+                young_err = max(young_err, e)
+            decay = not noise and bool(
+                ((cpu_p[k] - cpu_b[k]).abs() <= DECAY_ONLY_RTOL * cpu_b[k].abs()).all())
+            if decay:  # held within two float32 ulps of the parameter, elementwise
+                over = (((card_p[k] - card_b[k]) - (cpu_p[k] - cpu_b[k])).abs()
+                        - 2 * F32_ULP * cpu_b[k].abs()).max().item()
+                decay_only.append(k)
+            if not (e <= (TRAIN_UPDATE_RTOL if young else TRAIN_PARAM_RTOL)
+                    and (noise or (over <= 0 if decay else u <= TRAIN_UPDATE_RTOL))):
+                bad.append(f"{k} by {e:.3e} of its largest {'update' if young else 'value'}"
+                           + (" (of its kernel's)" if noise else
+                              f" and its update by {over:.3e} past two float32 ulps" if decay
+                              else f" and its update by {u:.3e}"))
+            if not young:
+                p_err = max(p_err, e)
             if noise:
                 noise_err = max(noise_err, u)
-            else:
+            elif not decay:
                 up_err = max(up_err, u)
         if bad:
             fail(f"{tag}: after one step on the card, against the CPU float64 step (limits "
@@ -1525,6 +1702,14 @@ def main() -> None:
         if noise_only:
             print(f"  {tag}: the biases {noise_only} (no gradient in exact arithmetic): update "
                   f"differs by {noise_err:.3e} of the CPU's, not held", flush=True)
+        if zero_init:
+            print(f"  {tag}: the tensors that start at zero ({', '.join(zero_init)}): parameters "
+                  f"within {young_err:.3e} of their largest update (limit {TRAIN_UPDATE_RTOL})",
+                  flush=True)
+        if decay_only:
+            print(f"  {tag}: {len(decay_only)} tensors no output reads moved by their weight "
+                  f"decay alone (under {DECAY_ONLY_RTOL} of themselves on the CPU): their card "
+                  f"update within two float32 ulps: {', '.join(decay_only)}", flush=True)
         return p_err, up_err, card_loss, cpu_loss
 
     def busy_share(busy_ms, step_ms) -> str:
@@ -1848,6 +2033,84 @@ def main() -> None:
     def fc(s):
         return graph.knn_mask(s.pos, s.pos.shape[1] - 1)
 
+    def ref_frame(tag: str, seed: int):
+        """A fresh GT batch at the reference workload (REF_B sims of REF_N
+        bodies, REF_SUBSTEPS substeps) through one K2-leapfrog launch and no
+        other kernel: its first frame as a scene on the card, and the
+        launch counts."""
+        reset_counts()
+        gt_ = otf.GravityDatasetOtf(
+            batch_size=REF_B, sim_length=REF_SUBSTEPS, sample_freq=SAMPLE_FREQ, num_nodes=REF_N,
+            interaction_strength=G_CONST, softening=SOFTENING, seed=seed,
+            device=dev).get_ground_truth_trajectories()
+        sync()
+        got = counted({"leapfrog": 1}, tag)
+        return Scene(pos=gt_[0][:, 0], vel=gt_[1][:, 0], force=gt_[2][:, 0], mass=gt_[3]), got
+
+    def fresh_pair(family: str, kw: dict, seed: int, want: int):
+        """A fresh model of ``family`` from ``seed`` in float64 on the CPU and
+        the same parameters in float32 on the card, both in eval mode; its
+        parameter count, by the model and by hpo's meta-device count, must be
+        ``want``."""
+        torch.manual_seed(seed)
+        cpu_m = models.create_model(family, device="cpu", dtype=torch.float64, **kw).eval()
+        card_m = models.create_model(family, device=dev, **kw).eval()
+        card_m.load_state_dict(cpu_m.state_dict())
+        got = (models.count_params(card_m), hpo._count_params(family, kw, REF_N))
+        if got != (want, want):
+            fail(f"{family}: {got[0]} parameters ({got[1]} by hpo), want {want}")
+        return card_m, cpu_m
+
+    def forward_vs_cpu(tag: str, card_m, cpu_m, s, rtol: float):
+        """``card_m``'s forward on ``s`` against ``cpu_m``'s in float64 on the
+        CPU, within ``rtol`` of the largest output: ``(card output, CPU
+        output, error, largest output)``."""
+        s_c = cpu64(s)
+        with torch.no_grad():
+            out_k, out_c = card_m(s, fc(s)), cpu_m(s_c, fc(s_c))
+        err, scale = (out_k.double().cpu() - out_c).abs().max().item(), out_c.abs().max().item()
+        if not (torch.isfinite(out_k).all() and err <= rtol * scale):
+            fail(f"{tag}: the card's forward differs from the CPU's float64 one by {err} "
+                 f"(max |out| {scale}, rtol {rtol})")
+        return out_k, out_c, err, scale
+
+    def proper_rotation(seed: int):
+        """A rotation (no reflection), float64 on the host, from a seed."""
+        q, r = torch.linalg.qr(torch.randn((3, 3), generator=torch.Generator().manual_seed(seed),
+                                           dtype=torch.float64))
+        R_ = q * torch.sign(torch.diagonal(r))
+        return R_ if torch.det(R_) > 0 else -R_
+
+    def turn_scene(s, R_):
+        return Scene(pos=s.pos @ R_.T, vel=s.vel @ R_.T, force=s.force @ R_.T, mass=s.mass)
+
+    def turn_out(o, R_):
+        return torch.cat([o[..., :3] @ R_.T, o[..., 3:] @ R_.T], dim=-1)
+
+    def check_moves(tag: str, model_, s, out, rtol: float, rotation=None) -> dict:
+        """On the card: a shift of the scene leaves the output as it was, a
+        permutation of its 5 bodies permutes it, and ``rotation`` (where
+        given) turns both output vectors, each within ``rtol`` of the largest
+        output.  Returns each move's largest error."""
+        perm = torch.tensor([3, 0, 4, 1, 2], device=dev)
+        moves = {"trans": (Scene(pos=s.pos + torch.tensor([1.5, -0.5, 2.0], device=dev),
+                                 vel=s.vel, force=s.force, mass=s.mass), out),
+                 "perm": (Scene(pos=s.pos[:, perm], vel=s.vel[:, perm], force=s.force[:, perm],
+                                mass=s.mass[:, perm]), out[:, perm])}
+        if rotation is not None:
+            R_ = rotation.float().to(dev)
+            moves["rot"] = (turn_scene(s, R_), turn_out(out, R_))
+        errs = {}
+        for name, (moved, want_m) in moves.items():
+            with torch.no_grad():
+                got_m = model_(moved, fc(moved))
+            errs[name] = (got_m - want_m).abs().max().item()
+            if not (torch.isfinite(got_m).all()
+                    and errs[name] <= rtol * want_m.abs().max().item()):
+                fail(f"{tag}: {name} off by {errs[name]} (max |out| "
+                     f"{want_m.abs().max().item()}, rtol {rtol})")
+        return errs
+
     def family_rollout(family: str, model_, cpu_model, bb: int, nn_: int, substeps: int,
                        seed: int, cmp_b: int, rtol: float, nudge_factor: float,
                        train_mode: bool = False, dropout_seed=None) -> dict:
@@ -2132,26 +2395,29 @@ def main() -> None:
                  f"float64 one by {err} (max |out| {scale}, rtol {rtol})")
         return err, scale
 
-    def family_hpo(family: str, want=None, tag=None) -> None:
-        """Two param_small trials of ``family`` at the reference default, each
-        one epoch of 10 steps and a 20-step evaluation: every trial done, its
-        value finite and its count within the budget, or, where ``want``
-        gives them, its widths and count those of ``want``; K2-leapfrog
-        launches only.  The phase is ``tag`` (``hpo-<family>`` where None)."""
+    def family_hpo(family: str, want=None, tag=None, mode: str = "param_small") -> None:
+        """Two trials of ``family`` at the reference default, each one epoch
+        of 10 steps and a 20-step evaluation: every trial done, its value
+        finite and, in a param mode, its count within the budget, or, where
+        ``want`` gives them, its widths and count those of ``want``;
+        K2-leapfrog launches only.  The phase is ``tag`` (``hpo-<family>``
+        where None)."""
         tag = tag or f"hpo-{family}"
         t0 = time.perf_counter()
-        target = hpo.PARAM_TARGETS["param_small"]
+        target = hpo.PARAM_TARGETS.get(mode)
         with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
             reset_counts()
-            best = hpo.run_study(family, trials=HPO_TRIALS, mode="param_small", study_dir="hpo",
+            best = hpo.run_study(family, trials=HPO_TRIALS, mode=mode, study_dir="hpo",
                                  train_epochs=1, steps_per_epoch=10,
                                  self_feed_limit_steps=HPO_EVAL_STEPS, device=dev)
             sync()
             got = counts()
-            with open(os.path.join("hpo", f"{family}_param_small_trials.jsonl")) as f:
+            with open(os.path.join("hpo", f"{family}_{mode}_trials.jsonl")) as f:
                 trials = [json.loads(line) for line in f]
         for i, t in enumerate(trials):
-            if want is None:
+            if target is None:
+                budget = True
+            elif want is None:
                 budget = abs(t["n_params"] - target) <= hpo.PARAM_TOLERANCE * target
             else:
                 budget = i < len(want) and (t["model_kwargs"], t["n_params"]) == want[i]
@@ -2167,9 +2433,10 @@ def main() -> None:
                   f"value={t['value']:.4f} {t['seconds']:.2f} s steps_per_min="
                   f"{t['steps_per_min']:.1f} peak_hbm_mb={t.get('peak_hbm_mb', float('nan')):.1f}",
                   flush=True)
-        report(tag, t0, trials=len(trials), mode="param_small",
+        report(tag, t0, trials=len(trials), mode=mode,
                best_value=f"{best['value']:.4f}", leapfrog_launches=got["leapfrog"])
 
+    launch_probe("before [ponita]")
     # ------------------------------------------------------------- 25. ponita
     # a fresh PONITA of its 10M run's width (h480, L2) from a seed, calibrated on its first
     # batch (a fresh GT frame) on the card and, from the same parameters, on
@@ -2410,6 +2677,7 @@ def main() -> None:
     # --------------------------------------------------------- 34. hpo-segnn
     family_hpo("segnn")
 
+    launch_probe("before [eqv2]")
     # --------------------------------------------------------------- 35. eqv2
     # the committed EquiformerV2 checkpoint through the converter, on the
     # card: an eval-mode forward on a fresh GT frame against the same model in
@@ -2716,84 +2984,39 @@ def main() -> None:
     family_hpo("graph_transformer", GT_HPO_WANT, tag="hpo-gt")
 
     # -------------------------------------------------------------- 45. painn
-    # a fresh PaiNN at the size of its stability run, from a seed: a forward
+    # a fresh PaiNN at the width of its stability run (depth 2), from a seed: a forward
     # on a fresh GT frame on the card against the same model in float64 on
     # the CPU, its ms, busy share and kernels beside its bound, the parameter
     # count; rotation, translation and permutation equivariance.  PaiNN is
     # plain PyTorch: no kernel but the GT's
     t0 = time.perf_counter()
-    torch.manual_seed(PAINN_SEED)
-    ncpu = models.create_model("painn", device="cpu", dtype=torch.float64, **PAINN_KW)
-    nmodel = models.create_model("painn", device=dev, **PAINN_KW)
-    nmodel.load_state_dict(ncpu.state_dict())
-    nmodel.eval()
-    ncpu.eval()
-    n_params_n = models.count_params(nmodel)
-    n_params_n_hpo = hpo._count_params("painn", PAINN_KW, PAINN_N)
-    if n_params_n != PAINN_PARAMS or n_params_n_hpo != PAINN_PARAMS:
-        fail(f"painn: {n_params_n} parameters ({n_params_n_hpo} by hpo), want {PAINN_PARAMS}")
-    reset_counts()
-    gt_n = otf.GravityDatasetOtf(
-        batch_size=PAINN_B, sim_length=PAINN_SUBSTEPS, sample_freq=SAMPLE_FREQ,
-        num_nodes=PAINN_N, interaction_strength=G_CONST, softening=SOFTENING, seed=60,
-        device=dev).get_ground_truth_trajectories()
-    sync()
-    eval_counts["painn"] = counted({"leapfrog": 1}, "painn")
-    scene_n = Scene(pos=gt_n[0][:, 0], vel=gt_n[1][:, 0], force=gt_n[2][:, 0], mass=gt_n[3])
-    scene_nc = cpu64(scene_n)
+    nmodel, ncpu = fresh_pair("painn", PAINN_KW, PAINN_SEED, PAINN_PARAMS)
+    scene_n, eval_counts["painn"] = ref_frame("painn", 60)
+    out_card, _, fwd_err_n, fwd_scale_n = forward_vs_cpu("painn", nmodel, ncpu, scene_n,
+                                                         PAINN_FWD_RTOL)
     with torch.no_grad():
-        out_card = nmodel(scene_n, fc(scene_n))
-        out_cpu = ncpu(scene_nc, fc(scene_nc))
         fwd_ms_n = cuda_ms(lambda: nmodel(scene_n, fc(scene_n)), iters=20)
         busy_n, top_n, launches_n = top_kernels(lambda: nmodel(scene_n, fc(scene_n)), n=8)
-    fwd_err_n = (out_card.double().cpu() - out_cpu).abs().max().item()
-    fwd_scale_n = out_cpu.abs().max().item()
-    if not (torch.isfinite(out_card).all() and fwd_err_n <= PAINN_FWD_RTOL * fwd_scale_n):
-        fail(f"painn: the card's forward differs from the CPU's float64 one by {fwd_err_n} "
-             f"(max |out| {fwd_scale_n}, rtol {PAINN_FWD_RTOL})")
     # rotation (a proper one), translation and permutation of the scene: both
     # output vectors turn with the scene and follow its bodies, and a shift
     # changes nothing
-    q, r = torch.linalg.qr(torch.randn((3, 3), generator=torch.Generator().manual_seed(61),
-                                       dtype=torch.float64))
-    R = q * torch.sign(torch.diagonal(r))
-    R = (R if torch.det(R) > 0 else -R).float().to(dev)
-    perm = torch.tensor([3, 0, 4, 1, 2], device=dev)
-    moves = {
-        "rot": (Scene(pos=scene_n.pos @ R.T, vel=scene_n.vel @ R.T, force=scene_n.force @ R.T,
-                      mass=scene_n.mass),
-                torch.cat([out_card[..., :3] @ R.T, out_card[..., 3:] @ R.T], dim=-1)),
-        "trans": (Scene(pos=scene_n.pos + torch.tensor([1.5, -0.5, 2.0], device=dev),
-                        vel=scene_n.vel, force=scene_n.force, mass=scene_n.mass), out_card),
-        "perm": (Scene(pos=scene_n.pos[:, perm], vel=scene_n.vel[:, perm],
-                       force=scene_n.force[:, perm], mass=scene_n.mass[:, perm]),
-                 out_card[:, perm]),
-    }
-    equiv_n = {}
-    for name, (moved, want_m) in moves.items():
-        with torch.no_grad():
-            got_m = nmodel(moved, fc(moved))
-        equiv_n[name] = (got_m - want_m).abs().max().item()
-        if not (torch.isfinite(got_m).all()
-                and equiv_n[name] <= PAINN_EQUIV_RTOL * want_m.abs().max().item()):
-            fail(f"painn: {name} off by {equiv_n[name]} (max |out| {want_m.abs().max().item()}, "
-                 f"rtol {PAINN_EQUIV_RTOL})")
+    equiv_n = check_moves("painn", nmodel, scene_n, out_card, PAINN_EQUIV_RTOL,
+                          rotation=proper_rotation(61))
     # the forward's operations (multiply-adds count 2): per layer the filter
     # MLP on the edge rows, the source MLP, the equivariant linear and the
     # mixing MLP on the node rows; the embeddings and the two readouts
     H_, R_, L_ = PAINN_KW["hidden_features"], PAINN_KW["num_rbf"], PAINN_KW["num_layers"]
-    e_rows, n_rows = PAINN_B * PAINN_N * PAINN_N, PAINN_B * PAINN_N
+    e_rows, n_rows = REF_B * REF_N * REF_N, REF_B * REF_N
     fwd_flops_n = 2.0 * (
         L_ * (e_rows * (R_ * H_ + 3 * H_ * H_) + n_rows * (3 * H_ * H_ + 9 * H_ * H_)
               + n_rows * (3 * 2 * H_ * H_ + 2 * H_ * 3 * H_ + 9 * H_ * H_))
         + n_rows * 2 * (2 * H_ + H_ * H_) + n_rows * 2 * (2 * H_ * H_ + 3 * H_ * H_ + 3 * H_))
-    fwd_bytes_n = 4.0 * (n_params_n + n_rows * 10 + n_rows * 6)
+    fwd_bytes_n = 4.0 * (PAINN_PARAMS + n_rows * 10 + n_rows * 6)
     fwd_bound_n, fwd_by_n = bound_ms(fwd_bytes_n, fwd_flops_n)
-    del gt_n, moves
     print(f"  painn: forward, device busy {busy_share(busy_n, fwd_ms_n)}, {launches_n} kernels; "
           f"top kernels: {top_n}", flush=True)
-    report("painn", t0, B=PAINN_B, N=PAINN_N, layers=L_, width=H_, num_rbf=R_,
-           init=f"fresh, seed {PAINN_SEED}", n_params=n_params_n,
+    report("painn", t0, B=REF_B, N=REF_N, layers=L_, width=H_, num_rbf=R_,
+           init=f"fresh, seed {PAINN_SEED}", n_params=PAINN_PARAMS,
            fwd_max_abs_err=f"{fwd_err_n:.3e}", max_abs_out=f"{fwd_scale_n:.3e}",
            rtol=PAINN_FWD_RTOL, fwd_ms=f"{fwd_ms_n:.4f}", fwd_bound_ms=f"{fwd_bound_n:.4f}",
            fwd_bound_by=fwd_by_n, fwd_gflop=f"{fwd_flops_n / 1e9:.2f}",
@@ -2805,9 +3028,9 @@ def main() -> None:
     # ------------------------------------------------------ 46. painn-rollout
     # 100 steps, as [ponita-rollout]
     t0 = time.perf_counter()
-    info = family_rollout("painn", nmodel, ncpu, PAINN_B, PAINN_N, PAINN_SUBSTEPS, 62,
+    info = family_rollout("painn", nmodel, ncpu, REF_B, REF_N, REF_SUBSTEPS, 62,
                           PAINN_CMP_B, PAINN_ROLL_RTOL, PAINN_NUDGE_FACTOR)
-    del ncpu, nmodel, scene_n, scene_nc
+    del ncpu, nmodel, scene_n
     report("painn-rollout", t0, **info)
 
     # -------------------------------------------------------- 47. train-painn
@@ -2824,13 +3047,168 @@ def main() -> None:
           f"{TRAIN_CMP_B} sims: loss {card_loss_n:.8f} / {cpu_loss_n:.8f}, params max rel err "
           f"{p_err_n:.3e} (limit {TRAIN_PARAM_RTOL}), update max rel err {up_err_n:.3e} (limit "
           f"{TRAIN_UPDATE_RTOL})", flush=True)
-    report("train-painn", t0, B=PAINN_B, N=PAINN_N, **info,
+    report("train-painn", t0, B=REF_B, N=REF_N, **info,
            cmp_param_err=f"{p_err_n:.3e}", cmp_update_err=f"{up_err_n:.3e}")
 
     # ---------------------------------------------------------- 48. hpo-painn
     family_hpo("painn")
 
-    # --------------------------------------------------------------- 49. bign
+    # -------------------------------------------------------------- 49. cgenn
+    # a fresh CGENN at its 10M run's shape (L6 h176, remat) from a seed: a
+    # forward on a fresh GT frame on the card against the same model in
+    # float64 on the CPU, its ms, busy share, kernels and peak memory beside
+    # its bound, the parameter count; near-equivariance: the card at a rotated
+    # scene against the CPU's float64 at that scene, the CPU's own rotation
+    # residual printed; translation and permutation.  Plain PyTorch: no kernel
+    # but the GT's
+    launch_probe("before [cgenn]")
+    t0 = time.perf_counter()
+    cmodel, ccpu = fresh_pair("cgenn", CGENN_KW, CGENN_SEED, CGENN_PARAMS)
+    scene_c, eval_counts["cgenn"] = ref_frame("cgenn", 70)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start_c = torch.cuda.memory_allocated(dev)
+    out_card, out_cpu, fwd_err_c, fwd_scale_c = forward_vs_cpu("cgenn", cmodel, ccpu, scene_c,
+                                                               CGENN_FWD_RTOL)
+    peak_c = (torch.cuda.max_memory_allocated(dev) - start_c) / 2**20
+    with torch.no_grad():
+        fwd_ms_c = cuda_ms(lambda: cmodel(scene_c, fc(scene_c)), iters=10)
+        busy_c, top_c, launches_c = top_kernels(lambda: cmodel(scene_c, fc(scene_c)), n=8)
+    R_c = proper_rotation(71)
+    _, want_rot, rot_err_c, _ = forward_vs_cpu(
+        "cgenn at the rotated scene", cmodel, ccpu, turn_scene(scene_c, R_c.float().to(dev)),
+        CGENN_EQUIV_RTOL)
+    # the model's own rotation residual, in float64 on the CPU: not zero (the
+    # algebra's signature is the metric's eigenvalues), the same as the JAX
+    # model's (tests/test_torch_cgenn_model.py)
+    residual_c = ((want_rot - turn_out(out_cpu, R_c)).abs().max().item() / fwd_scale_c)
+    equiv_c = check_moves("cgenn", cmodel, scene_c, out_card, CGENN_EQUIV_RTOL, rotation=None)
+    fwd_flops_c = cgenn_forward_flops(CGENN_KW["hidden_features"], CGENN_KW["num_layers"],
+                                      REF_B, REF_N)
+    fwd_bound_c, fwd_by_c = bound_ms(4.0 * (CGENN_PARAMS + REF_B * REF_N * 10), fwd_flops_c)
+    print(f"  cgenn: forward, device busy {busy_share(busy_c, fwd_ms_c)}, {launches_c} kernels; "
+          f"top kernels: {top_c}", flush=True)
+    report("cgenn", t0, B=REF_B, N=REF_N, layers=CGENN_KW["num_layers"],
+           width=CGENN_KW["hidden_features"], remat=True, init=f"fresh, seed {CGENN_SEED}",
+           n_params=CGENN_PARAMS, fwd_max_abs_err=f"{fwd_err_c:.3e}",
+           max_abs_out=f"{fwd_scale_c:.3e}", rtol=CGENN_FWD_RTOL, fwd_ms=f"{fwd_ms_c:.4f}",
+           fwd_bound_ms=f"{fwd_bound_c:.4f}", fwd_bound_by=fwd_by_c,
+           fwd_gflop=f"{fwd_flops_c / 1e9:.2f}",
+           fwd_busy_ms=("not measured" if busy_c is None else f"{busy_c:.3f}"),
+           fwd_kernels=launches_c, fwd_peak_mib_above_start=f"{peak_c:.1f}",
+           rot_card_vs_cpu64_max_abs_err=f"{rot_err_c:.3e}",
+           cpu64_rotation_residual=f"{residual_c:.3e}", equiv_rtol=CGENN_EQUIV_RTOL,
+           **{f"{k}_max_abs_err": f"{v:.3e}" for k, v in equiv_c.items()},
+           leapfrog_launches=eval_counts["cgenn"]["leapfrog"])
+
+    # ------------------------------------------------------ 50. cgenn-rollout
+    t0 = time.perf_counter()
+    info = family_rollout("cgenn", cmodel, ccpu, REF_B, REF_N, REF_SUBSTEPS, 72, CGENN_CMP_B,
+                          CGENN_ROLL_RTOL, CGENN_NUDGE_FACTOR)
+    del ccpu, cmodel, scene_c
+    report("cgenn-rollout", t0, **info)
+
+    # -------------------------------------------------------- 51. train-cgenn
+    # the 10M run's argv from a fresh initialisation, with one step from the
+    # checkpoint it wrote against the same step on the CPU in float64
+    # ([train]'s gates); then a resume from that checkpoint
+    t0 = time.perf_counter()
+    info, (p_err_c, up_err_c, card_loss_c, cpu_loss_c), resumed_model, _ = family_train(
+        "cgenn", None, CGENN_ARGV, None, 0, 0, CGENN_PARAMS,
+        extra=lambda run_, scene_, y_: step_vs_cpu("train-cgenn", run_, written(run_), CGENN_KW,
+                                                   scene_, y_, zero_init=CGENN_ZERO_INIT))
+    del resumed_model
+    print(f"  train-cgenn: one step from the written checkpoint, card f32 vs CPU f64 on "
+          f"{TRAIN_CMP_B} sims: loss {card_loss_c:.8f} / {cpu_loss_c:.8f}, params max rel err "
+          f"{p_err_c:.3e} (limit {TRAIN_PARAM_RTOL}), update max rel err {up_err_c:.3e} (limit "
+          f"{TRAIN_UPDATE_RTOL})", flush=True)
+    report("train-cgenn", t0, B=REF_B, N=REF_N, **info,
+           cmp_param_err=f"{p_err_c:.3e}", cmp_update_err=f"{up_err_c:.3e}")
+
+    # ---------------------------------------------------------- 52. hpo-cgenn
+    # each trial's widths and count the JAX package's bisection's (CGENN_HPO_WANT)
+    family_hpo("cgenn", CGENN_HPO_WANT)
+
+    # ---------------------------------------------------------------- 53. gmn
+    # a fresh GMN at its defaults from a seed: a forward on a fresh GT frame
+    # against the CPU's float64 beside its bound; rotation, translation and
+    # permutation on the card; the stick and hinge compositions on seeded
+    # scenes against the CPU's float64; the parameter count
+    t0 = time.perf_counter()
+    gmodel, gcpu = fresh_pair("gmn", GMN_KW, GMN_SEED, GMN_PARAMS)
+    scene_m, eval_counts["gmn"] = ref_frame("gmn", 80)
+    out_card_m, _, fwd_err_m, fwd_scale_m = forward_vs_cpu("gmn", gmodel, gcpu, scene_m,
+                                                           GMN_FWD_RTOL)
+    with torch.no_grad():
+        fwd_ms_m = cuda_ms(lambda: gmodel(scene_m, fc(scene_m)), iters=20)
+        busy_m, top_m, launches_m = top_kernels(lambda: gmodel(scene_m, fc(scene_m)), n=8)
+    equiv_m = check_moves("gmn", gmodel, scene_m, out_card_m, GMN_EQUIV_RTOL,
+                          rotation=proper_rotation(81))
+    comp_err = {}
+    for i, (iso, st, hi) in enumerate(GMN_COMPOSITIONS):
+        kw_o = dict(GMN_KW, n_isolated=iso, n_stick=st, n_hinge=hi)
+        nn_o = iso + 2 * st + 3 * hi
+        torch.manual_seed(GMN_SEED + 1 + i)
+        cpu_o = models.create_model("gmn", device="cpu", dtype=torch.float64, **kw_o).eval()
+        card_o = models.create_model("gmn", device=dev, **kw_o).eval()
+        card_o.load_state_dict(cpu_o.state_dict())
+        g_o = torch.Generator().manual_seed(82 + i)
+        s_k = Scene(pos=torch.randn((4, nn_o, 3), generator=g_o) * 1.5,
+                    vel=torch.randn((4, nn_o, 3), generator=g_o) * 0.5,
+                    force=torch.zeros((4, nn_o, 3)), mass=torch.ones((4, nn_o, 1)))
+        s_k = Scene(*(t_.to(dev) for t_ in (s_k.pos, s_k.vel, s_k.force, s_k.mass)))
+        comp_err[(iso, st, hi)] = forward_vs_cpu(f"gmn composition {(iso, st, hi)}", card_o,
+                                                 cpu_o, s_k, GMN_FWD_RTOL)[2]
+        del cpu_o, card_o
+    # per layer the edge MLP, the force weight and the node MLP, on 1,600 edge
+    # and 320 node rows; the velocity gate; the embedding (multiply-adds count 2)
+    H_m, L_m = GMN_KW["hidden_features"], GMN_KW["num_layers"]
+    e_rows_m, n_rows_m = REF_B * REF_N * REF_N, REF_B * REF_N
+    fwd_flops_m = 2.0 * (L_m * (e_rows_m * ((2 * H_m + 2) * H_m + 2 * H_m * H_m + H_m)
+                                + n_rows_m * (4 * H_m * H_m + H_m * H_m + H_m))
+                         + n_rows_m * 2 * H_m)
+    fwd_bound_m, fwd_by_m = bound_ms(4.0 * (GMN_PARAMS + n_rows_m * 10 + n_rows_m * 6),
+                                     fwd_flops_m)
+    print(f"  gmn: forward, device busy {busy_share(busy_m, fwd_ms_m)}, {launches_m} kernels; "
+          f"top kernels: {top_m}", flush=True)
+    report("gmn", t0, B=REF_B, N=REF_N, layers=L_m, width=H_m, n_isolated=GMN_KW["n_isolated"],
+           init=f"fresh, seed {GMN_SEED}", n_params=GMN_PARAMS,
+           fwd_max_abs_err=f"{fwd_err_m:.3e}", max_abs_out=f"{fwd_scale_m:.3e}",
+           rtol=GMN_FWD_RTOL, fwd_ms=f"{fwd_ms_m:.4f}", fwd_bound_ms=f"{fwd_bound_m:.5f}",
+           fwd_bound_by=fwd_by_m, fwd_gflop=f"{fwd_flops_m / 1e9:.3f}",
+           fwd_busy_ms=("not measured" if busy_m is None else f"{busy_m:.3f}"),
+           fwd_kernels=launches_m, equiv_rtol=GMN_EQUIV_RTOL,
+           **{f"{k}_max_abs_err": f"{v:.3e}" for k, v in equiv_m.items()},
+           **{f"composition_{a}_{b}_{c}_max_abs_err": f"{v:.3e}"
+              for (a, b, c), v in comp_err.items()},
+           leapfrog_launches=eval_counts["gmn"]["leapfrog"])
+
+    # -------------------------------------------------------- 54. gmn-rollout
+    t0 = time.perf_counter()
+    info = family_rollout("gmn", gmodel, gcpu, REF_B, REF_N, REF_SUBSTEPS, 83, GMN_CMP_B,
+                          GMN_ROLL_RTOL, GMN_NUDGE_FACTOR)
+    del gcpu, gmodel, scene_m
+    report("gmn-rollout", t0, **info)
+
+    # ---------------------------------------------------------- 55. train-gmn
+    t0 = time.perf_counter()
+    info, (p_err_m, up_err_m, card_loss_m, cpu_loss_m), resumed_model, _ = family_train(
+        "gmn", None, GMN_ARGV, None, 0, 0, GMN_PARAMS,
+        extra=lambda run_, scene_, y_: step_vs_cpu("train-gmn", run_, written(run_), GMN_KW,
+                                                   scene_, y_))
+    del resumed_model
+    print(f"  train-gmn: one step from the written checkpoint, card f32 vs CPU f64 on "
+          f"{TRAIN_CMP_B} sims: loss {card_loss_m:.8f} / {cpu_loss_m:.8f}, params max rel err "
+          f"{p_err_m:.3e} (limit {TRAIN_PARAM_RTOL}), update max rel err {up_err_m:.3e} (limit "
+          f"{TRAIN_UPDATE_RTOL})", flush=True)
+    report("train-gmn", t0, B=REF_B, N=REF_N, **info,
+           cmp_param_err=f"{p_err_m:.3e}", cmp_update_err=f"{up_err_m:.3e}")
+
+    # ------------------------------------------------------------ 56. hpo-gmn
+    # GMN's search space has no width knob: two free trials
+    family_hpo("gmn", mode="free")
+    launch_probe("end")
+
+    # --------------------------------------------------------------- 57. bign
     t0 = time.perf_counter()
     state = bign_bench.seeded_state(2)
     rows = []
@@ -2942,7 +3320,8 @@ def main() -> None:
         })
     # each kernel's launches on the training paths: [train]'s training (its
     # first GT batch included), [train]'s evaluation, [train-n5], and
-    # [train-ponita]'s, [train-segnn]'s and [train-painn]'s fresh training,
+    # [train-ponita]'s, [train-segnn]'s, [train-painn]'s, [train-cgenn]'s and
+    # [train-gmn]'s fresh training,
     # its evaluation and its resumed run, [train-eqv2]'s and [train-gt]'s
     # resumed training, its evaluation and its fresh run
     counter_of = {"egnn_messages (K1)": "k1", "gravity (K2)": "k2",
@@ -2957,8 +3336,10 @@ def main() -> None:
         # [ponita-rollout], [battery-ponita], [hpo-ponita]), SEGNN's ([segnn],
         # [segnn-rollout], [battery-segnn], [hpo-segnn]), EquiformerV2's
         # ([eqv2], [eqv2-rollout], [battery-eqv2], [hpo-equiformer_v2]),
-        # GraphTransformer's ([gt], [gt-rollout], [battery-gt], [hpo-gt]) and
-        # PaiNN's ([painn], [painn-rollout], [hpo-painn])
+        # GraphTransformer's ([gt], [gt-rollout], [battery-gt], [hpo-gt]),
+        # PaiNN's ([painn], [painn-rollout], [hpo-painn]), CGENN's ([cgenn],
+        # [cgenn-rollout], [hpo-cgenn]) and GMN's ([gmn], [gmn-rollout],
+        # [hpo-gmn])
         entry["launches_eval"] = {path: c[counter_of[entry["name"]]]
                                   for path, c in eval_counts.items()}
     print(f"total {time.perf_counter() - T_START:.2f} s on {card}", flush=True)

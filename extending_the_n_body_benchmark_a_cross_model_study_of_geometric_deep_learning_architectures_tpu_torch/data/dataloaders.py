@@ -93,7 +93,9 @@ DATALOADER_REGISTRY: Dict[str, Type] = {
     "ponita_nbody": NBodyDataLoader,
     "segnn_nbody": NBodyDataLoader,
     "seconv_nbody": NBodyDataLoader,
+    "cgenn_nbody": NBodyDataLoader,
     "equiformer_v2_nbody": NBodyDataLoader,
+    "gmn_nbody": NBodyDataLoader,
     "segnn_nbody_offline": OfflineSegnnDataLoader,
 }
 

@@ -230,7 +230,9 @@ def adjust_width_to_target(
 ) -> Tuple[Dict[str, Any], int]:
     """Bisection on the primary width knob until the param count is within
     tolerance of the target, counting on the meta device.  Returns (kwargs,
-    param_count)."""
+    param_count).  A family the port cannot build raises before the width
+    knob is looked for, so a study of it raises rather than failing a trial."""
+    _require_family(model_type)
     key = _WIDTH_KEY.get(model_type, "hidden_features")
     if key not in model_kwargs:
         raise ValueError(

@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``models/__init__.py``; the port knows
 ``egnn_mc``, ``painn``, ``graph_transformer``, ``ponita``, ``segnn``,
-``seconv`` and ``equiformer_v2``, with the JAX package's defaults for them.
+``seconv``, ``cgenn``, ``gmn`` and ``equiformer_v2`` (every family the JAX
+package registers), with the JAX package's defaults for them.
 Every model is an ``nn.Module`` with the dense interface ``model(scene, mask)
 -> [B, N, 3k]``; a model with live dropout (GraphTransformer and
 EquiformerV2 in training mode) also takes ``generator=``, a
@@ -15,8 +16,10 @@ from typing import Any, Dict
 
 import torch
 
+from .cgenn import CGENN
 from .egnn_mc import EGNNMC
 from .equiformer_v2 import EquiformerV2
+from .gmn import GMN
 from .graph_transformer import GraphTransformer
 from .painn import PaiNN
 from .ponita import PONITA
@@ -24,8 +27,8 @@ from .segnn import SEGNN, SEConv
 
 MODEL_REGISTRY: Dict[str, Any] = {"egnn_mc": EGNNMC, "painn": PaiNN,
                                   "graph_transformer": GraphTransformer, "ponita": PONITA,
-                                  "segnn": SEGNN, "seconv": SEConv,
-                                  "equiformer_v2": EquiformerV2}
+                                  "segnn": SEGNN, "seconv": SEConv, "cgenn": CGENN,
+                                  "gmn": GMN, "equiformer_v2": EquiformerV2}
 
 MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
     "egnn_mc": dict(
@@ -53,6 +56,8 @@ MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
     "ponita": dict(hidden_features=128, num_layers=8),
     "segnn": dict(hidden_features=96, lmax_attr=1, lmax_h=1, num_layers=20),
     "seconv": dict(hidden_features=96, lmax_attr=1, lmax_h=1, num_layers=8),
+    "cgenn": dict(hidden_features=96, num_layers=4),
+    "gmn": dict(hidden_features=64, num_layers=4, n_isolated=5, n_stick=0, n_hinge=0),
     "equiformer_v2": dict(
         num_layers=4,
         sphere_channels=64,

@@ -61,7 +61,8 @@ class TorchLinear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == self.weight.dtype:
             return F.linear(x, self.weight, self.bias)
-        return x @ self.weight.to(x.dtype).T + self.bias.to(x.dtype)
+        out = x @ self.weight.to(x.dtype).T
+        return out if self.bias is None else out + self.bias.to(x.dtype)
 
 
 class LayerNorm(nn.LayerNorm):

@@ -115,7 +115,13 @@ class NoamAdamW:
     @torch.no_grad()
     def update(self, ok: Optional[torch.Tensor] = None) -> None:
         """One update from the gradients.  ``ok`` (a 0-dim bool tensor) skips it
-        where false, as a non-finite gradient does under ``discard_nan_gradients``."""
+        where false, as a non-finite gradient does under ``discard_nan_gradients``.
+        A parameter the loss never reaches (GMN's ``coords_range``) takes a zero
+        gradient, as every leaf of the JAX package's tree does: its moments
+        decay and its weight decays."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
         if self.discard_nan_gradients:
             finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()

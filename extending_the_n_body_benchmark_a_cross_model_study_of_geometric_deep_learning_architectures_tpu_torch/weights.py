@@ -9,23 +9,27 @@ pickle gives it (a namedtuple's fields), without importing any of them;
 :func:`read_jax_checkpoint` returns its ``params`` tree.
 
 :func:`params_from_jax` maps that flax tree onto the port's model's
-``state_dict``, for the ported families, EGNN-MC, PONITA, SEGNN, SEConv,
-EquiformerV2, GraphTransformer and PaiNN:
+``state_dict``, for every family, EGNN-MC, PONITA, SEGNN, SEConv,
+EquiformerV2, GraphTransformer, PaiNN, CGENN and GMN:
 flax ``Dense`` kernels are ``[in, out]`` (an ``nn.Linear`` weight is ``[out,
 in]``), EGNN-MC's ``Scan_EGNNBlock_0/*`` leaves carry a leading layer axis,
 PONITA's tree has, beside ``params``, the ``calib`` collection (three
 statistics a convolution, which its convolutions keep as buffers), and the
 leaves of SEGNN's ``mp_scan`` and SEConv's ``Scan_SEConvLayer_0`` carry a
 leading layer axis; their tensor products' ``w_{a}_{b}_{c}`` and ``b_{c}``
-keep flax's names and shapes.  EquiformerV2's, GraphTransformer's and
-PaiNN's modules carry their flax names, so a key maps to its path by one
-rule (``_flax_leaf``): ``TorchLinear`` and bare ``Dense`` kernels
-transposed, an ``MLP``'s ``layers.k`` its ``TorchLinear_k``, LayerNorm
-``scale`` as ``weight``, embeddings' ``embedding`` as ``weight``, every other
-leaf (GraphTransformer's attention kernels in flax's shapes, PaiNN's
-``[in, out]`` ``EquivariantLinear`` weights) under its own name; the port's
-``blocks.k`` are EquiformerV2's ``Scan_TransBlock_0`` and PaiNN's
-``Scan_PaiNNBlock_0``, split from (and stacked on) their leading axis, and
+keep flax's names and shapes.  EquiformerV2's, GraphTransformer's,
+PaiNN's, CGENN's and GMN's modules carry their flax names, so a key maps to
+its path by one rule (``_flax_leaf``): ``TorchLinear`` and bare ``Dense``
+kernels transposed (GMN's bias-free ``Dense_0`` too), an ``MLP``'s
+``layers.k`` its ``TorchLinear_k``, LayerNorm ``scale`` as ``weight``,
+embeddings' ``embedding`` as ``weight``, every other leaf
+(GraphTransformer's attention kernels in flax's shapes, PaiNN's ``[in,
+out]`` ``EquivariantLinear`` weights, CGENN's ``weight``, ``bias``, ``a``
+and ``b`` of its ``MVLinear_k``, ``MVSiLU_k``, ``_Normalization_0``,
+``MVLayerNorm_k`` and geometric products) under its own name; the port's
+``blocks.k`` are EquiformerV2's ``Scan_TransBlock_0``, PaiNN's
+``Scan_PaiNNBlock_0``, CGENN's ``Scan_EGCL_0`` and GMN's
+``Scan_GMNLayer_0``, split from (and stacked on) their leading axis, and
 GraphTransformer's ``_EncoderLayer_k``.
 :func:`params_to_jax` is its inverse, for the port's own checkpoints.
 :func:`opt_state_from_jax` finds AdamW's state (optax's
@@ -37,8 +41,9 @@ The family of a tree is the one a caller names (``model_type``) or, when it
 names none, the one whose top-level module the tree holds (EGNN-MC's
 ``Scan_EGNNBlock_0``, PONITA's ``_ConvNextBlock_0``, SEGNN's ``mp_scan``,
 SEConv's ``Scan_SEConvLayer_0``, EquiformerV2's ``Scan_TransBlock_0``,
-GraphTransformer's ``_EncoderLayer_0``, PaiNN's ``Scan_PaiNNBlock_0``); a
-family the port does not build, or a tree of none, raises.
+GraphTransformer's ``_EncoderLayer_0``, PaiNN's ``Scan_PaiNNBlock_0``,
+CGENN's ``Scan_EGCL_0``, GMN's ``Scan_GMNLayer_0``); a family the port does
+not build, or a tree of none, raises.
 """
 
 from __future__ import annotations
@@ -51,7 +56,9 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .models.cgenn import CGENN
 from .models.equiformer_v2 import EquiformerV2, SO2Conv
+from .models.gmn import GMN
 from .models.graph_transformer import GraphTransformer
 from .models.painn import PaiNN
 from .models.ponita import CALIB_STATS, PONITA
@@ -116,23 +123,26 @@ def linear_name(k: int) -> str:
 
 
 FAMILIES = ("egnn_mc", "ponita", "segnn", "seconv", "equiformer_v2", "graph_transformer",
-            "painn")
+            "painn", "cgenn", "gmn")
 # the top-level module that marks each family's flax tree, and state_dict key
 _JAX_MARKER = {"egnn_mc": "Scan_EGNNBlock_0", "ponita": "_ConvNextBlock_0",
                "segnn": "mp_scan", "seconv": "Scan_SEConvLayer_0",
                "equiformer_v2": "Scan_TransBlock_0", "graph_transformer": "_EncoderLayer_0",
-               "painn": "Scan_PaiNNBlock_0"}
+               "painn": "Scan_PaiNNBlock_0", "cgenn": "Scan_EGCL_0", "gmn": "Scan_GMNLayer_0"}
 _PORT_MARKER = {"egnn_mc": "layers.0.edge_w1", "ponita": "blocks.0.conv.spatial.kernel",
                 "segnn": "layers.0.message1.tp.b_0", "seconv": "layers.0.conv.b_0",
                 "equiformer_v2": "blocks.0.SO2Attention_0.alpha_dot",
                 "graph_transformer": "blocks.0.MultiHeadDotProductAttention_0.query.kernel",
-                "painn": "blocks.0._Interaction_0.MLP_0.layers.0.weight"}
+                "painn": "blocks.0._Interaction_0.MLP_0.layers.0.weight",
+                "cgenn": "blocks.0.CEMLP_0.MVLinear_0.weight",
+                "gmn": "blocks.0.MLP_0.layers.0.weight"}
 # the families whose modules carry their flax names: the flax module of the
 # port's ``blocks.k``, and whether it is scanned (the layers stacked on a
 # leading axis of one module's leaves)
 _NAMED_BLOCKS = {"equiformer_v2": ("Scan_TransBlock_0", True),
                  "graph_transformer": ("_EncoderLayer_{}", False),
-                 "painn": ("Scan_PaiNNBlock_0", True)}
+                 "painn": ("Scan_PaiNNBlock_0", True), "cgenn": ("Scan_EGCL_0", True),
+                 "gmn": ("Scan_GMNLayer_0", True)}
 
 _TP, _GATE = "SteerableTensorProduct_", "SteerableTPSwishGate_"
 # (port module, flax path, scanned) of every module with parameters of the
@@ -248,14 +258,14 @@ def flax_layer_paths(model) -> list:
     ``TorchLinear_k/Dense_0``) and each of its children, the activation as
     its flax class's first instance; the scanned blocks and an ``SO2Conv``
     that returns its extra channels beside its output (a tuple) are not
-    seen.  GraphTransformer and PaiNN: every module at most two flax
-    modules deep under its flax path (GraphTransformer's encoder layers as
-    ``_EncoderLayer_k``, their dropouts among them; a top-level
-    ``TorchLinear_k`` also as ``TorchLinear_k/Dense_0``); PaiNN's scanned
-    blocks are not seen."""
-    if isinstance(model, (GraphTransformer, PaiNN)):
-        return _named_layer_paths(model, "painn" if isinstance(model, PaiNN)
-                                  else "graph_transformer")
+    seen.  GraphTransformer, PaiNN, CGENN and GMN: every module at most two
+    flax modules deep under its flax path (GraphTransformer's encoder layers
+    as ``_EncoderLayer_k``, their dropouts among them; a top-level
+    ``TorchLinear_k`` also as ``TorchLinear_k/Dense_0``); the scanned blocks
+    of PaiNN, CGENN and GMN are not seen."""
+    named = {GraphTransformer: "graph_transformer", PaiNN: "painn", CGENN: "cgenn", GMN: "gmn"}
+    if type(model) in named:
+        return _named_layer_paths(model, named[type(model)])
     if isinstance(model, EquiformerV2):
         out = []
         for name, child in model.named_children():

@@ -188,7 +188,7 @@ def test_base_model_config_is_layered_under_the_samples(tmp_path):
     assert seen.get("use_tanh") is True and "hidden_features" in seen
 
 
-@pytest.mark.parametrize("family", ["cgenn"])
+@pytest.mark.parametrize("family", ["schnet"])
 def test_a_family_the_port_cannot_build_raises(tmp_path, family):
     """Counting, bisecting or training it raises NotImplementedError naming
     queue 1 item 6; nothing falls back to EGNN-MC."""

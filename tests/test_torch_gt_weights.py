@@ -184,8 +184,8 @@ def test_small_trees_round_trip_with_the_jax_shapes(kw):
 
 def test_family_is_named_or_found_and_others_raise(payload):
     params = payload["params"]
-    with pytest.raises(NotImplementedError, match="'cgenn' is not ported"):
-        weights.params_from_jax(params, "cgenn")
+    with pytest.raises(NotImplementedError, match="'schnet' is not ported"):
+        weights.params_from_jax(params, "schnet")
     with pytest.raises(ValueError, match="graph_transformer tree, not painn"):
         weights.params_from_jax(params, "painn")
     with pytest.raises(ValueError, match="graph_transformer tree, not equiformer_v2"):

@@ -166,8 +166,8 @@ def test_family_is_named_or_found_and_others_raise():
     tree = jax.tree_util.tree_map(np.asarray, tree)
     with pytest.raises(ValueError, match="painn tree, not graph_transformer"):
         weights.params_from_jax(tree, "graph_transformer")
-    with pytest.raises(NotImplementedError, match="'gmn' is not ported"):
-        weights.params_from_jax(tree, "gmn")
+    with pytest.raises(NotImplementedError, match="'schnet' is not ported"):
+        weights.params_from_jax(tree, "schnet")
     model = tmodels.create_model("painn", device="cpu", **SMALL)
     with pytest.raises(ValueError, match="painn tree, not segnn"):
         weights.params_to_jax(model.state_dict(), "segnn")

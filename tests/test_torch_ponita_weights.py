@@ -97,8 +97,8 @@ def test_opt_state_maps_mu_and_nu_to_the_ports_names(payload):
 
 def test_family_is_named_or_found_and_others_raise(payload):
     params = payload["params"]
-    with pytest.raises(NotImplementedError, match="'cgenn' is not ported"):
-        weights.params_from_jax(params, "cgenn")
+    with pytest.raises(NotImplementedError, match="'schnet' is not ported"):
+        weights.params_from_jax(params, "schnet")
     with pytest.raises(ValueError, match="ponita tree, not egnn_mc"):
         weights.params_from_jax(params, "egnn_mc")
     with pytest.raises(ValueError, match="no ported family"):

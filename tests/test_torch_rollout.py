@@ -167,4 +167,4 @@ def test_create_model_defaults_and_unknown():
     assert len(model.layers) == 6 and model.get_model_size() == 128
     assert model.layers[0].edge_w1.shape == (261, 128)
     with pytest.raises(ValueError):
-        create_model("cgenn", device="cpu")
+        create_model("schnet", device="cpu")
