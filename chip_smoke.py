@@ -38,12 +38,15 @@ bf16, coordinates, geometry and integration in f32):
                    and (1,7264,200), the bound, cluster sizes, and the path
                    simulate's rule takes at each
   4. K1            EGNN edge kernel vs plain at the bench shape, FC and k=5 masks,
-                   and with hA, hB x100 (pre-activations past expf's overflow)
+                   and with hA, hB x100 (pre-activations past expf's overflow);
+                   its error against the plain version in float64 beside the
+                   f32 plain version's (the gate of its 3xTF32 product)
   5. K1-bf16       its bf16 form vs the bf16 plain version, same shapes
   6. K3            streaming edge kernel vs plain at (8,512) FC and k=5, (2,300)
                    and (1,1000), both norm_diff settings, and at (2,64) with hA,
-                   hB x100; vs K1 at (8,512); the persistent grid's block count
-                   at (1,1000) beside the card's SM count
+                   hB x100; vs K1 at (8,512); against float64 at the FC shapes
+                   beside the f32 plain version; the persistent grid's block
+                   count at (1,1000) beside the card's SM count
   7. K3-bf16,      its bf16 form and its elem_bf16 form (with bf16 and with f32
      K3-elem       operands) vs their plain versions at (8,512) FC and k=5 and
                    (1,1000), both norm_diff settings
@@ -330,6 +333,7 @@ BIG_B, BIG_N, BIG_SUBSTEPS = 8, 512, 1000
 BIG_FRAMES = BIG_SUBSTEPS // SAMPLE_FREQ
 K3_SHAPES = ((8, 512, ("fc", "knn5")), (2, 300, ("fc",)), (1, 1000, ("fc",)))
 K3_BF16_SHAPES = ((8, 512, ("fc", "knn5")), (1, 1000, ("fc",)))
+K3_F64_SHAPES = ((8, 512), (2, 300), (1, 1000))  # K3 against float64 (check_f64), FC mask
 BIGN_STEPS = 20
 
 # K2: same sums in the same order up to rsqrtf's few ulp
@@ -360,10 +364,15 @@ K1_RTOL, K1_ATOL = 1e-4, 1e-5
 # an intermediate across a bf16 rounding boundary, one bf16 ulp being 2**-8
 # relative; so 1e-2 of the largest value, for agg (bf16) and trans (f32) alike
 BF16_RTOL, BF16_ATOL = 1e-2, 1e-5
-# the f32 K1 / K3 times of the edge stage before its rework (commit c5fcefb,
-# the mean of two runs beside this code's in one call on an NVIDIA H100 80GB
-# HBM3, 700.00 W), printed with this run's
-PARENT_K1_MS, PARENT_K3_MS = 2.1544, 6.4136
+# the f32 K1 / K3 times of the edge stage with its f32 FMA products (commit
+# 8a96933, the mean of two runs of edge_phases.py beside this code's in one
+# call on an NVIDIA H100 80GB HBM3, 700.00 W), printed with this run's
+PARENT_8A96933_K1_MS, PARENT_8A96933_K3_MS = 1.4476, 4.4767
+# the f32 forms' error against the plain version in float64, per output (max
+# abs error over max |reference|), may be at most this times the f32 plain
+# version's on the same inputs (TF32 off): their tensor-core product must keep
+# f32's accuracy
+F64_RATIO_MAX = 2.0
 # the silu's worst relative error against float64 must stay a tenth of K1_RTOL
 SILU_RTOL = K1_RTOL / 10
 # hA and hB scaled so that pre-activations pass expf's overflow at -88
@@ -637,10 +646,11 @@ GMN_CMP_B, GMN_ROLL_RTOL, GMN_NUDGE_FACTOR = 4, 1e-3, 100.0
 # the CPU's float64 (their data, the offline constrained sets, is not ported)
 GMN_COMPOSITIONS = ((1, 2, 0), (0, 0, 2))
 
-# H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, dense bf16 on the tensor
-# cores, HBM3 bandwidth
+# H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, dense bf16 and TF32 on
+# the tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 K2_FLOPS_PER_PAIR = 20  # 3 sub, 6 for r2 + eps^2, rsqrt, 3 for inv^3 * m, 3 FMA
 T_START = time.perf_counter()
@@ -760,6 +770,7 @@ def main() -> None:
         hpo = importlib.import_module(f"{PKG}.hpo.hpo")
         restore = importlib.import_module(f"{PKG}.train.restore")
         ponita = importlib.import_module(f"{PKG}.models.ponita")
+        edge_phases = importlib.import_module(f"{PKG}.edge_phases")
         steerable = importlib.import_module(f"{PKG}.ops.steerable")
     except ImportError as e:
         fail(f"the port's package is not importable from {REPO}: {e}")
@@ -1003,6 +1014,21 @@ def main() -> None:
         for key, (a, r) in errs.items():
             print(f"  {kernel} {key}: max_abs_err={a:.3e} max_rel_err={r:.3e}", flush=True)
 
+    def check_f64(kernel: str, label: str, fn, plain, args, ratios: dict) -> None:
+        """An f32 edge kernel and its f32 plain version against the plain version
+        in float64 on the same inputs (edge_phases.f64_errors); the kernel's
+        relative error on agg and on trans at most F64_RATIO_MAX times the f32
+        plain version's.  Both errors and their ratio are printed."""
+        errs = edge_phases.f64_errors(fn, plain, args)
+        for part, e in errs.items():
+            print(f"  {kernel} {part} {label} vs float64: kernel_rel_err={e['kernel']:.3e} "
+                  f"plain_f32_rel_err={e['plain_f32']:.3e} ratio={e['ratio']:.3f}", flush=True)
+            if not e["ratio"] <= F64_RATIO_MAX:
+                fail(f"{kernel} {part} ({label}): its error against float64, {e['kernel']:.3e}, "
+                     f"is over {F64_RATIO_MAX}x the f32 plain version's, {e['plain_f32']:.3e}")
+            ratios[f"{part} {label}"] = e["ratio"]
+        torch.cuda.empty_cache()
+
     # ---------------------------------------------------------------- 4. K1
     t0 = time.perf_counter()
     model = models.create_model("egnn_mc", device=dev)
@@ -1030,20 +1056,41 @@ def main() -> None:
         check_close("K1", f"hA, hB x{BIG_PRE:g}", EM.fused_egnn_messages(*big, *w),
                     EM.egnn_messages_plain(*big, *w), k1_err)
         mask = masks["fc"]
+        k1_f64 = {}
+        check_f64("K1", "fc mask", EM.fused_egnn_messages, EM.egnn_messages_plain,
+                  (hA, hB, geom, mask, *w), k1_f64)
         k1_ms = cuda_ms(lambda: EM.fused_egnn_messages(hA, hB, geom, mask, *w), iters=20)
         k1_plain_ms = cuda_ms(lambda: EM.egnn_messages_plain(hA, hB, geom, mask, *w), iters=5)
     # the edge kernels' calls that [determinism] repeats, by form
     repeat = {"K1": functools.partial(EM.fused_egnn_messages, hA, hB, geom, mask, *w)}
     He = Hc = WIDTH
     edge_flops = He * He + He * Hc + 5 * He + Hc  # per edge row, times 2 for multiply-add
+    product_flops = He * He + He * Hc  # the two 128x128 products' part of it
     weight_floats = 5 * He + He * He + He + He * Hc + 2 * Hc
+
+    def f32_bound_ms(n_bytes: float, rows: int):
+        """The f32 forms' bound, the smaller of two routes for f32-accurate work:
+        every operation on the CUDA cores at the f32 peak (the FMA route), or the
+        two products as three TF32 products on the tensor cores (3xTF32) and the
+        rest at the f32 peak (the tensor route); each route the larger of its
+        operations' time and the bytes'.  Returns (bound, by, FMA route's bound)."""
+        fma, fma_by = bound_ms(n_bytes, 2.0 * rows * edge_flops)
+        t_bytes = n_bytes / PEAK_BYTES
+        t_ops = (3 * 2.0 * rows * product_flops / PEAK_TF32_FLOPS
+                 + 2.0 * rows * (edge_flops - product_flops) / PEAK_F32_FLOPS)
+        tensor = max(t_bytes, t_ops) * 1e3
+        if tensor > fma:
+            return fma, fma_by, fma
+        return tensor, ("bytes" if t_bytes >= t_ops else "operations"), fma
+
     k1_flops = 2.0 * B * N * N * edge_flops
     k1_bytes = 4.0 * (2 * B * N * He + B * N * N * 8 + B * N * N + weight_floats
                       + B * N * He + B * N * 3)
-    k1_bound, k1_by = bound_ms(k1_bytes, k1_flops)
+    k1_bound, k1_by, k1_bound_fma = f32_bound_ms(k1_bytes, B * N * N)
     print_errs("K1", k1_err)
     report("K1", t0, rtol=K1_RTOL, atol=K1_ATOL, ms=f"{k1_ms:.4f}", plain_ms=f"{k1_plain_ms:.4f}",
-           bound_ms=f"{k1_bound:.4f}", bound_by=k1_by, gflop=f"{k1_flops / 1e9:.2f}")
+           bound_ms=f"{k1_bound:.4f}", bound_by=k1_by, bound_fma_ms=f"{k1_bound_fma:.4f}",
+           gflop=f"{k1_flops / 1e9:.2f}", f64_ratio_max=f"{max(k1_f64.values()):.3f}")
 
     # ----------------------------------------------------------- 5. K1-bf16
     # the mixed-bf16 model's inputs: h in bf16 after the embedding, the block's
@@ -1085,7 +1132,7 @@ def main() -> None:
 
     # ---------------------------------------------------------------- 6. K3
     t0 = time.perf_counter()
-    k3_err, k3_vs_k1_err = {}, {}
+    k3_err, k3_vs_k1_err, k3_f64 = {}, {}, {}
     with torch.no_grad():
         for bb, nn_, mask_names in K3_SHAPES:
             h, node = k3_inputs(bb, nn_)
@@ -1099,6 +1146,9 @@ def main() -> None:
                                 ES.streaming_egnn_messages_plain(hA, hB, *node, mask, *w,
                                                                  norm_diff=nd),
                                 k3_err)
+                if name == "fc" and (bb, nn_) in K3_F64_SHAPES:
+                    check_f64("K3", f"{bb}x{nn_} fc", ES.streaming_egnn_messages,
+                              ES.streaming_egnn_messages_plain, (hA, hB, *node, mask, *w), k3_f64)
             if (bb, nn_) == (1, 1000):
                 sms = _build.sm_count(hA)
                 k3_blocks = EM.launch_blocks(bb, nn_, sms)
@@ -1131,12 +1181,13 @@ def main() -> None:
     k3_flops = 2.0 * k3_b * k3_n * k3_n * edge_flops
     k3_bytes = 4.0 * (2 * k3_b * k3_n * He + k3_b * k3_n * 10 + k3_b * k3_n * k3_n
                       + weight_floats + k3_b * k3_n * (He + 3))
-    k3_bound, k3_by = bound_ms(k3_bytes, k3_flops)
+    k3_bound, k3_by, k3_bound_fma = f32_bound_ms(k3_bytes, k3_b * k3_n * k3_n)
     print_errs("K3", k3_err)
     print_errs("K3 vs K1", k3_vs_k1_err)
     report("K3", t0, rtol=K1_RTOL, atol=K1_ATOL, shape=f"B={k3_b},N={k3_n}", ms=f"{k3_ms:.4f}",
            plain_ms=f"{k3_plain_ms:.4f}", bound_ms=f"{k3_bound:.4f}", bound_by=k3_by,
-           gflop=f"{k3_flops / 1e9:.2f}", blocks_1x1000=k3_blocks, sms=sms)
+           bound_fma_ms=f"{k3_bound_fma:.4f}", gflop=f"{k3_flops / 1e9:.2f}",
+           f64_ratio_max=f"{max(k3_f64.values()):.3f}", blocks_1x1000=k3_blocks, sms=sms)
 
     # ---------------------------------------------------- 7. K3-bf16, K3-elem
     # the mixed-bf16 streaming model's two kernel forms: bf16 operands, and the
@@ -1389,8 +1440,8 @@ def main() -> None:
     report("determinism", t0, kernel_forms=repr(forms),
            launches_bitwise_equal=True, rollout_steps=FRAMES - 1, rollout_bitwise_equal=True,
            survived_min=main["survived_min"],
-           k1_f32_ms=f"{k1_ms:.4f}", k1_f32_ms_c5fcefb=PARENT_K1_MS,
-           k3_f32_ms=f"{k3_ms:.4f}", k3_f32_ms_c5fcefb=PARENT_K3_MS)
+           k1_f32_ms=f"{k1_ms:.4f}", k1_f32_ms_8a96933=PARENT_8A96933_K1_MS,
+           k3_f32_ms=f"{k3_ms:.4f}", k3_f32_ms_8a96933=PARENT_8A96933_K3_MS)
 
     # ------------------------------------------------------ 12. rollout-bf16
     # the mixed-bf16 model (the JAX package's pallas-mixed-bf16 config) on the
@@ -3235,6 +3286,7 @@ def main() -> None:
             "name": "egnn_messages (K1)",
             "route": "cuda",
             "reworked": "PR 8",
+            "redesigned": "PR 17",
             "source": f"{PKG}/csrc/egnn_messages.cu",
             "replaces": f"{TPU_PKG}/ops/pallas/egnn_messages.py:197",
             "launches": main_counts["k1"],
@@ -3243,6 +3295,7 @@ def main() -> None:
             "plain_ms": k1_plain_ms,
             "bound_ms": k1_bound,
             "bound_by": k1_by,
+            "bound_fma_ms": k1_bound_fma,
             "library_ms": None,
         },
         {
@@ -3277,6 +3330,7 @@ def main() -> None:
             "name": "egnn_stream (K3)",
             "route": "cuda",
             "reworked": "PR 8",
+            "redesigned": "PR 17",
             "source": f"{PKG}/csrc/egnn_stream.cu",
             "replaces": f"{TPU_PKG}/ops/pallas/egnn_stream.py:192",
             "launches": big_counts["k3"],
@@ -3285,6 +3339,7 @@ def main() -> None:
             "plain_ms": k3_plain_ms,
             "bound_ms": k3_bound,
             "bound_by": k3_by,
+            "bound_fma_ms": k3_bound_fma,
             "library_ms": None,
         },
         {

@@ -28,19 +28,29 @@
 // ([silu]); below -87 the sigmoid flushes to 0 and silu gives -0 where IEEE gives
 // a value under 1.1e-36 in magnitude.
 //
-// Two operand types, one template (T):
-//   * float: each 128x128 product is a register-tiled f32 FMA loop (8 rows x 4
-//     columns per thread, float4 shared loads).  No TF32, no tensor cores.
+// Two operand types, one template (T).  The Wc1 product runs on the tensor cores for
+// both, 16 warps as 4 x 4 tiles of 32 x 32 (mma_product), with one epilogue:
+//   * float: the Wc1 product is error-compensated TF32 ("3xTF32").  Each f32 operand
+//     is split at fragment load into hi = tf32(x) and lo = tf32(x - hi), rounded to
+//     nearest, and each product is taken as lo.hi + hi.lo + hi.hi by
+//     mma.sync.m16n8k8 tf32 -> f32, a k-step of 8 at a time, the k-steps' sums added
+//     on the CUDA cores: about f32's accuracy, where plain TF32 would keep three
+//     decimal digits.  The W2 product stays a register-tiled f32 FMA loop
+//     (chunk_product: 8 rows x 4 columns per thread): on the tensor cores its
+//     rounding (the tensor core truncates where it adds) put agg and trans over
+//     twice the f32 plain version's error against float64 (PERF.md).  Wc1 is staged
+//     transposed, and it and m2 are XOR-swizzled (swz below), so fragments load 8
+//     bytes at a time without bank conflicts.  m2 goes back into A in f32.
 //   * __nv_bfloat16 (the mixed-bf16 model): hA, hB and every weight are bf16;
 //     m1, m2 and the silu output before wc2 are rounded to bf16 as matmul
 //     operands, and every product accumulates in f32, as the TPU bodies do
-//     (ops/pallas/egnn_messages.py:66-115, egnn_stream.py:138-169).  The two
-//     128x128 products run on the tensor cores: warp-level
+//     (ops/pallas/egnn_messages.py:66-115, egnn_stream.py:138-169).  Both products
+//     run on the tensor cores, the W2 product as the Wc1 one: warp-level
 //     mma.sync.m16n8k16 bf16 -> f32 on fragments read with ldmatrix (.trans for
-//     the row-major [K, N] weights); 16 warps as 4 x 4 tiles of 32 x 32.  Rows of
-//     the bf16 tiles are padded to 136 elements (272 B) so the eight row
-//     addresses of an ldmatrix phase fall in distinct banks.  m2 is kept in f32
-//     beside its bf16 copy, because agg sums the unrounded m2.
+//     the row-major [K, N] weights).  Rows of the bf16 tiles are padded to 136
+//     elements (272 B) so the eight row addresses of an ldmatrix phase fall in
+//     distinct banks.  m2 is kept in f32 beside its bf16 copy, because agg sums
+//     the unrounded m2.
 // kElem (K3's elem_bf16): the two silus and the mask multiply run in bf16, one
 // rounding per operation (x * 1/(1 + exp(-x)) on __nv_bfloat162 pairs), and m2
 // is stored only in bf16; the sums stay f32.
@@ -60,11 +70,12 @@
 // barrier, group by group in order (combine_groups).
 //
 // Shared memory, in bytes (Smem<T, kElem>::kBytes; K3 adds 640 of node data):
-// W2, Wc1 and the chunk A (3 x 64 KiB f32, 3 x 34 KiB bf16 with padded rows), the
-// f32 copy of m2 (68 KiB, bf16 without kElem only), the sub-tile's hA (8 KiB f32,
-// 4 KiB bf16), and 5,856 floats (Wg, biases, a chunk's geometry and mask, the
-// accumulators, a chunk's per-row terms, the groups' heads and tails): 228,224 B
-// f32 (of 232,448), 201,600 B bf16, 131,968 B bf16 kElem.
+// W2, Wc1 and the chunk A (3 x 64 KiB f32, Wc1 transposed, Wc1 and m2 swizzled; 3 x 34
+// KiB bf16 with padded rows), the f32 copy of m2 (68 KiB, bf16 without kElem only),
+// the sub-tile's hA (8 KiB f32, 4 KiB bf16), and 5,856 floats (Wg, biases, a chunk's
+// geometry and mask, the accumulators, a chunk's per-row partial sums of w, the
+// groups' heads and tails): 228,224 B f32 (of 232,448), 201,600 B bf16, 131,968 B
+// bf16 kElem.
 
 #pragma once
 
@@ -92,23 +103,26 @@ constexpr int kGroupRows = kRows / kGroups;  // 32: a warp's lanes in warp_group
 // The block's dynamic shared memory for operand type T and elementwise mode kElem.
 template <typename T, bool kElem>
 struct Smem {
-  static constexpr bool kMma = std::is_same<T, bf16>::value;
-  static constexpr int kLd = kMma ? kLdB : kH;  // row stride of W2, Wc1 and A
+  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  static constexpr int kLd = kBf16 ? kLdB : kH;  // row stride of W2, Wc1 and A
   static constexpr size_t kTileBytes = size_t(kH) * kLd * sizeof(T);
-  static constexpr size_t kM2Bytes = (kMma && !kElem) ? size_t(kRows) * kLdM * sizeof(float) : 0;
+  static constexpr size_t kM2Bytes = (kBf16 && !kElem) ? size_t(kRows) * kLdM * sizeof(float) : 0;
   static constexpr size_t kFloats = 5 * kH + 3 * kH  // Wg, b2, bc1, wc2
                                     + kRows * kGeom   // geometry chunk
                                     + kRows           // mask chunk
                                     + kMaxTi * kH     // agg accumulators
                                     + kMaxTi * 4      // trans accumulators and degrees
-                                    + kRows * 4       // per row: trans terms (f32), w's partial sums (mma)
+                                    + kRows * 4       // per row: w's four partial sums
                                     + kGroups * 2 * kH  // agg: groups' heads and tails
                                     + kGroups * 2 * 4;  // trans: groups' heads and tails
   static constexpr size_t kHaBytes = size_t(kMaxTi) * kH * sizeof(T);  // the sub-tile's hA
   static constexpr size_t kBytes =
       3 * kTileBytes + kM2Bytes + kHaBytes + kFloats * sizeof(float);
 
-  T *W2, *Wc1, *A;  // A: the chunk's m1, then m2 (the matmul operand)
+  // A: the chunk's m1, then m2 (the matmul operand), [kRows, kH]; W2 and Wc1 [kH, kH]
+  // row-major [K, N], but for f32 Wc1 transposed ([N, K]); in f32, m2 and Wc1 swizzled
+  // (tile_at)
+  T *W2, *Wc1, *A;
   T* hAs;           // [kMaxTi, kH]: hA of the sub-tile's receivers
   float *M2, *Wg, *B2, *Bc1, *Wc2, *geom, *mask, *agg, *trans, *trow, *part, *tpart;
 
@@ -290,36 +304,130 @@ __device__ __forceinline__ void store_silu(T* dst, const float* x) {
   }
 }
 
-__device__ __forceinline__ float comp(const float4& v, int k) {
-  return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
+// ------------------------------------------------------------------ tile layouts
+// The f32 tiles that mma_product reads, A holding m2 [kRows, kH] and Wc1 transposed
+// [kH (n), kH (k)], are row-major with the 16-byte groups of each row XOR-swizzled:
+// column c of row r is stored at column c ^ swz(r), which XORs the group index c / 4
+// with 2 (r % 4).  A bank is the column mod 32 (a row is 128 floats), and every access
+// of a warp to these tiles is free of bank conflicts:
+//   * the fragment loads of mma_product, 8 bytes a lane: a half warp reads rows r0 ..
+//     r0 + 3 (r0 a multiple of 4) at one aligned pair of groups, and the XORs 0, 2, 4,
+//     6 put the four rows' pairs in four distinct pairs of the eight 16-byte slots of a
+//     128-byte window (unswizzled, all four rows hit the same two slots: 4-way
+//     conflicts);
+//   * row-wise access (the m2 epilogue's float4 rows, agg's columns): a permutation of
+//     the groups inside each aligned 32 floats of a row.
+// m1, which only chunk_product reads (one row a warp, a broadcast), stays unswizzled.
+// The bf16 tiles are padded to kLdB instead (ldmatrix reads eight rows of one column
+// block).
+__device__ __forceinline__ int swz(int row) { return (row & 3) << 3; }
+
+template <typename T>
+__device__ __forceinline__ int tile_at(int row, int col) {
+  if constexpr (std::is_same<T, float>::value) {
+    return row * kH + (col ^ swz(row));
+  } else {
+    return row * kLdB + col;
+  }
 }
 
-// ---------------------------------------------------------------- f32 products
-// acc[q][p] = sum_k A[ty*8+q][k] * W[k][tx*4+p] over a row-major kRows x 128 chunk A
-// and a row-major 128x128 W, both in shared memory.
-__device__ __forceinline__ void chunk_product(const float* __restrict__ a,
-                                              const float* __restrict__ w, int ty, int tx,
-                                              float acc[8][4]) {
+// ------------------------------------------------- f32 tensor-core products (3xTF32)
+// x -> (hi, lo) as mma operands, x = hi + lo to within 2^-22 |x|: hi is x plus half a
+// TF32 ulp, which the tensor core truncates to TF32, so the operand is x rounded to
+// nearest, ties away (cvt.rna.tf32.f32, less its inf and NaN test: an infinite x
+// gives NaN here as it does through lo there); lo is the same of x - hi, which is exact
+// in f32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) + 0x1000u;
+  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u)) + 0x1000u;
+}
+
+// d = a . b + c and d = a . b (c = 0), m16n8k8 tf32 -> f32
+__device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_tf32_from_zero(float d[4], const uint32_t a[4],
+                                                   uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
+}
+
+// Warp (wm, wn) of a 4 x 4 warp grid: acc[mt][nt][.] = the 32 x 32 tile at rows
+// wm*32 + mt*16, columns wn*32 + nt*8 of A . W, A [kRows, kH] and wt = W transposed
+// [kH (n), kH (k)], f32 in shared memory (tile_at).  Fragment element e of acc[mt][nt]
+// sits at row wm*32 + mt*16 + lane/4 + 8*(e/2), column wn*32 + nt*8 + 2*(lane%4) + e%2,
+// as in the bf16 mma_product.
+//
+// Each k-step of 8 is lo.hi + hi.lo + hi.hi, the two small terms first, summed by the
+// tensor core from zero; lo.lo (2^-22 of a product at most) is dropped.  The k-steps'
+// sums are then added to acc in f32 on the CUDA cores, in k order, rounded to
+// nearest: the tensor core adds with truncation, and chaining all 48 products of a
+// 128-deep sum through its accumulator measured 5.7-9.4x the f32 plain version's
+// error against float64 on an H100 (PERF.md).  The truncation inside a k-step stays;
+// it is why the W2 product is not taken this way.
+//
+// Within each k-step the logical k = t4 and t4 + 4 (t4 = lane % 4) are the physical
+// columns 2 t4 and 2 t4 + 1, for A and W alike (a permutation of the summands), so a
+// lane's A or W fragment of a k-step is one 8-byte load.
+__device__ __forceinline__ void mma_product(const float* __restrict__ a,
+                                            const float* __restrict__ wt, int wm, int wn,
+                                            int lane, float acc[2][4][4]) {
 #pragma unroll
-  for (int q = 0; q < 8; ++q)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int p = 0; p < 4; ++p) acc[q][p] = 0.0f;
-  const float* arow = a + ty * 8 * kH;
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+  const int g = lane >> 2, t4 = lane & 3;
+  // every row this lane reads is g mod 8, so one swizzle serves them all
+  const int off = (2 * t4) ^ swz(g);
+  const float* arow = a + (wm * 32 + g) * kH;   // rows + mt*16 + h*8
+  const float* wrow = wt + (wn * 32 + g) * kH;  // rows + nt*8
 #pragma unroll 2
-  for (int k = 0; k < kH; k += 4) {
-    float4 av[8];
+  for (int k0 = 0; k0 < kH; k0 += 8) {
+    const int col = k0 ^ off;
+    float2 av[2][2], wv[4];
 #pragma unroll
-    for (int q = 0; q < 8; ++q) av[q] = *reinterpret_cast<const float4*>(arow + q * kH + k);
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 wv = *reinterpret_cast<const float4*>(w + (k + kk) * kH + tx * 4);
+      for (int h = 0; h < 2; ++h)
+        av[mt][h] = *reinterpret_cast<const float2*>(arow + (mt * 16 + h * 8) * kH + col);
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const float x = comp(av[q], kk);
-        acc[q][0] += x * wv.x;
-        acc[q][1] += x * wv.y;
-        acc[q][2] += x * wv.z;
-        acc[q][3] += x * wv.w;
+    for (int nt = 0; nt < 4; ++nt)
+      wv[nt] = *reinterpret_cast<const float2*>(wrow + nt * 8 * kH + col);
+    // B fragment registers: b0 (k t4, column g), b1 (k t4+4, column g)
+    uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      split_tf32(wv[nt].x, bh[nt][0], bl[nt][0]);
+      split_tf32(wv[nt].y, bh[nt][1], bl[nt][1]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      // A fragment registers: a0 (row g, k t4), a1 (row g+8, k t4), a2 (row g, k t4+4),
+      // a3 (row g+8, k t4+4)
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        split_tf32(av[mt][h].x, ah[h], al[h]);
+        split_tf32(av[mt][h].y, ah[h + 2], al[h + 2]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        float d[4];
+        mma_tf32_from_zero(d, al, bh[nt][0], bh[nt][1]);
+        mma_tf32(d, ah, bl[nt][0], bl[nt][1]);
+        mma_tf32(d, ah, bh[nt][0], bh[nt][1]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += d[e];
       }
     }
   }
@@ -384,6 +492,42 @@ __device__ __forceinline__ void mma_product(const bf16* __restrict__ a,
   }
 }
 
+// ------------------------------------------------------------------ f32 FMA product
+// acc[q][p] = sum_k A[ty*8+q][k] * W[k][tx*4+p] over a row-major kRows x 128 chunk A (m1,
+// not swizzled) and a row-major 128x128 W, both in shared memory: the f32 W2 product.  A
+// warp reads one row of A at a time (a broadcast) and one row of W.
+__device__ __forceinline__ float comp(const float4& v, int k) {
+  return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
+}
+
+__device__ __forceinline__ void chunk_product(const float* __restrict__ a,
+                                              const float* __restrict__ w, int ty, int tx,
+                                              float acc[8][4]) {
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+#pragma unroll
+    for (int p = 0; p < 4; ++p) acc[q][p] = 0.0f;
+  const float* arow = a + ty * 8 * kH;
+#pragma unroll 2
+  for (int k = 0; k < kH; k += 4) {
+    float4 av[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) av[q] = *reinterpret_cast<const float4*>(arow + q * kH + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 wv = *reinterpret_cast<const float4*>(w + (k + kk) * kH + tx * 4);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float x = comp(av[q], kk);
+        acc[q][0] += x * wv.x;
+        acc[q][1] += x * wv.y;
+        acc[q][2] += x * wv.z;
+        acc[q][3] += x * wv.w;
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------------ staging
 // Stage the weights in shared memory; ends in a barrier.
 template <typename T, bool kElem>
@@ -392,15 +536,26 @@ __device__ __forceinline__ void stage_weights(const Smem<T, kElem>& s, const T* 
                                               const T* __restrict__ Wc1,
                                               const T* __restrict__ bc1,
                                               const T* __restrict__ wc2, int tid) {
-  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int kPerRow = kH / kVec;
-  for (int e = tid; e < kH * kPerRow; e += kThreads) {
-    const int row = e / kPerRow;
-    const int col = (e % kPerRow) * kVec;
-    *reinterpret_cast<uint4*>(s.W2 + row * Smem<T, kElem>::kLd + col) =
-        reinterpret_cast<const uint4*>(W2)[e];
-    *reinterpret_cast<uint4*>(s.Wc1 + row * Smem<T, kElem>::kLd + col) =
-        reinterpret_cast<const uint4*>(Wc1)[e];
+  if constexpr (std::is_same<T, float>::value) {
+    // W2 as it is; Wc1 transposed: thread e writes the 16 bytes of row n = e % kH at
+    // k = 4 (e / kH) .. + 3, read as four column loads that a warp makes coalesced
+    for (int e = tid; e < kH * kH / 4; e += kThreads) {
+      reinterpret_cast<float4*>(s.W2)[e] = reinterpret_cast<const float4*>(W2)[e];
+      const int n = e % kH, k = 4 * (e / kH);
+      const float* wc1 = Wc1 + k * kH + n;
+      *reinterpret_cast<float4*>(s.Wc1 + tile_at<float>(n, k)) =
+          make_float4(__ldg(wc1), __ldg(wc1 + kH), __ldg(wc1 + 2 * kH), __ldg(wc1 + 3 * kH));
+    }
+  } else {
+    constexpr int kPerRow = kH / 8;  // 16-byte loads a row
+    for (int e = tid; e < kH * kPerRow; e += kThreads) {
+      const int row = e / kPerRow;
+      const int col = (e % kPerRow) * 8;
+      *reinterpret_cast<uint4*>(s.W2 + tile_at<T>(row, col)) =
+          reinterpret_cast<const uint4*>(W2)[e];
+      *reinterpret_cast<uint4*>(s.Wc1 + tile_at<T>(row, col)) =
+          reinterpret_cast<const uint4*>(Wc1)[e];
+    }
   }
   for (int e = tid; e < 5 * kH; e += kThreads) s.Wg[e] = to_f(wg[e]);
   for (int e = tid; e < kH; e += kThreads) {
@@ -565,7 +720,8 @@ __device__ __forceinline__ void edge_chunk(const Smem<T, kElem>& s, const T* __r
   const int warp = tid >> 5;
   const int valid = min(kRows, rows - r0);  // live rows of this chunk
 
-  // m1 = silu(hA_i + hB_j + g . Wg), row-major [kRows, kLd].  A thread owns kVec
+  // m1 = silu(hA_i + hB_j + g . Wg), row-major [kRows, kLd] (in f32 not swizzled: only
+  // chunk_product reads it).  A thread owns kVec
   // columns (one 16-byte load of a row) of the rows rg, rg + kRowStep, ...; it issues
   // all of its hB loads before the first use, and reads hA from shared memory.
   constexpr int kVec = 16 / sizeof(T);
@@ -617,9 +773,12 @@ __device__ __forceinline__ void edge_chunk(const Smem<T, kElem>& s, const T* __r
   clk.mark(kM1);
   barrier(clk);
 
-  if constexpr (S::kMma) {
-    const int wm = warp >> 2, wn = warp & 3;
-    const int g = lane >> 2, t4 = lane & 3;
+  // the tensor-core products' 4 x 4 warp grid and accumulator layout (mma_product):
+  // element e of acc[mt][nt] is row wm*32 + mt*16 + g + 8*(e/2), column
+  // wn*32 + nt*8 + 2*t4 + e%2
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  if constexpr (S::kBf16) {
     float acc[2][4][4];
     mma_product(s.A, s.W2, wm, wn, lane, acc);
     clk.mark(kW2);
@@ -637,24 +796,25 @@ __device__ __forceinline__ void edge_chunk(const Smem<T, kElem>& s, const T* __r
           const float vx = acc[mt][nt][2 * half] + s.B2[c];
           const float vy = acc[mt][nt][2 * half + 1] + s.B2[c + 1];
           if constexpr (kElem) {
-            store2(s.A + rl * kLdB + c, silu2(__floats2bfloat162_rn(vx, vy)));
+            store2(s.A + tile_at<T>(rl, c), silu2(__floats2bfloat162_rn(vx, vy)));
           } else {
             const float2 m2 = make_float2(silu(vx), silu(vy));
             store2(s.M2 + rl * kLdM + c, m2);
-            store2(s.A + rl * kLdB + c, m2);
+            store2(s.A + tile_at<T>(rl, c), m2);
           }
         }
   } else {
-    const int tx = lane, ty = warp;
+    // thread (ty, tx) = (warp, lane) holds rows ty*8 .. +7, columns tx*4 .. +3
     float acc[8][4];
-    chunk_product(s.A, s.W2, ty, tx, acc);
+    chunk_product(s.A, s.W2, warp, lane, acc);
     clk.mark(kW2);
     barrier(clk);  // every warp has read m1 before m2 overwrites it
 
-    const float4 bias = *reinterpret_cast<const float4*>(s.B2 + tx * 4);
+    // m2 = silu(m1 W2 + b2) back into A (f32; with kElem, its bf16 values)
+    const float4 bias = *reinterpret_cast<const float4*>(s.B2 + lane * 4);
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
-      float* dst = s.A + (ty * 8 + q) * kH + tx * 4;
+      float* dst = s.A + tile_at<T>(warp * 8 + q, lane * 4);
       const float4 v = make_float4(acc[q][0] + bias.x, acc[q][1] + bias.y,
                                    acc[q][2] + bias.z, acc[q][3] + bias.w);
       if constexpr (kElem) {
@@ -676,24 +836,20 @@ __device__ __forceinline__ void edge_chunk(const Smem<T, kElem>& s, const T* __r
     const int c = tid % kH;
     group_sums(tid / kH, r0, valid, n, s.part, kH, s.agg, kH, c, [&](int rl) {
       float v;
-      if constexpr (S::kMma && kElem) {
-        v = __bfloat162float(s.A[rl * kLdB + c]);
-      } else if constexpr (S::kMma) {
+      if constexpr (S::kBf16 && !kElem) {
         v = s.M2[rl * kLdM + c];
       } else {
-        v = s.A[rl * kH + c];
+        v = to_f(s.A[tile_at<T>(rl, c)]);
       }
       return s.mask[rl] * v;  // exact: the mask is 0 or 1
     });
   }
   clk.mark(kAgg);
 
-  // w = tanh(silu(m2 Wc1 + bc1) . wc2): f32 writes each row's three masked,
-  // clipped trans terms to s.trow; mma writes each row's four partial sums of w
-  // (one per 32-column tile) there
-  if constexpr (S::kMma) {
-    const int wm = warp >> 2, wn = warp & 3;
-    const int g = lane >> 2, t4 = lane & 3;
+  // w = tanh(silu(m2 Wc1 + bc1) . wc2): each row's four partial sums of w (one per
+  // 32-column tile, wn) go to s.trow; with bf16 the silu output is rounded to bf16
+  // as the operand of wc2
+  {
     float acc[2][4][4];
     mma_product(s.A, s.Wc1, wm, wn, lane, acc);
 #pragma unroll
@@ -706,54 +862,32 @@ __device__ __forceinline__ void edge_chunk(const Smem<T, kElem>& s, const T* __r
 #pragma unroll
           for (int p = 0; p < 2; ++p) {
             const int c = wn * 32 + nt * 8 + 2 * t4 + p;
-            sum += round_bf16(silu(acc[mt][nt][2 * half + p] + s.Bc1[c])) * s.Wc2[c];
+            float u = silu(acc[mt][nt][2 * half + p] + s.Bc1[c]);
+            if constexpr (S::kBf16) u = round_bf16(u);
+            sum += u * s.Wc2[c];
           }
         sum += __shfl_xor_sync(0xffffffffu, sum, 1);
         sum += __shfl_xor_sync(0xffffffffu, sum, 2);
         if (t4 == 0) s.trow[(wm * 32 + mt * 16 + g + half * 8) * 4 + wn] = sum;
       }
-  } else {
-    const int tx = lane, ty = warp;
-    float acc[8][4];
-    chunk_product(s.A, s.Wc1, ty, tx, acc);
-    const float4 bias = *reinterpret_cast<const float4*>(s.Bc1 + tx * 4);
-    const float4 wv = *reinterpret_cast<const float4*>(s.Wc2 + tx * 4);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      float sum = silu(acc[q][0] + bias.x) * wv.x + silu(acc[q][1] + bias.y) * wv.y +
-                  silu(acc[q][2] + bias.z) * wv.z + silu(acc[q][3] + bias.w) * wv.w;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const int rl = ty * 8 + q;
-      if (tx < 3) {
-        const float w = kTanh ? tanhf(sum) : sum;
-        s.trow[rl * 4 + tx] = rl < valid ? s.mask[rl] * clip100(w * s.geom[rl * kGeom + 5 + tx])
-                                         : 0.0f;
-      }
-    }
   }
   clk.mark(kWc1);
   barrier(clk);
 
   if (tid < kRows) {
-    // trans and the degree: thread rl holds row rl's three terms and its mask;
-    // each warp (a group of kGroupRows rows) sums them per receiver with shuffles
-    // in a fixed pattern
+    // trans and the degree: thread rl sums row rl's partial sums of w in a fixed order,
+    // makes its three terms and holds its mask; each warp (a group of kGroupRows rows)
+    // sums them per receiver with shuffles in a fixed pattern
     const int rl = tid;
     float term[4];
     term[3] = rl < valid ? s.mask[rl] : 0.0f;
-    if constexpr (S::kMma) {
-      const float* wp = s.trow + rl * 4;
-      const float sum = ((wp[0] + wp[1]) + wp[2]) + wp[3];
-      const float w = kTanh ? tanhf(sum) : sum;
-      const float m = s.mask[rl];
+    const float* wp = s.trow + rl * 4;
+    const float sum = ((wp[0] + wp[1]) + wp[2]) + wp[3];
+    const float w = kTanh ? tanhf(sum) : sum;
+    const float m = s.mask[rl];
 #pragma unroll
-      for (int d = 0; d < 3; ++d)
-        term[d] = rl < valid ? m * clip100(w * s.geom[rl * kGeom + 5 + d]) : 0.0f;
-    } else {
-#pragma unroll
-      for (int d = 0; d < 3; ++d) term[d] = s.trow[rl * 4 + d];
-    }
+    for (int d = 0; d < 3; ++d)
+      term[d] = rl < valid ? m * clip100(w * s.geom[rl * kGeom + 5 + d]) : 0.0f;
     warp_group_sums(r0, valid, n, term, s.tpart, s.trans);
   } else if (tid < kRows + kH) {
     combine_groups(r0, valid, n, s.part, kH, s.agg, kH, tid - kRows);

@@ -13,9 +13,10 @@
 // [B, 8, N, N] planes were a TPU lane layout made inside the JAX wrapper.
 //
 // What bounds it on an H100: the two 128x128 products per edge.  At the rollout
-// shape (B=64, N=100, He=Hc=128) one call is ~42 GFLOP of f32 against ~25 MB of
-// inputs, so it is bound by operations (0.64 ms at 67 TFLOP/s f32 on CUDA cores)
-// and never by bytes, as long as no [B, N, N, He] tensor goes to device memory.
+// shape (B=64, N=100, He=Hc=128) one call is ~42 GFLOP against ~25 MB of inputs,
+// so it is bound by operations and never by bytes, as long as no [B, N, N, He]
+// tensor goes to device memory: 0.64 ms at 67 TFLOP/s of f32 on the CUDA cores,
+// ~0.27 ms with both products as three TF32 products at 495 TFLOP/s.
 // The design keeps every per-edge intermediate on chip:
 //   * a persistent grid of min(B N, SMs) blocks of 512 threads, one an SM: each
 //     stages W2 and Wc1 (64 KB each) in shared memory once and walks a balanced
@@ -24,15 +25,18 @@
 //     rows;
 //   * per chunk, the geometry and mask rows are loaded into shared memory, and
 //     the edge stage shared with K3 (egnn_edge.cuh) builds m1, runs the two
-//     register-tiled f32 FMA products and adds the masked sums of agg, trans and
+//     products and adds the masked sums of agg, trans and
 //     the degree to shared accumulators in a fixed order, without atomics
 //     (bitwise reproducible); the outputs are written once per receiver.
 //   * 228 KB of shared memory leaves one block per SM, so the block is as
 //     large as the 128-register budget allows: 16 warps hide shared-memory
 //     latency better than 8 (a 256-thread block measured ~1.3x slower).
-// The f32 form runs f32 FMA throughout (no TF32, no tensor cores).  Measured
-// (PERF.md): 1.47 ms at the rollout shape, 2.3x its bound; two thirds of a
-// chunk are the two FMA products, at ~68% of the SM's FMA issue rate.
+// The f32 form runs its Wc1 product as error-compensated TF32 on the tensor cores
+// (3xTF32: each operand split into two TF32 parts, three mma.sync products a k-step
+// summed in f32, egnn_edge.cuh), which keeps about f32's accuracy where plain TF32
+// would not, and its W2 product as a register-tiled f32 FMA loop: on the tensor
+// cores that one's error against float64 went over twice the f32 plain version's.
+// Its time against its bound is in PERF.md.
 //
 // The bf16 form (`nbody_egnn_messages_bf16`, the mixed-bf16 model) follows the
 // TPU body's rounding points for bf16 operands (egnn_messages.py:66-115): the

@@ -16,8 +16,9 @@
 // owns whole receivers and walks all their senders itself, as K1 does.
 //
 // What bounds it on an H100: the two 128x128 products per edge, as in K1.  At
-// (B, N) = (8, 512) one call is ~141 GFLOP of f32 (2.1 ms at 67 TFLOP/s on CUDA
-// cores) against ~10 MB of node data and mask, so it is bound by operations.  No
+// (B, N) = (8, 512) one call is ~141 GFLOP (2.1 ms of f32 at 67 TFLOP/s on CUDA
+// cores, ~0.9 ms with both products as 3xTF32 on the tensor cores) against ~10 MB
+// of node data and mask, so it is bound by operations.  No
 // [B, N, N, *] tensor but the mask goes to or comes from device memory: the
 // dense path's [B, N, N, 8] geometry (537 MB at N = 4096) is never made.
 //   * a persistent grid of min(B N, SMs) blocks of 512 threads, one an SM, each
@@ -31,9 +32,9 @@
 //     stage shared with K1 runs on them;
 //   * any N: the last chunk of a sub-tile is ragged and masked, with no
 //     tile-divisibility assumption.
-// The f32 form runs f32 FMA throughout (no TF32, no tensor cores).  Measured
-// (PERF.md): 4.53 ms at (8, 512), 2.2x its bound, two thirds of a chunk in
-// the two FMA products.
+// The f32 form runs its Wc1 product as error-compensated TF32 on the tensor cores
+// (3xTF32) and its W2 product as an f32 FMA loop (egnn_edge.cuh), as K1 does; its
+// time against its bound is in PERF.md.
 //
 // The bf16 form (`nbody_egnn_stream_bf16`, the mixed-bf16 model) takes hA, hB
 // and the weights in bf16 and writes agg in bf16, trans in f32.  Its operand

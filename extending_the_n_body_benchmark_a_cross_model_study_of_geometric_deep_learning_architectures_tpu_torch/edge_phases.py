@@ -2,24 +2,31 @@
 
     python -m extending_the_n_body_benchmark_a_cross_model_study_of_geometric_deep_learning_architectures_tpu_torch.edge_phases
 
-Builds ``csrc/*.cu`` once more with ``-DEGNN_EDGE_PHASES`` into the package's
-``_build/`` (a library of its own beside the normal one), points the wrappers
-at it, and launches each form of the edge stage at its path's shape: K1 f32
-and K1-bf16 at (B, N) = (64, 100), K3 f32, K3-bf16 and K3-elem at (8, 512),
-fully connected, inputs and weights drawn from a seed at the model's init
-scale.  Thread 0 of every block stamps ``clock64()`` at each phase boundary
-(``csrc/egnn_edge.cuh``, ``PhaseClock``): a phase's clocks are thread 0's time
-in it, and ``barrier`` is thread 0's wait at the barriers, which is the time
-the slowest warp of the phase took beyond thread 0.  Prints the card's name and
-power limit, then one JSON line per form: the SM clocks per chunk of each phase
-summed over the blocks' thread 0, its share, the chunks and blocks of one
-launch, and the instrumented launch's time (CUDA events).  Needs a card.
+Launches each form of the edge stage at its path's shape: K1 f32 and K1-bf16
+at (B, N) = (64, 100), K3 f32 at (8, 512) and (1, 1000), K3-bf16 and K3-elem
+at (8, 512), fully connected, inputs and weights drawn from a seed at the
+model's init scale.  First each form's time with the normal library (CUDA
+events, ``ms``), and, for the f32 forms, its error against the plain version
+run in float64 beside the f32 plain version's (TF32 off): max abs error over
+max |reference| of ``agg`` and ``trans``, and their ratio.  Then ``csrc/*.cu``
+is built once more with ``-DEGNN_EDGE_PHASES`` into the package's ``_build/``
+(a library of its own beside the normal one), the wrappers are pointed at it,
+and each form runs again.  Thread 0 of every block stamps ``clock64()`` at
+each phase boundary (``csrc/egnn_edge.cuh``, ``PhaseClock``): a phase's clocks
+are thread 0's time in it, and ``barrier`` is thread 0's wait at the
+barriers, which is the time the slowest warp of the phase took beyond thread
+0.  Prints the card's name and power limit, one JSON line per form with its
+time and float64 errors, then one per form with the SM clocks per chunk of
+each phase summed over the blocks' thread 0, its share, the chunks and blocks
+of one launch, and the instrumented launch's time (``ms_instrumented``).
+Needs a card.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import sys
 
@@ -33,7 +40,7 @@ from .ops import egnn_stream as ES
 PHASES = ("stage", "prologue", "m1", "w2_product", "m2_epilogue", "agg", "wc1_product_epilogue",
           "trans", "barrier", "means")  # egnn_edge.cuh, enum Phase, then chunks and blocks
 WIDTH = 128
-K1_SHAPE, K3_SHAPE = (64, 100), (8, 512)
+K1_SHAPE, K3_SHAPE, K3_WIDE = (64, 100), (8, 512), (1, 1000)
 
 
 def load_instrumented() -> ctypes.CDLL:
@@ -64,6 +71,34 @@ def inputs(bb: int, nn_: int, dev, gen):
     return h, (pos0, vel, mass, coord), geom, mask, w
 
 
+def timed_ms(call, iters: int) -> float:
+    """CUDA-event ms a launch of ``call`` over ``iters`` launches, after a warm-up."""
+    call()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        call()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def f64_errors(call, plain, args, kwargs=None) -> dict:
+    """The kernel's and the f32 plain version's errors against the plain version in
+    float64 on the same inputs, per output: max abs error / max |reference|."""
+    kwargs = kwargs or {}
+    got = call(*args, **kwargs)
+    p32 = plain(*args, **kwargs)
+    ref = plain(*(a.double() for a in args), **kwargs)
+    out = {}
+    for part, k, p, r in zip(("agg", "trans"), got, p32, ref):
+        scale = r.abs().max().item()
+        ek = (k.double() - r).abs().max().item() / scale
+        ep = (p.double() - r).abs().max().item() / scale
+        out[part] = {"kernel": ek, "plain_f32": ep, "ratio": ek / ep if ep > 0 else float("inf")}
+    return out
+
+
 def split(read, call, iters: int) -> dict:
     """Run ``call`` ``iters`` times after a warm-up; the phase clocks of one launch."""
     out = (ctypes.c_ulonglong * (len(PHASES) + 2))()
@@ -81,7 +116,7 @@ def split(read, call, iters: int) -> dict:
     chunks, blocks = ticks[-2], ticks[-1]
     total = sum(ticks[:len(PHASES)])
     return {
-        "ms": start.elapsed_time(end) / iters,
+        "ms_instrumented": start.elapsed_time(end) / iters,
         "chunks": chunks, "blocks": blocks,
         "clocks_per_chunk": {p: t / chunks for p, t in zip(PHASES, ticks)},
         "share": {p: t / total for p, t in zip(PHASES, ticks)},
@@ -90,7 +125,7 @@ def split(read, call, iters: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -98,33 +133,38 @@ def main(argv=None) -> int:
         return 1
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    lib = load_instrumented()
     print(card_name(), flush=True)
     bf16 = torch.bfloat16
+    forms = []  # (form, shape, wrapper, args, kwargs, phase reader, plain version or None)
     with torch.no_grad():
         (hA, hB), _, geom, mask, w = inputs(*K1_SHAPE, dev, gen)
-        hb = [t.to(bf16) for t in (hA, hB)]
-        wb = [t.to(bf16) for t in w]
-        forms = {
-            "K1": lambda: EM.fused_egnn_messages(hA, hB, geom, mask, *w),
-            "K1-bf16": lambda: EM.fused_egnn_messages(*hb, geom, mask, *wb),
-        }
-        for form, call in forms.items():
-            row = split(lib.nbody_egnn_messages_phases, call, args.iters)
-            print(json.dumps({"form": form, "shape": K1_SHAPE, **row}), flush=True)
-        del geom
-        (hA, hB), node, _, mask, w = inputs(*K3_SHAPE, dev, gen)
-        hb = [t.to(bf16) for t in (hA, hB)]
-        wb = [t.to(bf16) for t in w]
-        forms = {
-            "K3": lambda: ES.streaming_egnn_messages(hA, hB, *node, mask, *w),
-            "K3-bf16": lambda: ES.streaming_egnn_messages(*hb, *node, mask, *wb),
-            "K3-elem": lambda: ES.streaming_egnn_messages(*hb, *node, mask, *wb, elem_bf16=True),
-        }
-        for form, call in forms.items():
-            row = split(lib.nbody_egnn_stream_phases, call, args.iters)
-            print(json.dumps({"form": form, "shape": K3_SHAPE, **row}), flush=True)
+        k1b = (*(t.to(bf16) for t in (hA, hB)), geom, mask, *(t.to(bf16) for t in w))
+        forms += [("K1", K1_SHAPE, EM.fused_egnn_messages, (hA, hB, geom, mask, *w), {},
+                   "nbody_egnn_messages_phases", EM.egnn_messages_plain),
+                  ("K1-bf16", K1_SHAPE, EM.fused_egnn_messages, k1b, {},
+                   "nbody_egnn_messages_phases", None)]
+        for shape in (K3_SHAPE, K3_WIDE):
+            (hA, hB), node, _, mask, w = inputs(*shape, dev, gen)
+            forms.append(("K3", shape, ES.streaming_egnn_messages, (hA, hB, *node, mask, *w), {},
+                          "nbody_egnn_stream_phases", ES.streaming_egnn_messages_plain))
+            if shape == K3_SHAPE:
+                k3b = (*(t.to(bf16) for t in (hA, hB)), *node, mask, *(t.to(bf16) for t in w))
+                forms += [(form, shape, ES.streaming_egnn_messages, k3b, {"elem_bf16": elem},
+                           "nbody_egnn_stream_phases", None)
+                          for form, elem in (("K3-bf16", False), ("K3-elem", True))]
+        calls = [functools.partial(fn, *a, **kw) for _, _, fn, a, kw, _, _ in forms]
+        for (form, shape, fn, a, kw, _, plain), call in zip(forms, calls):  # the normal library
+            row = {"form": form, "shape": shape, "ms": timed_ms(call, args.iters)}
+            if plain is not None:
+                row["err_f64"] = f64_errors(fn, plain, a, kw)
+                torch.cuda.empty_cache()
+            print(json.dumps(row), flush=True)
+        lib = load_instrumented()
+        for (form, shape, _, _, _, reader, _), call in zip(forms, calls):
+            row = split(getattr(lib, reader), call, args.iters)
+            print(json.dumps({"form": form, "shape": shape, **row}), flush=True)
     return 0
 
 
