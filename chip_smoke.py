@@ -41,15 +41,20 @@ bf16, coordinates, geometry and integration in f32):
                    and with hA, hB x100 (pre-activations past expf's overflow);
                    its error against the plain version in float64 beside the
                    f32 plain version's (the gate of its 3xTF32 product)
-  5. K1-bf16       its bf16 form vs the bf16 plain version, same shapes
+  5. K1-bf16       its bf16 form vs the bf16 plain version, same shapes, and at
+                   (4,5) and (2,33) FC (a 32-row group holds several receivers,
+                   groups cross receivers); its error against the plain version
+                   in float64 beside the bf16 plain version's (FC); its SFU floor
   6. K3            streaming edge kernel vs plain at (8,512) FC and k=5, (2,300)
                    and (1,1000), both norm_diff settings, and at (2,64) with hA,
                    hB x100; vs K1 at (8,512); against float64 at the FC shapes
                    beside the f32 plain version; the persistent grid's block
                    count at (1,1000) beside the card's SM count
   7. K3-bf16,      its bf16 form and its elem_bf16 form (with bf16 and with f32
-     K3-elem       operands) vs their plain versions at (8,512) FC and k=5 and
-                   (1,1000), both norm_diff settings
+     K3-elem       operands) vs their plain versions at (8,512) FC and k=5,
+                   (1,1000), (4,5) and (2,33) FC, both norm_diff settings, and at
+                   (2,64) with hA, hB x100; the bf16 forms against float64 at
+                   the FC path shapes beside the bf16 plain version; SFU floors
   8. datagen       fresh GT trajectories through one K2-leapfrog launch (2000
                    substeps, T=200 frames), no K2 launch
   9. rollout       199 self-feed steps through K1, and 20 steps of the kernel
@@ -332,7 +337,11 @@ COMPARE_STEPS = 20
 BIG_B, BIG_N, BIG_SUBSTEPS = 8, 512, 1000
 BIG_FRAMES = BIG_SUBSTEPS // SAMPLE_FREQ
 K3_SHAPES = ((8, 512, ("fc", "knn5")), (2, 300, ("fc",)), (1, 1000, ("fc",)))
-K3_BF16_SHAPES = ((8, 512, ("fc", "knn5")), (1, 1000, ("fc",)))
+K3_BF16_SHAPES = ((8, 512, ("fc", "knn5")), (1, 1000, ("fc",)), (4, 5, ("fc",)), (2, 33, ("fc",)))
+K3_BF16_F64_SHAPES = ((8, 512), (1, 1000))  # the bf16 forms against float64, FC mask
+# K1-bf16 beside its path shape: n = 5 (a 32-row group holds several receivers)
+# and n = 33 (the groups' receivers run across their edges), FC
+K1_BF16_SMALL = ((4, 5), (2, 33))
 K3_F64_SHAPES = ((8, 512), (2, 300), (1, 1000))  # K3 against float64 (check_f64), FC mask
 BIGN_STEPS = 20
 
@@ -368,11 +377,21 @@ BF16_RTOL, BF16_ATOL = 1e-2, 1e-5
 # 8a96933, the mean of two runs of edge_phases.py beside this code's in one
 # call on an NVIDIA H100 80GB HBM3, 700.00 W), printed with this run's
 PARENT_8A96933_K1_MS, PARENT_8A96933_K3_MS = 1.4476, 4.4767
-# the f32 forms' error against the plain version in float64, per output (max
-# abs error over max |reference|), may be at most this times the f32 plain
-# version's on the same inputs (TF32 off): their tensor-core product must keep
-# f32's accuracy
+# the bf16 forms' times before their chunk was laid out for the H100 (commit
+# e8e28ee, the mean of two runs of edge_phases.py beside this code's in one call
+# on an NVIDIA H100 80GB HBM3, 700.00 W), printed with this run's
+PARENT_E8E28EE_K1_BF16_MS = 0.5721
+PARENT_E8E28EE_K3_BF16_MS = 1.6705
+PARENT_E8E28EE_K3_ELEM_MS = 1.7826
+# an edge form's error against the plain version in float64, per output (max
+# abs error over max |reference|), may be at most this times its plain
+# version's in the same dtype on the same inputs (TF32 off): the f32 forms'
+# tensor-core product must keep f32's accuracy, the bf16 forms may round no
+# worse than the bf16 plain version
 F64_RATIO_MAX = 2.0
+# the silus of the edge stage, per edge row: m1, m2 and the Wc1 epilogue's, 128
+# each; two special-function operations each (ex2, rcp), 16 a clock an SM
+SILUS_PER_ROW, SFU_OPS_PER_SILU, SFU_PER_CLOCK = 3 * 128, 2, 16
 # the silu's worst relative error against float64 must stay a tenth of K1_RTOL
 SILU_RTOL = K1_RTOL / 10
 # hA and hB scaled so that pre-activations pass expf's overflow at -88
@@ -1014,20 +1033,31 @@ def main() -> None:
         for key, (a, r) in errs.items():
             print(f"  {kernel} {key}: max_abs_err={a:.3e} max_rel_err={r:.3e}", flush=True)
 
-    def check_f64(kernel: str, label: str, fn, plain, args, ratios: dict) -> None:
-        """An f32 edge kernel and its f32 plain version against the plain version
-        in float64 on the same inputs (edge_phases.f64_errors); the kernel's
-        relative error on agg and on trans at most F64_RATIO_MAX times the f32
-        plain version's.  Both errors and their ratio are printed."""
-        errs = edge_phases.f64_errors(fn, plain, args)
+    def check_f64(kernel: str, label: str, fn, plain, args, ratios: dict, **kwargs) -> None:
+        """An edge kernel and its plain version, both in the form's dtypes, against
+        the plain version in float64 on the same inputs (edge_phases.f64_errors: the
+        exact function, no bf16 rounding); the kernel's relative error on agg and on
+        trans at most F64_RATIO_MAX times the plain version's.  Both errors and
+        their ratio are printed."""
+        errs = edge_phases.f64_errors(fn, plain, args, kwargs)
+        dtype = str(args[0].dtype).replace("torch.", "")
         for part, e in errs.items():
             print(f"  {kernel} {part} {label} vs float64: kernel_rel_err={e['kernel']:.3e} "
-                  f"plain_f32_rel_err={e['plain_f32']:.3e} ratio={e['ratio']:.3f}", flush=True)
+                  f"plain_{dtype}_rel_err={e['plain']:.3e} ratio={e['ratio']:.3f}", flush=True)
             if not e["ratio"] <= F64_RATIO_MAX:
                 fail(f"{kernel} {part} ({label}): its error against float64, {e['kernel']:.3e}, "
-                     f"is over {F64_RATIO_MAX}x the f32 plain version's, {e['plain_f32']:.3e}")
+                     f"is over {F64_RATIO_MAX}x the {dtype} plain version's, {e['plain']:.3e}")
             ratios[f"{part} {label}"] = e["ratio"]
         torch.cuda.empty_cache()
+
+    sm_clock_mhz = bign_bench.max_sm_clock_mhz()
+
+    def sfu_floor_ms(rows: int) -> float:
+        """The least time the silus of ``rows`` edge rows take on the special-function
+        units: SFU_OPS_PER_SILU operations each, SFU_PER_CLOCK a clock on each SM, at
+        the card's maximum SM clock."""
+        sms_ = _build.sm_count(torch.empty(0, device=dev))
+        return rows * SILUS_PER_ROW * SFU_OPS_PER_SILU / (SFU_PER_CLOCK * sms_ * sm_clock_mhz * 1e6) * 1e3
 
     # ---------------------------------------------------------------- 4. K1
     t0 = time.perf_counter()
@@ -1106,7 +1136,20 @@ def main() -> None:
                         EM.fused_egnn_messages(hAb, hBb, geom, mask, *wb),
                         EM.egnn_messages_plain(hAb, hBb, geom, mask, *wb), k1b_err,
                         BF16_RTOL, BF16_ATOL)
+        # K1's cases beside the path shape: hA, hB x100, and small n (FC: the
+        # first n nodes of the first sims, where the FC mask is 1 - eye too)
+        small = [(f"hA, hB x{BIG_PRE:g}", (BIG_PRE * hAb[:4, :40], BIG_PRE * hBb[:4, :40],
+                                           geom[:4, :40, :40], masks["fc"][:4, :40, :40]))]
+        small += [(f"{bb}x{nn_} fc", (hAb[:bb, :nn_], hBb[:bb, :nn_], geom[:bb, :nn_, :nn_],
+                                      masks["fc"][:bb, :nn_, :nn_])) for bb, nn_ in K1_BF16_SMALL]
+        for label, args in small:
+            args = tuple(t.contiguous() for t in args)
+            check_close("K1-bf16", label, EM.fused_egnn_messages(*args, *wb),
+                        EM.egnn_messages_plain(*args, *wb), k1b_err, BF16_RTOL, BF16_ATOL)
         mask = masks["fc"]
+        k1b_f64 = {}
+        check_f64("K1-bf16", "fc mask", EM.fused_egnn_messages, EM.egnn_messages_plain,
+                  (hAb, hBb, geom, mask, *wb), k1b_f64)
         k1b_ms = cuda_ms(lambda: EM.fused_egnn_messages(hAb, hBb, geom, mask, *wb), iters=20)
         k1b_plain_ms = cuda_ms(lambda: EM.egnn_messages_plain(hAb, hBb, geom, mask, *wb), iters=5)
     repeat["K1-bf16"] = functools.partial(EM.fused_egnn_messages, hAb, hBb, geom, mask, *wb)
@@ -1115,10 +1158,13 @@ def main() -> None:
     k1b_bytes = (2.0 * (2 * B * N * He + weight_floats + B * N * He)
                  + 4.0 * (B * N * N * 8 + B * N * N + B * N * 3))
     k1b_bound, k1b_by = bound_ms(k1b_bytes, k1_flops, PEAK_BF16_FLOPS)
+    k1b_sfu = sfu_floor_ms(B * N * N)
     print_errs("K1-bf16", k1b_err)
     report("K1-bf16", t0, rtol=BF16_RTOL, atol=BF16_ATOL, ms=f"{k1b_ms:.4f}",
-           plain_ms=f"{k1b_plain_ms:.4f}", bound_ms=f"{k1b_bound:.4f}", bound_by=k1b_by,
-           gflop=f"{k1_flops / 1e9:.2f}")
+           ms_e8e28ee=PARENT_E8E28EE_K1_BF16_MS, plain_ms=f"{k1b_plain_ms:.4f}",
+           bound_ms=f"{k1b_bound:.4f}", bound_by=k1b_by, sfu_floor_ms=f"{k1b_sfu:.4f}",
+           sm_clock_mhz=sm_clock_mhz, gflop=f"{k1_flops / 1e9:.2f}",
+           f64_ratio_max=f"{max(k1b_f64.values()):.3f}")
 
     def k3_inputs(bb: int, nn_: int):
         """A random scene's node data ``(pos0, vel, mass, coord)`` and its
@@ -1216,6 +1262,13 @@ def main() -> None:
                             ES.streaming_egnn_messages_plain(hA_, hB_, *node, mask, *w_,
                                                              norm_diff=nd, elem_bf16=f["elem"]),
                             f["err"], BF16_RTOL, BF16_ATOL)
+                if name == "fc" and (bb, nn_) in K3_BF16_F64_SHAPES:
+                    hA_, hB_, w_ = operands[bf16]
+                    for form, f in k3b.items():
+                        if f["op"] == bf16:
+                            check_f64(form, f"{bb}x{nn_} fc", ES.streaming_egnn_messages,
+                                      ES.streaming_egnn_messages_plain, (hA_, hB_, *node, mask, *w_),
+                                      f.setdefault("f64", {}), elem_bf16=f["elem"])
             if (bb, nn_) != (k3_b, k3_n):
                 continue
             mask = graph.knn_mask(node[0], nn_ - 1).float()
@@ -1229,18 +1282,35 @@ def main() -> None:
                     iters=3, warmup=1)
                 repeat[form] = call
             del operands
+        h, node = k3_inputs(2, 64)
+        mask = graph.knn_mask(node[0], 63).float()
+        for form, f in k3b.items():
+            hA_, hB_ = (BIG_PRE * t for t in block.node_terms(h.to(f["op"])))
+            w_ = block.edge_weights(f["op"])
+            check_close(form, f"2x64 fc hA, hB x{BIG_PRE:g}",
+                        ES.streaming_egnn_messages(hA_, hB_, *node, mask, *w_, elem_bf16=f["elem"]),
+                        ES.streaming_egnn_messages_plain(hA_, hB_, *node, mask, *w_,
+                                                         elem_bf16=f["elem"]),
+                        f["err"], BF16_RTOL, BF16_ATOL)
     # bf16 operands and agg move half the bytes and run the products at the
     # tensor cores' rate; f32 operands run them on the CUDA cores, as K3 does
     k3b_bytes = (2.0 * (2 * k3_b * k3_n * He + weight_floats + k3_b * k3_n * He)
                  + 4.0 * (k3_b * k3_n * 10 + k3_b * k3_n * k3_n + k3_b * k3_n * 3))
     k3b_bound, k3b_by = bound_ms(k3b_bytes, k3_flops, PEAK_BF16_FLOPS)
+    k3b_sfu = sfu_floor_ms(k3_b * k3_n * k3_n)
     k3b_s = time.perf_counter() - t0
+    parent_ms = {"K3-bf16": PARENT_E8E28EE_K3_BF16_MS, "K3-elem": PARENT_E8E28EE_K3_ELEM_MS}
     for form, f in k3b.items():
-        bound, by = (k3b_bound, k3b_by) if f["op"] == bf16 else (k3_bound, k3_by)
         print_errs(form, f["err"])
+        if f["op"] == bf16:
+            extra = dict(ms_e8e28ee=parent_ms[form], bound_ms=f"{k3b_bound:.4f}", bound_by=k3b_by,
+                         sfu_floor_ms=f"{k3b_sfu:.4f}", sm_clock_mhz=sm_clock_mhz,
+                         f64_ratio_max=f"{max(f['f64'].values()):.3f}")
+        else:
+            extra = dict(bound_ms=f"{k3_bound:.4f}", bound_by=k3_by)
         report(form, t0, k3b_s, rtol=BF16_RTOL, atol=BF16_ATOL, shape=f"B={k3_b},N={k3_n}",
-               ms=f"{f['ms']:.4f}", plain_ms=f"{f['plain_ms']:.4f}",
-               bound_ms=f"{bound:.4f}", bound_by=by, gflop=f"{k3_flops / 1e9:.2f}")
+               ms=f"{f['ms']:.4f}", plain_ms=f"{f['plain_ms']:.4f}", **extra,
+               gflop=f"{k3_flops / 1e9:.2f}")
 
     # ------------------------------------------------ helpers of the paths
     counters = {  # name -> (wrapper, attribute): every kernel form's launch count
@@ -3346,6 +3416,7 @@ def main() -> None:
             "name": "egnn_messages bf16 (K1-bf16)",
             "route": "cuda",
             "reworked": "PR 8",
+            "redesigned": "PR 18",
             "source": f"{PKG}/csrc/egnn_messages.cu",
             "replaces": f"{TPU_PKG}/ops/pallas/egnn_messages.py:197",
             "launches": bf16_counts["k1_bf16"],
@@ -3354,6 +3425,8 @@ def main() -> None:
             "plain_ms": k1b_plain_ms,
             "bound_ms": k1b_bound,
             "bound_by": k1b_by,
+            "sfu_floor_ms": k1b_sfu,
+            "sm_clock_mhz": sm_clock_mhz,
             "library_ms": None,
         },
     ]
@@ -3363,6 +3436,7 @@ def main() -> None:
             "name": f"egnn_stream {'elem_bf16' if f['elem'] else 'bf16'} ({form})",
             "route": "cuda",
             "reworked": "PR 8",
+            "redesigned": "PR 18",
             "source": f"{PKG}/csrc/egnn_stream.cu",
             "replaces": f"{TPU_PKG}/ops/pallas/egnn_stream.py:192",
             "launches": bf16_counts[kernel],
@@ -3371,6 +3445,8 @@ def main() -> None:
             "plain_ms": f["plain_ms"],
             "bound_ms": k3b_bound,
             "bound_by": k3b_by,
+            "sfu_floor_ms": k3b_sfu,
+            "sm_clock_mhz": sm_clock_mhz,
             "library_ms": None,
         })
     # each kernel's launches on the training paths: [train]'s training (its

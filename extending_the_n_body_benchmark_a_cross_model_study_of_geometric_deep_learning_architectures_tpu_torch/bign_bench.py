@@ -136,6 +136,16 @@ def card_name() -> str:
     return res.stdout.strip().splitlines()[0] if res.returncode == 0 and res.stdout.strip() else ""
 
 
+def max_sm_clock_mhz() -> float:
+    """The first card's maximum SM clock in MHz as nvidia-smi reports it
+    (``clocks.max.sm``)."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return float(res.stdout.split()[0])
+
+
 def run(shapes, steps: int, device) -> Dict:
     state = seeded_state(SEED)
     rows = []

@@ -28,8 +28,10 @@
 // ([silu]); below -87 the sigmoid flushes to 0 and silu gives -0 where IEEE gives
 // a value under 1.1e-36 in magnitude.
 //
-// Two operand types, one template (T).  The Wc1 product runs on the tensor cores for
-// both, 16 warps as 4 x 4 tiles of 32 x 32 (mma_product), with one epilogue:
+// This header's chunk (edge_chunk) serves the f32 operands; the bf16 operands (the
+// mixed-bf16 model) have a chunk of their own, laid out for the H100, in
+// egnn_edge_bf16.cuh, which builds on the pieces here.  The Wc1 product runs on the
+// tensor cores for both, 16 warps as 4 x 4 tiles of 32 x 32 (mma_product):
 //   * float: the Wc1 product is error-compensated TF32 ("3xTF32").  Each f32 operand
 //     is split at fragment load into hi = tf32(x) and lo = tf32(x - hi), rounded to
 //     nearest, and each product is taken as lo.hi + hi.lo + hi.hi by
@@ -41,19 +43,14 @@
 //     twice the f32 plain version's error against float64 (PERF.md).  Wc1 is staged
 //     transposed, and it and m2 are XOR-swizzled (swz below), so fragments load 8
 //     bytes at a time without bank conflicts.  m2 goes back into A in f32.
-//   * __nv_bfloat16 (the mixed-bf16 model): hA, hB and every weight are bf16;
-//     m1, m2 and the silu output before wc2 are rounded to bf16 as matmul
-//     operands, and every product accumulates in f32, as the TPU bodies do
-//     (ops/pallas/egnn_messages.py:66-115, egnn_stream.py:138-169).  Both products
-//     run on the tensor cores, the W2 product as the Wc1 one: warp-level
+//   * __nv_bfloat16: both products run on the tensor cores, warp-level
 //     mma.sync.m16n8k16 bf16 -> f32 on fragments read with ldmatrix (.trans for
-//     the row-major [K, N] weights).  Rows of the bf16 tiles are padded to 136
+//     the row-major [K, N] weights); rows of the bf16 tiles are padded to 136
 //     elements (272 B) so the eight row addresses of an ldmatrix phase fall in
-//     distinct banks.  m2 is kept in f32 beside its bf16 copy, because agg sums
-//     the unrounded m2.
+//     distinct banks (egnn_edge_bf16.cuh).
 // kElem (K3's elem_bf16): the two silus and the mask multiply run in bf16, one
 // rounding per operation (x * 1/(1 + exp(-x)) on __nv_bfloat162 pairs), and m2
-// is stored only in bf16; the sums stay f32.
+// is stored only in bf16 values; the sums stay f32.
 //
 // m1 is built with the sub-tile's hA rows staged in shared memory once per
 // sub-tile; a thread owns one 16-byte column slice (4 f32 or 8 bf16) of 8 or 4
@@ -69,13 +66,11 @@
 // once; the sums of a group's first and last receivers are combined after a
 // barrier, group by group in order (combine_groups).
 //
-// Shared memory, in bytes (Smem<T, kElem>::kBytes; K3 adds 640 of node data):
-// W2, Wc1 and the chunk A (3 x 64 KiB f32, Wc1 transposed, Wc1 and m2 swizzled; 3 x 34
-// KiB bf16 with padded rows), the f32 copy of m2 (68 KiB, bf16 without kElem only),
-// the sub-tile's hA (8 KiB f32, 4 KiB bf16), and 5,856 floats (Wg, biases, a chunk's
+// Shared memory of the f32 chunk, in bytes (Smem<float, kElem>::kBytes; K3 adds 640
+// of node data): W2, Wc1 and the chunk A (3 x 64 KiB, Wc1 transposed, Wc1 and m2
+// swizzled), the sub-tile's hA (8 KiB), and 5,856 floats (Wg, biases, a chunk's
 // geometry and mask, the accumulators, a chunk's per-row partial sums of w, the
-// groups' heads and tails): 228,224 B f32 (of 232,448), 201,600 B bf16, 131,968 B
-// bf16 kElem.
+// groups' heads and tails): 228,224 B (of 232,448).
 
 #pragma once
 
@@ -96,17 +91,17 @@ constexpr int kRows = kThreads / 4;  // edge rows per chunk
 constexpr int kMaxTi = 16;           // receivers of a sub-tile (MAX_RECEIVERS in ops/egnn_messages.py)
 constexpr int kGeom = 8;             // d2, 4 edge attrs, cd_x, cd_y, cd_z
 constexpr int kLdB = kH + 8;         // padded row of a bf16 tile (272 B)
-constexpr int kLdM = kH + 8;         // padded row of the f32 copy of m2
 constexpr int kGroups = 4;           // row groups of a chunk's fixed-order sums
 constexpr int kGroupRows = kRows / kGroups;  // 32: a warp's lanes in warp_group_sums
 
-// The block's dynamic shared memory for operand type T and elementwise mode kElem.
+constexpr size_t kSmemMax = 232448;  // shared memory a block can have on the H100
+
+// The f32 chunk's dynamic shared memory (operand type T = float; kElem: K3's elem_bf16).
 template <typename T, bool kElem>
 struct Smem {
-  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  static constexpr int kLd = kBf16 ? kLdB : kH;  // row stride of W2, Wc1 and A
+  static_assert(std::is_same<T, float>::value, "the bf16 operands have SmemBf16");
+  static constexpr int kLd = kH;  // row stride of W2, Wc1 and A
   static constexpr size_t kTileBytes = size_t(kH) * kLd * sizeof(T);
-  static constexpr size_t kM2Bytes = (kBf16 && !kElem) ? size_t(kRows) * kLdM * sizeof(float) : 0;
   static constexpr size_t kFloats = 5 * kH + 3 * kH  // Wg, b2, bc1, wc2
                                     + kRows * kGeom   // geometry chunk
                                     + kRows           // mask chunk
@@ -116,23 +111,20 @@ struct Smem {
                                     + kGroups * 2 * kH  // agg: groups' heads and tails
                                     + kGroups * 2 * 4;  // trans: groups' heads and tails
   static constexpr size_t kHaBytes = size_t(kMaxTi) * kH * sizeof(T);  // the sub-tile's hA
-  static constexpr size_t kBytes =
-      3 * kTileBytes + kM2Bytes + kHaBytes + kFloats * sizeof(float);
+  static constexpr size_t kBytes = 3 * kTileBytes + kHaBytes + kFloats * sizeof(float);
 
-  // A: the chunk's m1, then m2 (the matmul operand), [kRows, kH]; W2 and Wc1 [kH, kH]
-  // row-major [K, N], but for f32 Wc1 transposed ([N, K]); in f32, m2 and Wc1 swizzled
-  // (tile_at)
+  // A: the chunk's m1, then m2 (the matmul operand), [kRows, kH]; W2 [kH, kH] row-major
+  // [K, N], Wc1 transposed ([N, K]); m2 and Wc1 swizzled (tile_at)
   T *W2, *Wc1, *A;
   T* hAs;           // [kMaxTi, kH]: hA of the sub-tile's receivers
-  float *M2, *Wg, *B2, *Bc1, *Wc2, *geom, *mask, *agg, *trans, *trow, *part, *tpart;
+  float *Wg, *B2, *Bc1, *Wc2, *geom, *mask, *agg, *trans, *trow, *part, *tpart;
 
   __device__ explicit Smem(unsigned char* base) {
     W2 = reinterpret_cast<T*>(base);
     Wc1 = reinterpret_cast<T*>(base + kTileBytes);
     A = reinterpret_cast<T*>(base + 2 * kTileBytes);
-    M2 = reinterpret_cast<float*>(base + 3 * kTileBytes);
-    hAs = reinterpret_cast<T*>(base + 3 * kTileBytes + kM2Bytes);
-    Wg = reinterpret_cast<float*>(base + 3 * kTileBytes + kM2Bytes + kHaBytes);
+    hAs = reinterpret_cast<T*>(base + 3 * kTileBytes);
+    Wg = reinterpret_cast<float*>(base + 3 * kTileBytes + kHaBytes);
     B2 = Wg + 5 * kH;
     Bc1 = B2 + kH;
     Wc2 = Bc1 + kH;
@@ -153,16 +145,22 @@ struct Smem {
 // SM clocks it spends in each phase, from one stamp to the next, to a device array
 // of its translation unit that the host reads with read_phases().  kBarrier takes
 // thread 0's waits at barriers.  In the normal build every call compiles to nothing.
+// kM1Load (the bf16 chunk only) is the part of m1 up to its hB rows' arrival.
 enum Phase {
-  kStage, kPrologue, kM1, kW2, kEpi2, kAgg, kWc1, kTrans, kBarrier, kMeans,
+  kStage, kPrologue, kM1, kW2, kEpi2, kAgg, kWc1, kTrans, kBarrier, kMeans, kM1Load,
   kChunks, kBlocks, kPhases  // the last two count chunks and blocks
 };
 
 #ifdef EGNN_EDGE_PHASES
+// the phases' names, in the enum's order, for edge_phases.py
+constexpr char kPhaseNames[] =
+    "stage,prologue,m1,w2_product,m2_epilogue,agg,wc1_product_epilogue,trans,barrier,means,"
+    "m1_load";
+
 static __device__ unsigned long long g_phase_ticks[kPhases];
 
 __device__ __forceinline__ long long* phase_smem() {
-  __shared__ long long ticks[kPhases];
+  __shared__ long long ticks[kPhases + 1];  // the last: wait_for's sink
   return ticks;
 }
 
@@ -186,6 +184,10 @@ struct PhaseClock {
   __device__ void count(int k) {
     if (threadIdx.x == 0) ++t[k];
   }
+  // thread 0 stores v, so its next mark comes after the load that made v arrived
+  __device__ void wait_for(unsigned v) {
+    if (threadIdx.x == 0) reinterpret_cast<volatile long long*>(t)[kPhases] = v;
+  }
   __device__ void flush() {
     if (threadIdx.x == 0)
       for (int k = 0; k < kPhases; ++k)
@@ -204,6 +206,7 @@ static inline int read_phases(unsigned long long* out) {
 struct PhaseClock {
   __device__ void mark(int) {}
   __device__ void count(int) {}
+  __device__ void wait_for(unsigned) {}
   __device__ void flush() {}
 };
 #endif
@@ -530,8 +533,8 @@ __device__ __forceinline__ void chunk_product(const float* __restrict__ a,
 
 // ------------------------------------------------------------------ staging
 // Stage the weights in shared memory; ends in a barrier.
-template <typename T, bool kElem>
-__device__ __forceinline__ void stage_weights(const Smem<T, kElem>& s, const T* __restrict__ wg,
+template <typename T, typename S>
+__device__ __forceinline__ void stage_weights(const S& s, const T* __restrict__ wg,
                                               const T* __restrict__ W2, const T* __restrict__ b2,
                                               const T* __restrict__ Wc1,
                                               const T* __restrict__ bc1,
@@ -773,37 +776,11 @@ __device__ __forceinline__ void edge_chunk(const Smem<T, kElem>& s, const T* __r
   clk.mark(kM1);
   barrier(clk);
 
-  // the tensor-core products' 4 x 4 warp grid and accumulator layout (mma_product):
-  // element e of acc[mt][nt] is row wm*32 + mt*16 + g + 8*(e/2), column
-  // wn*32 + nt*8 + 2*t4 + e%2
+  // the Wc1 product's 4 x 4 warp grid and accumulator layout (mma_product): element
+  // e of acc[mt][nt] is row wm*32 + mt*16 + g + 8*(e/2), column wn*32 + nt*8 + 2*t4 + e%2
   const int wm = warp >> 2, wn = warp & 3;
   const int g = lane >> 2, t4 = lane & 3;
-  if constexpr (S::kBf16) {
-    float acc[2][4][4];
-    mma_product(s.A, s.W2, wm, wn, lane, acc);
-    clk.mark(kW2);
-    barrier(clk);  // every warp has read m1 before m2 overwrites it
-
-    // m2 = silu(m1 W2 + b2) back into A (bf16) and, unrounded, into M2
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int rl = wm * 32 + mt * 16 + g + half * 8;
-          const int c = wn * 32 + nt * 8 + 2 * t4;
-          const float vx = acc[mt][nt][2 * half] + s.B2[c];
-          const float vy = acc[mt][nt][2 * half + 1] + s.B2[c + 1];
-          if constexpr (kElem) {
-            store2(s.A + tile_at<T>(rl, c), silu2(__floats2bfloat162_rn(vx, vy)));
-          } else {
-            const float2 m2 = make_float2(silu(vx), silu(vy));
-            store2(s.M2 + rl * kLdM + c, m2);
-            store2(s.A + tile_at<T>(rl, c), m2);
-          }
-        }
-  } else {
+  {
     // thread (ty, tx) = (warp, lane) holds rows ty*8 .. +7, columns tx*4 .. +3
     float acc[8][4];
     chunk_product(s.A, s.W2, warp, lane, acc);
@@ -835,20 +812,13 @@ __device__ __forceinline__ void edge_chunk(const Smem<T, kElem>& s, const T* __r
   {
     const int c = tid % kH;
     group_sums(tid / kH, r0, valid, n, s.part, kH, s.agg, kH, c, [&](int rl) {
-      float v;
-      if constexpr (S::kBf16 && !kElem) {
-        v = s.M2[rl * kLdM + c];
-      } else {
-        v = to_f(s.A[tile_at<T>(rl, c)]);
-      }
-      return s.mask[rl] * v;  // exact: the mask is 0 or 1
+      return s.mask[rl] * s.A[tile_at<T>(rl, c)];  // exact: the mask is 0 or 1
     });
   }
   clk.mark(kAgg);
 
   // w = tanh(silu(m2 Wc1 + bc1) . wc2): each row's four partial sums of w (one per
-  // 32-column tile, wn) go to s.trow; with bf16 the silu output is rounded to bf16
-  // as the operand of wc2
+  // 32-column tile, wn) go to s.trow
   {
     float acc[2][4][4];
     mma_product(s.A, s.Wc1, wm, wn, lane, acc);
@@ -862,8 +832,7 @@ __device__ __forceinline__ void edge_chunk(const Smem<T, kElem>& s, const T* __r
 #pragma unroll
           for (int p = 0; p < 2; ++p) {
             const int c = wn * 32 + nt * 8 + 2 * t4 + p;
-            float u = silu(acc[mt][nt][2 * half + p] + s.Bc1[c]);
-            if constexpr (S::kBf16) u = round_bf16(u);
+            const float u = silu(acc[mt][nt][2 * half + p] + s.Bc1[c]);
             sum += u * s.Wc2[c];
           }
         sum += __shfl_xor_sync(0xffffffffu, sum, 1);

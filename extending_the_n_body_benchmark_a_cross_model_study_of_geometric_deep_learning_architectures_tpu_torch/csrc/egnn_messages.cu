@@ -44,24 +44,26 @@
 // and the silu output before wc2 are rounded to bf16 as matmul operands, every
 // product accumulates in f32, the elementwise work and the masked sums are f32,
 // agg is written in bf16 and trans in f32.  Its two 128x128 products run on the
-// tensor cores (mma.sync m16n8k16, egnn_edge.cuh): ~0.043 ms of bf16 work at the
-// rollout shape against 989 TFLOP/s.  Staging W2 and Wc1 in bf16 halves their
-// shared memory to 68 KB (padded rows); the f32 copy of m2 that agg sums takes
-// 68 KB of what that frees, so the block stays 512 threads, one per SM.
-// Measured (PERF.md): 0.57 ms, 13x its bound; the products are under a
-// fifth of a chunk, and m1 (a quarter), the epilogues' f32 silus, the sums and
-// the chunk's geometry load hold it.
+// tensor cores (mma.sync m16n8k16): ~0.043 ms of bf16 work at the rollout shape
+// against 989 TFLOP/s, under a fifth of a chunk.  Its chunk (egnn_edge_bf16.cuh)
+// is laid out against the elementwise phases that held it: agg is summed from the
+// W2 product's registers, and the next chunk's geometry and mask rows (contiguous
+// in [B, N, N, 8] and [B, N, N]) are copied with cp.async while the current one
+// computes, g[0:5] rounded where m1 reads it.  Its time against its bound and its
+// phase split are in PERF.md.
 //
 // Plain C interface for ctypes (ops/_build.py); returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
 #include "egnn_edge.cuh"
+#include "egnn_edge_bf16.cuh"
 
 namespace {
 
 using namespace egnn_edge;
 
+// K1 with f32 operands (T = float): the chunk of egnn_edge.cuh
 template <typename T, bool kTanh>
 __global__ void __launch_bounds__(kThreads, 1)
 egnn_edge_kernel(const T* __restrict__ hA, const T* __restrict__ hB,
@@ -87,13 +89,10 @@ egnn_edge_kernel(const T* __restrict__ hA, const T* __restrict__ hB,
     __syncthreads();
 
     for (int r0 = 0; r0 < rows; r0 += kRows) {
-      // geometry and mask of this chunk's edges; rows past the tile are zero.  With
-      // bf16 operands g[0:5] is a matmul operand and is rounded to bf16.
+      // geometry and mask of this chunk's edges; rows past the tile are zero
       for (int e = tid; e < kRows * kGeom; e += kThreads) {
         const int r = r0 + e / kGeom;
-        float g = r < rows ? geomb[static_cast<size_t>(r0) * kGeom + e] : 0.0f;
-        if (std::is_same<T, bf16>::value && e % kGeom < 5) g = round_bf16(g);
-        s.geom[e] = g;
+        s.geom[e] = r < rows ? geomb[static_cast<size_t>(r0) * kGeom + e] : 0.0f;
       }
       if (tid < kRows) {
         const int r = r0 + tid;
@@ -112,13 +111,88 @@ egnn_edge_kernel(const T* __restrict__ hA, const T* __restrict__ hB,
   clk.flush();
 }
 
+// The geometry and mask of the chunk at r0 of a sub-tile with `rows` rows (geomb,
+// maskb at its first row) into buffer `buf`, zero past `rows`: cp.async, 16 bytes of
+// geometry (half a row) or 4 of mask a thread; the caller waits for them.
+__device__ __forceinline__ void fetch_chunk(const SmemBf16& s, int buf,
+                                            const float* __restrict__ geomb,
+                                            const float* __restrict__ maskb, int r0, int rows,
+                                            int tid) {
+  if (tid < 2 * kRows) {
+    const bool live = r0 + tid / 2 < rows;
+    cp_async16(s.geom_buf(buf) + tid * 4,
+               live ? geomb + static_cast<size_t>(r0) * kGeom + tid * 4 : geomb, live);
+  } else if (tid < 3 * kRows) {
+    const int t = tid - 2 * kRows;
+    const bool live = r0 + t < rows;
+    cp_async4(s.mask_buf(buf) + t, live ? maskb + r0 + t : maskb, live);
+  }
+}
+
+// K1 with bf16 operands: the chunk of egnn_edge_bf16.cuh, each chunk's geometry and
+// mask copied in during the chunk before it (the sub-tile's first, with its hA rows)
+template <bool kTanh>
+__global__ void __launch_bounds__(kThreads, 1)
+egnn_edge_kernel_bf16(const bf16* __restrict__ hA, const bf16* __restrict__ hB,
+                      const float* __restrict__ geom, const float* __restrict__ mask,
+                      const bf16* __restrict__ wg, const bf16* __restrict__ W2,
+                      const bf16* __restrict__ b2, const bf16* __restrict__ Wc1,
+                      const bf16* __restrict__ bc1, const bf16* __restrict__ wc2,
+                      bf16* __restrict__ agg, float* __restrict__ trans, int batch, int n,
+                      int blocks) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const SmemBf16 s(smem);
+  const int tid = threadIdx.x;
+  PhaseClock clk;
+  stage_weights(s, wg, W2, b2, Wc1, bc1, wc2, tid);
+  clk.mark(kStage);
+
+  for_each_subtile(batch, n, blocks, [&](int b, int i0, int nrecv) {
+    const int rows = nrecv * n;  // edge row r = il * n + j  <->  (i0 + il, j)
+    const bf16* hAb = hA + (static_cast<size_t>(b) * n + i0) * kH;
+    const bf16* hBb = hB + static_cast<size_t>(b) * n * kH;
+    const float* geomb = geom + (static_cast<size_t>(b) * n + i0) * n * kGeom;
+    const float* maskb = mask + (static_cast<size_t>(b) * n + i0) * n;
+    begin_subtile(s, hAb, nrecv, tid);
+    fetch_chunk(s, 0, geomb, maskb, 0, rows, tid);
+    cp_async_wait_all();
+    __syncthreads();
+    clk.mark(kPrologue);
+
+    for (int r0 = 0, buf = 0; r0 < rows; r0 += kRows, buf ^= 1) {
+      const int next = r0 + kRows;
+      edge_chunk_bf16<false, kTanh, true>(
+          s, buf, hBb, r0, rows, n, tid, clk,
+          [&](int t) {
+            if (next < rows) fetch_chunk(s, buf ^ 1, geomb, maskb, next, rows, t);
+          },
+          [](int) {});
+    }
+    __syncthreads();  // the last chunk's sums are in
+    write_means(s, agg, trans, b, n, i0, nrecv, tid);
+    __syncthreads();  // before the next sub-tile zeroes the accumulators
+    clk.mark(kMeans);
+  });
+  clk.flush();
+}
+
+static_assert(Smem<float, false>::kBytes <= kSmemMax, "over the H100's shared memory per block");
+static_assert(SmemBf16::kBytes <= kSmemMax, "over the H100's shared memory per block");
+
 template <typename T, bool kTanh>
 int launch(const T* hA, const T* hB, const float* geom, const float* mask, const T* wg,
            const T* W2, const T* b2, const T* Wc1, const T* bc1, const T* wc2, T* agg,
            float* trans, int batch, int n, int blocks, cudaStream_t stream) {
   static bool configured = false;
-  constexpr size_t bytes = Smem<T, false>::kBytes;
-  const auto kernel = &egnn_edge_kernel<T, kTanh>;
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  constexpr size_t bytes = kBf16 ? SmemBf16::kBytes : Smem<float, false>::kBytes;
+  const auto kernel = [] {
+    if constexpr (kBf16) {
+      return &egnn_edge_kernel_bf16<kTanh>;
+    } else {
+      return &egnn_edge_kernel<T, kTanh>;
+    }
+  }();
   if (const int err = allow_smem(kernel, bytes, configured)) return err;
   kernel<<<blocks, kThreads, bytes, stream>>>(hA, hB, geom, mask, wg, W2, b2, Wc1, bc1, wc2,
                                               agg, trans, batch, n, blocks);
@@ -175,4 +249,5 @@ extern "C" int nbody_edge_silu_f32(const float* x, float* y, int count, void* st
 
 #ifdef EGNN_EDGE_PHASES
 extern "C" int nbody_egnn_messages_phases(unsigned long long* out) { return read_phases(out); }
+extern "C" const char* nbody_edge_phase_names() { return kPhaseNames; }
 #endif

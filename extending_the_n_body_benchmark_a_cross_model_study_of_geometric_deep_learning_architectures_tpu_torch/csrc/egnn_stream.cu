@@ -45,31 +45,71 @@
 // the two silus and the mask multiply in bf16 on __nv_bfloat162 pairs, one
 // rounding per operation; h2exp and h2rcp are approximate, so a value can land
 // one bf16 ulp from the plain version's.  It is legal with f32 operands too (a
-// third instantiation of the same template).  The running sums of agg, trans
-// and the degree stay f32 and run in a fixed order.  Measured (PERF.md) at
-// (8, 512): bf16 1.71 ms and elem_bf16 1.81 ms, 12-13x their bound, held as K1's
-// bf16 form is by m1, the epilogues, the sums and the chunk prologue; copying the
-// next chunk's hB rows with cp.async (only elem_bf16 has the shared memory for it)
-// measured no gain and is not done.
+// third instantiation of the f32 template).  The running sums of agg, trans and
+// the degree stay f32 and run in a fixed order.  The bf16 forms run the chunk of
+// egnn_edge_bf16.cuh (agg summed from the W2 product's registers, four barriers a
+// chunk): once a chunk's m1 is built every thread issues cp.async copies of the next
+// chunk's sender rows (pos0, vel, coord, mass) and mask, and in the trans phase the
+// threads it leaves idle compute that chunk's geometry from them, so no chunk but a
+// sub-tile's first waits for a prologue.  Their times against their bound and
+// their phase split are in PERF.md.
 //
 // Plain C interface for ctypes (ops/_build.py); returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
 #include "egnn_edge.cuh"
+#include "egnn_edge_bf16.cuh"
 
 namespace {
 
 using namespace egnn_edge;
 
-constexpr int kNode = 10;  // pos0 (3), vel (3), mass (1), coord (3)
+constexpr int kNode = 10;    // pos0 (3), vel (3), mass (1), coord (3)
+constexpr int kStaged = 12;  // a staged sender row: pos0 (3), vel (3), coord (3), mass, mask, pad
 
 template <typename T, bool kElem>
 constexpr size_t stream_smem_bytes() {
-  return Smem<T, kElem>::kBytes + kMaxTi * kNode * sizeof(float);
+  if constexpr (std::is_same<T, bf16>::value) {
+    return SmemBf16::kBytes + (kMaxTi * kNode + kRows * kStaged) * sizeof(float);
+  } else {
+    return Smem<T, kElem>::kBytes + kMaxTi * kNode * sizeof(float);
+  }
 }
-static_assert(stream_smem_bytes<float, false>() <= 232448, "over the H100's shared memory per block");
+static_assert(stream_smem_bytes<float, false>() <= kSmemMax, "over the H100's shared memory per block");
+static_assert(stream_smem_bytes<float, true>() <= kSmemMax, "over the H100's shared memory per block");
+static_assert(stream_smem_bytes<bf16, false>() <= kSmemMax, "over the H100's shared memory per block");
+static_assert(stream_smem_bytes<bf16, true>() <= kSmemMax, "over the H100's shared memory per block");
 
+// The geometry g[0:8] of edge (i, j), as the TPU body computes it
+// (egnn_stream.py:95-109), from receiver i's node data ni [kNode] and sender j's
+// pos0 (p), vel (v), coord (c) and mass (m)
+template <bool kNormDiff>
+__device__ __forceinline__ void edge_geometry(const float* ni, const float* p, const float* v,
+                                              const float* c, float m, float g[kGeom]) {
+  const float c0x = ni[0] - p[0], c0y = ni[1] - p[1], c0z = ni[2] - p[2];
+  const float d2_0 = c0x * c0x + c0y * c0y + c0z * c0z;
+  const float inv_d0 = 1.0f / fmaxf(sqrtf(fmaxf(d2_0, 0.0f)), 1e-12f);
+  const float ux = c0x * inv_d0, uy = c0y * inv_d0, uz = c0z * inv_d0;
+  float cx = ni[7] - c[0], cy = ni[8] - c[1], cz = ni[9] - c[2];
+  const float radial = cx * cx + cy * cy + cz * cz;
+  if (kNormDiff) {
+    const float inv_norm = 1.0f / fmaxf(sqrtf(fmaxf(radial, 0.0f)), 1.0f);
+    cx *= inv_norm;
+    cy *= inv_norm;
+    cz *= inv_norm;
+  }
+  g[0] = radial;
+  g[1] = ni[6] * m;
+  g[2] = ni[3] * ux + ni[4] * uy + ni[5] * uz;
+  g[3] = v[0] * ux + v[1] * uy + v[2] * uz;
+  g[4] = d2_0;
+  g[5] = cx;
+  g[6] = cy;
+  g[7] = cz;
+}
+
+// K3 with f32 operands (T = float, with or without elem_bf16): the chunk of egnn_edge.cuh
 template <typename T, bool kElem, bool kTanh, bool kNormDiff>
 __global__ void __launch_bounds__(kThreads, 1)
 egnn_stream_kernel(const T* __restrict__ hA, const T* __restrict__ hB,
@@ -117,29 +157,8 @@ egnn_stream_kernel(const T* __restrict__ hA, const T* __restrict__ hB,
         if (r < rows) {
           const int il = r / n;
           const size_t j = sim + (r - il * n);
-          const float* ni = sNode + il * kNode;
-          const float c0x = ni[0] - pos0[j * 3], c0y = ni[1] - pos0[j * 3 + 1],
-                      c0z = ni[2] - pos0[j * 3 + 2];
-          const float d2_0 = c0x * c0x + c0y * c0y + c0z * c0z;
-          const float inv_d0 = 1.0f / fmaxf(sqrtf(fmaxf(d2_0, 0.0f)), 1e-12f);
-          const float ux = c0x * inv_d0, uy = c0y * inv_d0, uz = c0z * inv_d0;
-          float cx = ni[7] - coord[j * 3], cy = ni[8] - coord[j * 3 + 1],
-                cz = ni[9] - coord[j * 3 + 2];
-          const float radial = cx * cx + cy * cy + cz * cz;
-          if (kNormDiff) {
-            const float inv_norm = 1.0f / fmaxf(sqrtf(fmaxf(radial, 0.0f)), 1.0f);
-            cx *= inv_norm;
-            cy *= inv_norm;
-            cz *= inv_norm;
-          }
-          g[0] = radial;
-          g[1] = ni[6] * mass[j];
-          g[2] = ni[3] * ux + ni[4] * uy + ni[5] * uz;
-          g[3] = vel[j * 3] * ux + vel[j * 3 + 1] * uy + vel[j * 3 + 2] * uz;
-          g[4] = d2_0;
-          g[5] = cx;
-          g[6] = cy;
-          g[7] = cz;
+          edge_geometry<kNormDiff>(sNode + il * kNode, pos0 + j * 3, vel + j * 3,
+                                   coord + j * 3, mass[j], g);
           m = maskb[r];
         }
 #pragma unroll
@@ -158,6 +177,117 @@ egnn_stream_kernel(const T* __restrict__ hA, const T* __restrict__ hB,
   clk.flush();
 }
 
+// Stage the sender rows and mask of the chunk at r0 of a sub-tile with `rows` rows
+// (maskb at its first row, sim the sim's first node) in st [kRows, kStaged], zero
+// past `rows`: thread (row t = tid % kRows, part tid / kRows) copies its row's pos0,
+// vel, coord, or mass and mask, 4 bytes a cp.async; the caller waits for them.
+__device__ __forceinline__ void fetch_senders(float* st, const float* __restrict__ pos0,
+                                              const float* __restrict__ vel,
+                                              const float* __restrict__ mass,
+                                              const float* __restrict__ coord,
+                                              const float* __restrict__ maskb, size_t sim,
+                                              int r0, int rows, int n, int tid) {
+  const int t = tid % kRows, q = tid / kRows;
+  const int r = r0 + t;
+  const bool live = r < rows;
+  const size_t j = live ? sim + r % n : 0;
+  float* dst = st + t * kStaged;
+  if (q < 3) {
+    const float* src = (q == 0 ? pos0 : (q == 1 ? vel : coord)) + j * 3;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) cp_async4(dst + 3 * q + k, src + k, live);
+  } else {
+    cp_async4(dst + 9, mass + j, live);
+    cp_async4(dst + 10, maskb + (live ? r : 0), live);
+  }
+}
+
+// Row t of the chunk at r0: its geometry and mask from the staged row into buffer buf
+// (zero past `rows`)
+template <bool kNormDiff>
+__device__ __forceinline__ void stream_prologue(const SmemBf16& s, int buf, const float* sNode,
+                                                const float* st, int r0, int rows, int n,
+                                                int t) {
+  float g[kGeom] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  float m = 0.0f;
+  const int r = r0 + t;
+  if (r < rows) {
+    const float* sj = st + t * kStaged;
+    edge_geometry<kNormDiff>(sNode + (r / n) * kNode, sj, sj + 3, sj + 6, sj[9], g);
+    m = sj[10];
+  }
+  float* dst = s.geom_buf(buf) + t * kGeom;
+#pragma unroll
+  for (int k = 0; k < kGeom; ++k) dst[k] = g[k];
+  s.mask_buf(buf)[t] = m;
+}
+
+// K3 with bf16 operands: the chunk of egnn_edge_bf16.cuh, each chunk's geometry made
+// during the chunk before it (the sub-tile's first, after its node data)
+template <bool kElem, bool kTanh, bool kNormDiff>
+__global__ void __launch_bounds__(kThreads, 1)
+egnn_stream_kernel_bf16(const bf16* __restrict__ hA, const bf16* __restrict__ hB,
+                        const float* __restrict__ pos0, const float* __restrict__ vel,
+                        const float* __restrict__ mass, const float* __restrict__ coord,
+                        const float* __restrict__ mask, const bf16* __restrict__ wg,
+                        const bf16* __restrict__ W2, const bf16* __restrict__ b2,
+                        const bf16* __restrict__ Wc1, const bf16* __restrict__ bc1,
+                        const bf16* __restrict__ wc2, bf16* __restrict__ agg,
+                        float* __restrict__ trans, int batch, int n, int blocks) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const SmemBf16 s(smem);
+  float* sNode = s.end();                  // [kMaxTi, kNode]
+  float* staged = sNode + kMaxTi * kNode;  // [kRows, kStaged]: a chunk's sender rows
+  const int tid = threadIdx.x;
+  PhaseClock clk;
+  stage_weights(s, wg, W2, b2, Wc1, bc1, wc2, tid);
+  clk.mark(kStage);
+
+  for_each_subtile(batch, n, blocks, [&](int b, int i0, int nrecv) {
+    const int rows = nrecv * n;  // edge row r = il * n + j  <->  (i0 + il, j)
+    const size_t sim = static_cast<size_t>(b) * n;
+    const bf16* hAb = hA + (sim + i0) * kH;
+    const bf16* hBb = hB + sim * kH;
+    const float* maskb = mask + (sim + i0) * n;
+    begin_subtile(s, hAb, nrecv, tid);
+    if (tid < nrecv) {
+      const size_t i = sim + i0 + tid;
+      float* nd = sNode + tid * kNode;
+      for (int k = 0; k < 3; ++k) {
+        nd[k] = pos0[i * 3 + k];
+        nd[3 + k] = vel[i * 3 + k];
+        nd[7 + k] = coord[i * 3 + k];
+      }
+      nd[6] = mass[i];
+    }
+    fetch_senders(staged, pos0, vel, mass, coord, maskb, sim, 0, rows, n, tid);
+    cp_async_wait_all();
+    __syncthreads();
+    if (tid < kRows) stream_prologue<kNormDiff>(s, 0, sNode, staged, 0, rows, n, tid);
+    __syncthreads();
+    clk.mark(kPrologue);
+
+    for (int r0 = 0, buf = 0; r0 < rows; r0 += kRows, buf ^= 1) {
+      const int next = r0 + kRows;
+      edge_chunk_bf16<kElem, kTanh, false>(
+          s, buf, hBb, r0, rows, n, tid, clk,
+          [&](int t) {
+            if (next < rows) fetch_senders(staged, pos0, vel, mass, coord, maskb, sim, next, rows, n, t);
+          },
+          [&](int t) {
+            t -= kRows + kH;
+            if (next < rows && t < kRows)
+              stream_prologue<kNormDiff>(s, buf ^ 1, sNode, staged, next, rows, n, t);
+          });
+    }
+    __syncthreads();  // the last chunk's sums are in
+    write_means(s, agg, trans, b, n, i0, nrecv, tid);
+    __syncthreads();  // before the next sub-tile zeroes the accumulators and node data
+    clk.mark(kMeans);
+  });
+  clk.flush();
+}
+
 template <typename T, bool kElem, bool kTanh, bool kNormDiff>
 int launch(const T* hA, const T* hB, const float* pos0, const float* vel, const float* mass,
            const float* coord, const float* mask, const T* wg, const T* W2, const T* b2,
@@ -165,7 +295,13 @@ int launch(const T* hA, const T* hB, const float* pos0, const float* vel, const 
            int blocks, cudaStream_t stream) {
   static bool configured = false;
   constexpr size_t bytes = stream_smem_bytes<T, kElem>();
-  const auto kernel = &egnn_stream_kernel<T, kElem, kTanh, kNormDiff>;
+  const auto kernel = [] {
+    if constexpr (std::is_same<T, bf16>::value) {
+      return &egnn_stream_kernel_bf16<kElem, kTanh, kNormDiff>;
+    } else {
+      return &egnn_stream_kernel<T, kElem, kTanh, kNormDiff>;
+    }
+  }();
   if (const int err = allow_smem(kernel, bytes, configured)) return err;
   kernel<<<blocks, kThreads, bytes, stream>>>(hA, hB, pos0, vel, mass, coord, mask, wg, W2, b2,
                                               Wc1, bc1, wc2, agg, trans, batch, n, blocks);

@@ -1,11 +1,15 @@
 """Where a rollout step's time goes on the card: device busy time against wall time.
 
-    python -m extending_the_n_body_benchmark_a_cross_model_study_of_geometric_deep_learning_architectures_tpu_torch.rollout_trace [--family egnn_mc|segnn|equiformer_v2|graph_transformer] [--runs 3]
+    python -m extending_the_n_body_benchmark_a_cross_model_study_of_geometric_deep_learning_architectures_tpu_torch.rollout_trace [--family egnn_mc|egnn_mc_stream|segnn|equiformer_v2|graph_transformer] [--runs 3]
 
 ``egnn_mc`` (the default) rolls the committed N=100 checkpoint (EGNN-MC
 6 x 128, fully connected, B=64) out from fresh ground truth (seed 0, 2000
 substeps, a frame every 10: 199 steps), in f32 and in mixed bf16, as
-``chip_smoke.py``'s ``[rollout]`` and ``[rollout-bf16]`` do; ``segnn`` rolls
+``chip_smoke.py``'s ``[rollout]`` and ``[rollout-bf16]`` do;
+``egnn_mc_stream`` rolls the same checkpoint in the streaming model at N=512,
+B=8 (1000 substeps: 99 steps, K3 six times a step) in f32,
+``stream-mixed-bf16`` (K3-bf16) and ``stream-mixed-ebf16`` (K3-elem), as
+``[bign-rollout]`` and ``[bign-rollout-bf16]`` do; ``segnn`` rolls
 the committed SEGNN checkpoint (L6 w448, N=5, B=64) out over the
 evaluation's 999 steps (10000 substeps), in f32, as ``[segnn-rollout]``
 does; ``equiformer_v2`` the committed EquiformerV2 checkpoint (L8 c128, N=5,
@@ -53,6 +57,11 @@ SAMPLE_FREQ = 10
 FAMILIES = {
     "egnn_mc": (CKPT, 64, 100, 2000, {},
                 (("f32", {}, False), ("mixed-bf16", {"compute_dtype": "bfloat16"}, False))),
+    "egnn_mc_stream": (CKPT, 8, 512, 1000, {"streaming": True},
+                       (("f32", {}, False),
+                        ("stream-mixed-bf16", {"compute_dtype": "bfloat16"}, False),
+                        ("stream-mixed-ebf16", {"compute_dtype": "bfloat16",
+                                                "stream_elem_bf16": True}, False))),
     "segnn": (SEGNN_CKPT, 64, 5, 10000, {"num_layers": 6, "hidden_features": 448},
               (("f32", {}, False),)),
     "equiformer_v2": (EQV2_CKPT, 64, 5, 10000,
@@ -63,7 +72,11 @@ FAMILIES = {
                           {"num_layers": 8, "hidden_features": 248, "num_heads": 8},
                           (("f32-train", {}, True),)),
 }
-EDGE_KERNEL = "egnn_edge_kernel"  # K1's __global__ name in csrc/egnn_messages.cu
+# the registry's name of a family's model, where it differs from the family's
+MODEL = {"egnn_mc_stream": "egnn_mc"}
+# the edge kernels' __global__ names (csrc/egnn_messages.cu, K1; csrc/egnn_stream.cu, K3),
+# each a prefix of its bf16 form's
+EDGE_KERNELS = ("egnn_edge_kernel", "egnn_stream_kernel")
 
 
 def device_us(event) -> float:
@@ -94,7 +107,8 @@ def measure(model, scene0, target: str, steps: int, runs: int) -> dict:
     after = (time.perf_counter() - t) * 1e3 / steps
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(device_us(e) for e in kernels) / 1e3 / steps
-    edge = sum(device_us(e) for e in kernels if EDGE_KERNEL in e.key) / 1e3 / steps
+    edge = sum(device_us(e) for e in kernels
+               if any(k in e.key for k in EDGE_KERNELS)) / 1e3 / steps
     launches = sum(e.count for e in kernels) / steps
     return {
         "wall_ms_per_step": sorted(walls),
@@ -120,7 +134,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(card_name(), flush=True)
     ckpt, b, n, substeps, shape, configs = FAMILIES[args.family]
-    state = params_from_jax(read_jax_checkpoint(ckpt), args.family)
+    family = MODEL.get(args.family, args.family)
+    state = params_from_jax(read_jax_checkpoint(ckpt), family)
     ds = GravityDatasetOtf(batch_size=b, sim_length=substeps, sample_freq=SAMPLE_FREQ,
                            num_nodes=n, interaction_strength=2.0, softening=0.2, seed=0,
                            device=dev)
@@ -128,7 +143,7 @@ def main(argv=None) -> int:
     scene0 = Scene(pos=loc[:, 0], vel=vel[:, 0], force=force[:, 0], mass=mass)
     steps = int(loc.shape[1]) - 1
     for config, kw, train_mode in configs:
-        model = create_model(args.family, device=dev, **shape, **kw)
+        model = create_model(family, device=dev, **shape, **kw)
         model.load_state_dict(state)
         model.train(train_mode)
         row = measure(model, scene0, ds.target, steps, args.runs)

@@ -183,15 +183,16 @@ def test_library_path_follows_every_source_and_header(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC_DIR, csrc)
     monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
     assert all(p.endswith(".cu") for p in _build.sources())
-    assert [os.path.basename(p) for p in _build.headers()] == ["egnn_edge.cuh"]
+    assert [os.path.basename(p) for p in _build.headers()] == ["egnn_edge.cuh",
+                                                               "egnn_edge_bf16.cuh"]
     paths = [_build.library_path()]
-    for name in ("egnn_edge.cuh", "egnn_stream.cu"):
+    for name in ("egnn_edge.cuh", "egnn_edge_bf16.cuh", "egnn_stream.cu"):
         with open(csrc / name, "a") as f:
             f.write("\n// edited\n")
         paths.append(_build.library_path())
     (csrc / "extra.h").write_text("#pragma once\n")
     paths.append(_build.library_path())
-    assert len(set(paths)) == 4
+    assert len(set(paths)) == 5
     assert all(os.path.dirname(p) == _build.BUILD_DIR for p in paths)
     # the instrumented build of edge_phases.py: a library of its own
     phases = _build.library_path((*_build.NVCC_FLAGS, "-DEGNN_EDGE_PHASES"), "libnbody_phases")
