@@ -14,8 +14,10 @@ model of its 10M run's width at depth 2 (phases 30-34), EquiformerV2's with
 its committed 10M checkpoint (phases 35-39), GraphTransformer's with its
 committed 10M checkpoint (phases 40-44), PaiNN's with a fresh model at
 the width of its stability run and depth 2 (phases 45-48), CGENN's with a
-fresh model at its 10M run's shape (phases 49-52) and GMN's with a fresh
-model at its defaults (phases 53-56): the bench
+fresh model at its 10M run's shape (phases 49-52), GMN's with a fresh
+model at its defaults (phases 53-56), and the offline charged systems
+(phases 57-61: the legacy sims, the offline datagen, training SEGNN, EGNN-MC
+and GMN on it through ``cli train``): the bench
 workload (B=64 sims of N=100 bodies, dense edge stage K1) and the big-N path
 (B=8 sims of N=512 bodies, streaming edge stage K3), each in f32 and in the
 mixed-bf16 model (``compute_dtype="bfloat16"``: hidden and message stack in
@@ -288,7 +290,40 @@ bf16, coordinates, geometry and integration in f32):
                    [train-cgenn]
  56. hpo-gmn       hpo.run_study("gmn", 2 trials, mode="free") at the reference
                    default (GMN's space has no width knob to bisect)
- 57. bign          bign_bench rows: steps/s and peak memory, dense K1 against
+ 57. legacy-sims   the spring and charged sims (core/legacy_sims.py) at their
+                   defaults, 64 sims of 5 balls, 10000 Euler steps, through the
+                   samplers on the card: shapes, couplings and charges; the first
+                   5 frames against the CPU's float64 from the same initial arrays
+                   (redrawn from the same seed), beside the CPU float32's error
+                   from them; seconds and launches a step; no kernel of the port's
+ 58. offline-datagen  both offline datasets (data/offline_datagen.py at the JAX
+                   package's defaults: 100 / 20 / 20 sims, 5000 Euler steps, a
+                   frame every 100, seed 42), 5_0_0 and 3_2_1 (3 isolated bodies,
+                   2 sticks and a hinge), generated on the card: files, shapes,
+                   dtypes and cfg lists, edges q q^T; the first 3 frames against
+                   the CPU's float64 from the same arrays beside the CPU float32's
+                   error; the valid split's stick and hinge-beam lengths over all
+                   5000 steps beside the CPU float32's drift from the same arrays;
+                   the first 1000 steps run again from the same draws, every frame
+                   bitwise equal to the files'; seconds and launches a step
+ 59. train-offline-segnn  `cli train --main.dataloader_type segnn_nbody_offline`
+                   (B=64, frame_0 30, frame_T 40) of SEGNN at config.yaml:36-40
+                   (h96, lmax 1) at depth 6 (its 20 layers cut for the smoke's
+                   time) on 5_0_0: 2 epochs of 20 steps on the data's
+                   masks (no kernel), each epoch's validation on 10 batches of the
+                   valid split and their masks, the checkpoint read back bitwise,
+                   one step from it against the CPU's float64 ([train]'s gates)
+                   with the batch's charges and mask, step ms; resumed from a copy
+                   of the checkpoint for 10 steps, the AdamW count and the epoch
+                   going on
+ 60. train-offline-egnn  the same for EGNN-MC at its bench width (L6, 128) on
+                   5_0_0 at cutoff rate 0.3: training through the dense edge
+                   stage, validation through K1 on the cutoff-rate masks (6
+                   launches a batch); K1 against its plain version on a valid
+                   batch's mask and on it with a zero-degree receiver, launches
+                   counted
+ 61. train-offline-gmn  the same for GMN at its defaults (h64, L4) on 3_2_1
+ 62. bign          bign_bench rows: steps/s and peak memory, dense K1 against
                    streaming K3, at (N,B) = (256,16), (512,8), (1024,2), (4096,1)
 
 Each phase prints one line with its result and elapsed seconds, and
@@ -313,6 +348,7 @@ import functools
 import gc
 import json
 import os
+import pickle
 import shutil
 import sys
 import tempfile
@@ -662,8 +698,62 @@ GMN_SEED = 16
 GMN_FWD_RTOL, GMN_EQUIV_RTOL = 1e-4, 1e-4
 GMN_CMP_B, GMN_ROLL_RTOL, GMN_NUDGE_FACTOR = 4, 1e-3, 100.0
 # the stick and hinge compositions, one forward each on a seeded scene against
-# the CPU's float64 (their data, the offline constrained sets, is not ported)
+# the CPU's float64 (GMN trains on the offline data's sticks and hinges in
+# [train-offline-gmn])
 GMN_COMPOSITIONS = ((1, 2, 0), (0, 0, 2))
+
+# the legacy sims at their defaults: 64 sims of 5 balls, 10000 Euler steps, a
+# frame every 10 (999 frames); the first LEGACY_CMP_FRAMES frames on the card
+# against the CPU's float64 from the same initial arrays
+LEGACY_S, LEGACY_N, LEGACY_T, LEGACY_FREQ, LEGACY_CMP_FRAMES = 64, 5, 10000, 10, 5
+# the offline charged systems at the JAX package's datagen defaults (100 / 20 /
+# 20 sims, 5000 Euler steps of 0.001, a frame every 100, seed 42):
+# segnn_nbody_offline's default 5_0_0 (config.yaml:100-107) and 3_2_1, every
+# object kind in one system (N = 10)
+OFFLINE_SETS = ((5, 0, 0), (3, 2, 1))
+OFFLINE_SIMS, OFFLINE_T, OFFLINE_FREQ, OFFLINE_SEED = (100, 20, 20), 5000, 100, 42
+OFFLINE_CMP_FRAMES = 3
+# the repeat: the first OFFLINE_REPEAT_FRAMES frames (1000 steps) made again
+# from the same draws, at the generator's shapes (all three splits in one
+# loop), bitwise equal to the files'.  A split's loop is bound by the host's
+# launches, not by its sims, so steps are what the repeat costs
+OFFLINE_REPEAT_FRAMES = 10
+# charged bodies meet closely and the force cap is 0.1 / dt, so a float32 run
+# leaves float64 fast (CPU, 3_2_1: 3e-5 of the largest position after 3 frames,
+# 1e-2 after 10).  The card's first frames (float32) against the CPU's float64
+# from the same arrays: within INTEGRATOR_F32_FACTOR times the CPU float32's
+# error from those arrays, or INTEGRATOR_ATOL_REL of the largest value.  Over
+# all the frames the constraints are held instead, on the valid split's sims
+# (OFFLINE_DRIFT_SPLIT): stick and hinge-beam lengths within CONSTRAINT_FACTOR
+# times the CPU float32's drift over the same steps from the same arrays
+# (1.2e-4 relative over 5000 steps on the CPU), edges exactly q q^T
+INTEGRATOR_F32_FACTOR, INTEGRATOR_ATOL_REL, CONSTRAINT_FACTOR = 10.0, 1e-5, 10.0
+OFFLINE_DRIFT_SPLIT = "valid"
+# launches a step: torch.profiler's kernel count of a run of this many more
+# steps than another, over the difference (the set-up and the frames' saves
+# cancel)
+LAUNCH_COUNT_STEPS = 20
+# training on them through `cli train --main.dataloader_type
+# segnn_nbody_offline` (config.yaml:100-107: B=64, frame_0 30, frame_T 40), 2
+# epochs of 20 steps, validation on the valid split, a resume of 10 steps.
+# tag -> (model argv, dataset, cutoff rate): SEGNN at config.yaml:36-40, the
+# dataloader's own model (h96, lmax 1) at depth 6, its 20 layers cut: at L20
+# its 2 x 20 steps took 17 s of a smoke that took 682 s on an NVIDIA H100
+# 80GB HBM3, 700.00 W, past the 600 s failure line; 6 is the depth of its
+# committed 10M run; EGNN-MC at its bench width on cutoff-rate masks,
+# validated through K1; GMN at its defaults on 3_2_1
+OFFLINE_SEGNN_LAYERS = 6
+OFFLINE_TRAIN = {
+    "segnn": (["--main.model_type", "segnn", "--model.hidden_features", "96",
+               "--model.lmax_attr", "1", "--model.lmax_h", "1", "--model.num_layers",
+               str(OFFLINE_SEGNN_LAYERS)], "5_0_0", 0.0),
+    "egnn": (["--main.model_type", "egnn_mc", "--model.num_layers", "6",
+              "--model.hidden_node_dim", "128", "--model.hidden_edge_dim", "128",
+              "--model.hidden_coord_dim", "128"], "5_0_0", 0.3),
+    "gmn": (["--main.model_type", "gmn", "--model.n_isolated", "3", "--model.n_stick", "2",
+             "--model.n_hinge", "1"], "3_2_1", 0.0),
+}
+OFFLINE_EPOCHS, OFFLINE_STEPS, OFFLINE_RESUME_STEPS, OFFLINE_VALID_BATCHES = 2, 20, 10, 10
 
 # H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, dense bf16 and TF32 on
 # the tensor cores, HBM3 bandwidth
@@ -791,6 +881,8 @@ def main() -> None:
         ponita = importlib.import_module(f"{PKG}.models.ponita")
         edge_phases = importlib.import_module(f"{PKG}.edge_phases")
         steerable = importlib.import_module(f"{PKG}.ops.steerable")
+        legacy = importlib.import_module(f"{PKG}.core.legacy_sims")
+        offline_datagen = importlib.import_module(f"{PKG}.data.offline_datagen")
     except ImportError as e:
         fail(f"the port's package is not importable from {REPO}: {e}")
     if not os.path.exists(CKPT):
@@ -1744,10 +1836,12 @@ def main() -> None:
             return None, f"not measured ({type(e).__name__}: {e})", None
 
     def step_vs_cpu(tag: str, run: dict, payload, model_kw: dict, scene, y,
-                    noise_only: tuple = (), zero_init: tuple = ()):
+                    noise_only: tuple = (), zero_init: tuple = (), mask=None):
         """One training step on the card (f32) against the same step on the
         CPU in float64, from ``payload``'s parameters and AdamW state, on the
-        first TRAIN_CMP_B sims of ``(scene, y)``: each parameter within
+        first TRAIN_CMP_B sims of ``(scene, y)`` (their charges too, where the
+        scene has them, and of ``mask``, the data's mask where the kNN mask
+        is not the run's graph): each parameter within
         TRAIN_PARAM_RTOL of its largest value, each update within
         TRAIN_UPDATE_RTOL of its largest update.  A bias whose key ends with
         one of ``noise_only`` gets no gradient in exact arithmetic, so its
@@ -1762,7 +1856,9 @@ def main() -> None:
         its largest update.  Returns both errors and both losses."""
         trainer, a = run["trainer"], run["args"]
         sub = (Scene(*(t_[:TRAIN_CMP_B] for t_ in (scene.pos, scene.vel, scene.force,
-                                                  scene.mass))), y[:TRAIN_CMP_B])
+                                                  scene.mass)),
+                     charge=None if scene.charge is None else scene.charge[:TRAIN_CMP_B]),
+               y[:TRAIN_CMP_B])
         after = []
         for where, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
             m = models.create_model(a.model_type, device=where, dtype=dtype, **model_kw)
@@ -1774,8 +1870,11 @@ def main() -> None:
             before = {k: v.detach().cpu().double().clone() for k, v in m.state_dict().items()}
             step_fn, _ = trainer_mod.make_train_step(m, o, trainer.loss_fn, trainer.targets,
                                                      trainer.num_neighbors, dtype)
-            vec = step_fn(Scene(*(t_.to(where) for t_ in (sub[0].pos, sub[0].vel, sub[0].force,
-                                                          sub[0].mass))), sub[1].to(where))
+            sub_where = Scene(*(t_.to(where) for t_ in (sub[0].pos, sub[0].vel, sub[0].force,
+                                                        sub[0].mass)),
+                              charge=None if sub[0].charge is None else sub[0].charge.to(where))
+            vec = step_fn(sub_where, sub[1].to(where),
+                          None if mask is None else mask[:TRAIN_CMP_B].to(where))
             if not torch.isfinite(vec).all():
                 fail(f"{tag}: the {where} step's metrics are not finite")
             after.append(({k: v.detach().cpu().double() for k, v in m.state_dict().items()},
@@ -3327,9 +3426,358 @@ def main() -> None:
     # ------------------------------------------------------------ 56. hpo-gmn
     # GMN's search space has no width knob: two free trials
     family_hpo("gmn", mode="free")
+
+    # ---------------------------------------------------------- 57. legacy-sims
+    # the spring and charged sims at their defaults through the samplers on the
+    # card: shapes, couplings, charges; the first frames against the CPU's
+    # float64 from the same initial arrays (redrawn from the same seed),
+    # beside the CPU float32's error from them; seconds and launches a step
+    def launches_per_step(run) -> float:
+        """Kernels a step of an integrator: ``run(steps)`` integrates ``steps``
+        steps (saving the same frames at either length); torch.profiler's
+        kernel count at 2 LAUNCH_COUNT_STEPS less that at LAUNCH_COUNT_STEPS,
+        over LAUNCH_COUNT_STEPS; NaN where it saw no kernel.  The traces'
+        events are collected before the next phase."""
+        n = LAUNCH_COUNT_STEPS
+        counts_ = [top_kernels(functools.partial(run, steps))[2] for steps in (n, 2 * n)]
+        gc.collect()
+        return float("nan") if None in counts_ else (counts_[1] - counts_[0]) / n
+
+    def f32_gate(tag: str, card_a, f64_a, cpu32_a) -> dict:
+        """The card's float32 frames against float64 ones from the same
+        arrays, within INTEGRATOR_F32_FACTOR times the CPU float32's error or
+        INTEGRATOR_ATOL_REL of the largest value."""
+        card_a, cpu32_a = card_a.double().cpu(), cpu32_a.double()
+        err, ref = (card_a - f64_a).abs().max().item(), (cpu32_a - f64_a).abs().max().item()
+        scale = f64_a.abs().max().item()
+        limit = max(INTEGRATOR_F32_FACTOR * ref, INTEGRATOR_ATOL_REL * scale)
+        if not (torch.isfinite(card_a).all() and err <= limit):
+            fail(f"{tag}: the card's first frames differ from the CPU's float64 ones by {err} "
+                 f"(limit {limit}; CPU float32 {ref}, max |value| {scale})")
+        return {"err": err, "cpu32_err": ref, "limit": limit}
+
+    t0 = time.perf_counter()
+    legacy_info = {}
+    for sim_kind, sampler, initial_of, params_l in (
+            ("spring", legacy.sample_spring_batch, legacy.spring_initial, legacy.SpringParams()),
+            ("charged", legacy.sample_charged_batch, legacy.charged_initial,
+             legacy.ChargedParams())):
+        seed_l = 90 if sim_kind == "spring" else 91
+        reset_counts()
+        t = time.perf_counter()
+        out_l = sampler(LEGACY_S, LEGACY_N, T=LEGACY_T, sample_freq=LEGACY_FREQ,
+                        generator=torch.Generator(device=dev).manual_seed(seed_l), device=dev)
+        sync()
+        secs_l = time.perf_counter() - t
+        counted({}, f"legacy-sims {sim_kind}")
+        loc_l, vel_l, edges_l = out_l[:3]
+        frames_l = LEGACY_T // LEGACY_FREQ - 1
+        if (tuple(loc_l.shape) != (LEGACY_S, frames_l, 3, LEGACY_N)
+                or tuple(vel_l.shape) != tuple(loc_l.shape)
+                or not (torch.isfinite(loc_l).all() and torch.isfinite(vel_l).all())):
+            fail(f"legacy-sims {sim_kind}: shape {tuple(loc_l.shape)} or not finite")
+        if sim_kind == "spring":
+            ok = (torch.equal(edges_l, edges_l.transpose(1, 2))
+                  and bool((torch.diagonal(edges_l, dim1=1, dim2=2) == 0).all())
+                  and set(edges_l.unique().tolist()) <= {0.0, 1.0}
+                  and loc_l.abs().max().item() < 50.0)
+        else:
+            q_l = out_l[3]
+            ok = (set(q_l.unique().tolist()) <= {-1.0, 1.0}
+                  and torch.equal(edges_l, q_l @ q_l.transpose(1, 2)))
+        if not ok:
+            fail(f"legacy-sims {sim_kind}: couplings, charges or bounds wrong")
+        init_l = initial_of(LEGACY_S, LEGACY_N, params_l,
+                            generator=torch.Generator(device=dev).manual_seed(seed_l), device=dev)
+        short_t = (LEGACY_CMP_FRAMES + 1) * LEGACY_FREQ
+
+        def simulate_from(arrays, dtype):
+            a = [t_.detach().cpu().to(dtype) for t_ in arrays]
+            forces_fn = ((lambda loc, e=-params_l.interaction_strength * a[2]: e)
+                         if sim_kind == "spring"
+                         else legacy.charged_forces(a[2], params_l.interaction_strength))
+            return legacy.simulate(a[0], a[1], forces_fn, params_l, short_t, LEGACY_FREQ)[0]
+
+        gate_l = f32_gate(f"legacy-sims {sim_kind}", loc_l[:, :LEGACY_CMP_FRAMES],
+                          simulate_from(init_l, torch.float64),
+                          simulate_from(init_l, torch.float32))
+        if sim_kind == "spring":
+            e_dev = -params_l.interaction_strength * init_l[2]
+            f_dev = lambda loc: e_dev  # noqa: E731
+        else:
+            f_dev = legacy.charged_forces(init_l[2], params_l.interaction_strength)
+        # one frame, after ``steps`` steps, in either run
+        lp = launches_per_step(lambda steps: legacy.simulate(
+            init_l[0], init_l[1], f_dev, params_l, 2 * steps, steps))
+        legacy_info.update({f"{sim_kind}_s": f"{secs_l:.3f}", f"{sim_kind}_launches_per_step": f"{lp:.1f}",
+                            f"{sim_kind}_first_frames_err": f"{gate_l['err']:.3e}",
+                            f"{sim_kind}_cpu32_err": f"{gate_l['cpu32_err']:.3e}",
+                            f"{sim_kind}_limit": f"{gate_l['limit']:.3e}"})
+        del out_l, loc_l, vel_l, edges_l, init_l
+    report("legacy-sims", t0, sims=LEGACY_S, N=LEGACY_N, steps=LEGACY_T, frames=frames_l,
+           cmp_frames=LEGACY_CMP_FRAMES, **legacy_info)
+
+    # ------------------------------------------------------- 58. offline-datagen
+    # both offline datasets at the JAX package's defaults, generated on the
+    # card into a temporary directory the training phases read: files, shapes
+    # and dtypes; the first frames against the CPU's float64 from the same
+    # arrays (redrawn from the splits' generators); the valid split's
+    # constraints over all 5000 steps beside the CPU float32's drift; the first
+    # 1000 steps made again, every frame bitwise equal; seconds and launches a
+    # step
+    t0 = time.perf_counter()
+    offline_tmp = tempfile.TemporaryDirectory()
+    offline_dir = os.path.join(offline_tmp.name, "data")
+    datagen_info = {}
+
+    def constraint_drift(loc, n_iso: int, n_st: int, n_hi: int) -> float:
+        """The largest relative change of a stick's or a hinge beam's length
+        over the frames of ``loc [S, T, N, 3]`` (0 without either)."""
+        pairs = [(n_iso + 2 * k, n_iso + 2 * k + 1) for k in range(n_st)]
+        p0 = n_iso + 2 * n_st
+        pairs += [(p0 + 3 * k, p0 + 3 * k + b) for k in range(n_hi) for b in (1, 2)]
+        worst = 0.0
+        for a_, b_ in pairs:
+            length = np.linalg.norm(loc[:, :, a_] - loc[:, :, b_], axis=-1)
+            worst = max(worst, float(np.abs(length / length[:, :1] - 1).max()))
+        return worst
+
+    for comp in OFFLINE_SETS:
+        name_o = "_".join(map(str, comp))
+        n_o = comp[0] + 2 * comp[1] + 3 * comp[2]
+        reset_counts()
+        t = time.perf_counter()
+        tag_o = offline_datagen.generate_offline_dataset(
+            offline_dir, *comp, *OFFLINE_SIMS, OFFLINE_T, OFFLINE_T, OFFLINE_FREQ, OFFLINE_SEED,
+            device=dev)
+        sync()
+        gen_s = time.perf_counter() - t
+        counted({}, f"offline-datagen {name_o}")
+        if tag_o != f"_charged{name_o}":
+            fail(f"offline-datagen: tag {tag_o}")
+        cfg_o = offline_datagen.object_config(*comp)
+        frames_o = OFFLINE_T // OFFLINE_FREQ
+        locs_o, vels_o = [], []
+        for split, sims_o in zip(offline_datagen.SPLITS, OFFLINE_SIMS):
+            arrays_o = {}
+            for field, shape in (("loc", (sims_o, frames_o, n_o, 3)),
+                                 ("vel", (sims_o, frames_o, n_o, 3)),
+                                 ("edges", (sims_o, n_o, n_o)), ("charges", (sims_o, n_o, 1))):
+                fname = f"{field}_{split}{tag_o}.npy"
+                a_ = np.load(os.path.join(offline_dir, fname))
+                if a_.shape != shape or a_.dtype != np.float32 or not np.isfinite(a_).all():
+                    fail(f"offline-datagen {name_o}: {fname} is {a_.shape} {a_.dtype}, want "
+                         f"{shape} float32, finite")
+                arrays_o[field] = a_
+            with open(os.path.join(offline_dir, f"cfg_{split}{tag_o}.pkl"), "rb") as f:
+                if pickle.load(f) != [cfg_o] * sims_o:
+                    fail(f"offline-datagen {name_o}: cfg_{split} is not {cfg_o} a system")
+            q_o = arrays_o["charges"]
+            if not (set(np.unique(q_o)) <= {-1.0, 1.0}
+                    and np.array_equal(arrays_o["edges"], q_o @ q_o.transpose(0, 2, 1))):
+                fail(f"offline-datagen {name_o}: {split} edges are not q q^T of charges +-1")
+            locs_o.append(arrays_o["loc"])
+            vels_o.append(arrays_o["vel"])
+        locs_o, vels_o = np.concatenate(locs_o), np.concatenate(vels_o)
+        # every split's initial arrays, as its generator drew them on the card
+        X_o, V_o, q_o = (torch.cat(a_) for a_ in zip(*(
+            offline_datagen.sample_initial_state(
+                sims_o, n_o, generator=offline_datagen.split_generator(OFFLINE_SEED, i, dev),
+                device=dev) for i, sims_o in enumerate(OFFLINE_SIMS))))
+        t = time.perf_counter()
+        rep_loc, rep_vel = (a_.cpu().numpy() for a_ in offline_datagen.integrate_systems(
+            X_o, V_o, q_o, *comp, OFFLINE_REPEAT_FRAMES * OFFLINE_FREQ, OFFLINE_FREQ)[:2])
+        repeat_s = time.perf_counter() - t
+        if not (np.array_equal(rep_loc, locs_o[:, :OFFLINE_REPEAT_FRAMES])
+                and np.array_equal(rep_vel, vels_o[:, :OFFLINE_REPEAT_FRAMES])):
+            fail(f"offline-datagen {name_o}: the first {OFFLINE_REPEAT_FRAMES} frames differ "
+                 f"when made again from the same draws")
+        i_d = offline_datagen.SPLITS.index(OFFLINE_DRIFT_SPLIT)
+        drift_sims = slice(sum(OFFLINE_SIMS[:i_d]), sum(OFFLINE_SIMS[:i_d + 1]))
+
+        def cpu_run(dtype, steps, sims=slice(None)):
+            return offline_datagen.integrate_systems(
+                X_o[sims].cpu().to(dtype), V_o[sims].cpu().to(dtype), q_o[sims].cpu().to(dtype),
+                *comp, steps, OFFLINE_FREQ)[0]
+
+        cmp_steps = OFFLINE_CMP_FRAMES * OFFLINE_FREQ
+        gate_o = f32_gate(f"offline-datagen {name_o}",
+                          torch.from_numpy(locs_o[:, :OFFLINE_CMP_FRAMES]),
+                          cpu_run(torch.float64, cmp_steps), cpu_run(torch.float32, cmp_steps))
+        if comp[1] or comp[2]:
+            drift_o = constraint_drift(locs_o[drift_sims], *comp)
+            t = time.perf_counter()
+            cpu_drift = constraint_drift(cpu_run(torch.float32, OFFLINE_T, drift_sims).numpy(),
+                                         *comp)
+            datagen_info[f"{name_o}_cpu32_drift_s"] = f"{time.perf_counter() - t:.3f}"
+            if not drift_o <= CONSTRAINT_FACTOR * cpu_drift:
+                fail(f"offline-datagen {name_o}: {OFFLINE_DRIFT_SPLIT} stick / hinge lengths "
+                     f"drift by {drift_o:.3e} over {OFFLINE_T} steps, over {CONSTRAINT_FACTOR}x "
+                     f"the CPU float32's {cpu_drift:.3e} from the same arrays")
+            datagen_info.update({f"{name_o}_constraint_drift": f"{drift_o:.3e}",
+                                 f"{name_o}_cpu32_drift": f"{cpu_drift:.3e}"})
+        lp_o = launches_per_step(lambda steps: offline_datagen.integrate_systems(
+            X_o, V_o, q_o, *comp, steps, steps))
+        datagen_info.update({f"{name_o}_s": f"{gen_s:.3f}",
+                             f"{name_o}_repeat_s": f"{repeat_s:.3f}",
+                             f"{name_o}_launches_per_step": f"{lp_o:.1f}",
+                             f"{name_o}_first_frames_err": f"{gate_o['err']:.3e}",
+                             f"{name_o}_cpu32_err": f"{gate_o['cpu32_err']:.3e}"})
+        del X_o, V_o, q_o, locs_o, vels_o, rep_loc, rep_vel
+    report("offline-datagen", t0, sims="/".join(map(str, OFFLINE_SIMS)), steps=OFFLINE_T,
+           frames=OFFLINE_T // OFFLINE_FREQ, seed=OFFLINE_SEED, cmp_frames=OFFLINE_CMP_FRAMES,
+           repeat_frames=OFFLINE_REPEAT_FRAMES, drift_split=OFFLINE_DRIFT_SPLIT, **datagen_info)
+
+    # ------------------------------------- 59-61. train-offline-{segnn,egnn,gmn}
+    def offline_train(tag: str, model_argv, dataset: str, cutoff: float, eval_kernel=None):
+        """`cli train --main.dataloader_type segnn_nbody_offline` on ``dataset``
+        at ``cutoff``: OFFLINE_EPOCHS epochs of OFFLINE_STEPS steps (no kernel),
+        each epoch's validation on OFFLINE_VALID_BATCHES batches of the valid
+        split with their masks (``eval_kernel`` once a layer a batch, or no
+        kernel), finite losses, the checkpoint read back bitwise, one step
+        from it against the CPU's float64 step on a training batch and its
+        mask ([train]'s gates), step ms; then resumed from a copy of the
+        checkpoint for one epoch of OFFLINE_RESUME_STEPS steps, the AdamW
+        count and the epoch going on.  Returns the phase's fields and the
+        first run's trainer."""
+        argv = model_argv + [
+            "--main.dataloader_type", "segnn_nbody_offline",
+            "--dataloader.offline_dataset.dataset_name", dataset,
+            "--dataloader.offline_dataset.data_directory", offline_dir,
+            "--dataloader.offline_dataset.cutoff_rate", str(cutoff), "--dataloader.seed", "0",
+            "--trainer.save_model_every", "1", "--trainer.test_macros_every", "1000",
+            "--trainer.validation.do_validation=true", "--trainer.seed", "0"]
+        valid_counts = collections.Counter()
+        validate = trainer_mod.Trainer.validate_one_epoch
+
+        def counted_validate(self, num_batches=OFFLINE_VALID_BATCHES):
+            before = counts()
+            out = validate(self, num_batches)
+            sync()
+            valid_counts.update({k: v - before[k] for k, v in counts().items()})
+            valid_losses.append(out["valid/loss"])
+            return out
+
+        def run_cli(extra, epochs, steps):
+            valid_counts.clear()
+            reset_counts()
+            t = time.perf_counter()
+            with mock.patch.object(trainer_mod.Trainer, "validate_one_epoch", counted_validate):
+                trainer_ = cli.train_main(argv + extra + ["--trainer.steps_per_epoch", str(steps)])
+            sync()
+            secs = time.perf_counter() - t
+            total = counts()
+            training = {k: total[k] - valid_counts[k] for k in total}
+            if any(training.values()):
+                fail(f"{tag}: its training launched {training}, want no kernel")
+            want_v = dict.fromkeys(counters, 0)
+            if eval_kernel:
+                want_v[eval_kernel] = LAYERS * OFFLINE_VALID_BATCHES * epochs
+            if dict(valid_counts) != want_v:
+                fail(f"{tag}: its validation launched {dict(valid_counts)}, want {want_v}")
+            with open(os.path.join(trainer_.save_dir_path, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            losses_ = [r["train/loss"] for r in recs if "train/loss" in r]
+            if len(losses_) != epochs or not np.all(np.isfinite(losses_ + valid_losses[-epochs:])):
+                fail(f"{tag}: epoch losses {losses_}, valid losses {valid_losses}")
+            return trainer_, secs, training, dict(valid_counts), losses_
+
+        valid_losses = []
+        with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+            trainer_o, secs_o, train_c, valid_c, losses_o = run_cli(
+                ["--trainer.train_steps", str(OFFLINE_EPOCHS), "--trainer.run_name", tag],
+                OFFLINE_EPOCHS, OFFLINE_STEPS)
+            if not (trainer_o._data_masks and trainer_o.optim.count == OFFLINE_EPOCHS * OFFLINE_STEPS
+                    and trainer_o.dataset.num_nodes == trainer_o.valid_dataset.num_nodes
+                    and trainer_o.valid_dataset.partition == "valid"):
+                fail(f"{tag}: data masks {trainer_o._data_masks}, AdamW count "
+                     f"{trainer_o.optim.count}")
+            train_counts[f"train_offline_{tag}"] = train_c
+            eval_counts[f"train_offline_{tag}_valid"] = valid_c
+            count0, epoch0 = trainer_o.optim.count, trainer_o.step_count
+            batch = trainer_o.args.batch_size
+            saved = os.path.abspath(os.path.join(trainer_o.save_dir_path, "model.ckpt"))
+            back = weights.params_from_jax(weights.read_jax_checkpoint(saved))
+            if not all(torch.equal(back[k], v.cpu()) for k, v in trainer_o.model.state_dict().items()):
+                fail(f"{tag}: {saved} does not read back bitwise through params_from_jax")
+            scene_o, y_o, mask_o = trainer_o.dataset.get_batch()
+            if scene_o.charge is None or mask_o.dtype != torch.bool:
+                fail(f"{tag}: the offline batch has no charge or no boolean mask")
+            step_ms = cuda_ms(lambda: trainer_o._train_step(scene_o, y_o, mask_o),
+                              iters=TIMED_STEPS)
+            p_err, up_err, card_loss, cpu_loss = step_vs_cpu(
+                f"train-offline-{tag}", dict(trainer=trainer_o, args=trainer_o.args),
+                weights.read_checkpoint(saved), trainer_o.args.model_kwargs, scene_o, y_o,
+                mask=mask_o)
+            more = {}
+            if eval_kernel:
+                more = offline_k1(trainer_o)
+            del trainer_o
+            os.makedirs("resumed")
+            os.chdir("resumed")
+            trainer_r, secs_r, train_r, valid_r, losses_r = run_cli(
+                ["--trainer.model_path", shutil.copy(saved, "."), "--trainer.train_steps",
+                 str(OFFLINE_EPOCHS + 1), "--trainer.run_name", f"{tag}_resumed"],
+                1, OFFLINE_RESUME_STEPS)
+            if (trainer_r.optim.count != count0 + OFFLINE_RESUME_STEPS
+                    or trainer_r.step_count != epoch0 + 1):
+                fail(f"{tag}: resumed at AdamW count {trainer_r.optim.count - OFFLINE_RESUME_STEPS}"
+                     f", epoch {trainer_r.step_count - 1}; saved {count0}, {epoch0}")
+            train_counts[f"train_offline_{tag}_resumed"] = train_r
+            eval_counts[f"train_offline_{tag}_resumed_valid"] = valid_r
+            del trainer_r
+        print(f"  train-offline-{tag}: losses {' '.join(f'{x:.5f}' for x in losses_o)}, valid "
+              f"losses {' '.join(f'{x:.5f}' for x in valid_losses)}; one step, card f32 vs CPU "
+              f"f64 on {TRAIN_CMP_B} sims: loss {card_loss:.8f} / {cpu_loss:.8f}", flush=True)
+        return dict(B=batch, dataset=dataset, cutoff_rate=cutoff,
+                    steps=OFFLINE_EPOCHS * OFFLINE_STEPS, train_s=f"{secs_o:.3f}",
+                    ms_per_step=f"{step_ms:.3f}", valid_batches=OFFLINE_VALID_BATCHES * OFFLINE_EPOCHS,
+                    valid_loss_last=f"{valid_losses[OFFLINE_EPOCHS - 1]:.5f}",
+                    cmp_param_err=f"{p_err:.3e}", cmp_update_err=f"{up_err:.3e}",
+                    resumed_steps=OFFLINE_RESUME_STEPS, resumed_count=f"{count0}->"
+                    f"{count0 + OFFLINE_RESUME_STEPS}", resumed_s=f"{secs_r:.3f}",
+                    resumed_loss=f"{losses_r[0]:.5f}", **more)
+
+    def offline_k1(trainer_o) -> dict:
+        """K1 against its plain version on the first layer's inputs of a valid
+        batch under its cutoff-rate mask, and under that mask with receiver 0
+        of the first sim given no sender (a zero-degree row); the launches
+        counted."""
+        scene_v, _, mask_v = trainer_o.valid_dataset.get_batch()
+        model_v = trainer_o.model
+        block_v = model_v.layers[0]
+        zero = mask_v.clone()
+        zero[0, 0, :] = False
+        errs = {}
+        reset_counts()
+        with torch.no_grad():
+            x_v, ea_v = model_v.featurize(scene_v)
+            args_v = block_v.edge_inputs(model_v.embedding(x_v), scene_v.pos, ea_v)
+            w_v = block_v.edge_weights()
+            for label, m in (("cutoff mask", mask_v), ("cutoff mask, a zero-degree row", zero)):
+                got = EM.fused_egnn_messages(*args_v, m.float(), *w_v)
+                check_close("K1", f"offline {label}", got,
+                            EM.egnn_messages_plain(*args_v, m.float(), *w_v), errs)
+                if label.endswith("row") and not (got[0][0, 0] == 0).all():
+                    fail("K1: a receiver with no sender has a nonzero agg")
+        sync()
+        counted({"k1": 2}, "train-offline-egnn K1 check")
+        print_errs("K1", errs)
+        degrees = mask_v.sum(-1)
+        return dict(k1_cmp_launches=2, k1_max_abs_err=f"{max(a for a, _ in errs.values()):.3e}",
+                    valid_mask_edges=int(mask_v.sum()),
+                    valid_zero_degree_rows=int((degrees == 0).sum()))
+
+    for tag_t, (argv_t, dataset_t, cutoff_t) in OFFLINE_TRAIN.items():
+        t0 = time.perf_counter()
+        info = offline_train(tag_t, argv_t, dataset_t, cutoff_t,
+                             eval_kernel="k1" if tag_t == "egnn" else None)
+        report(f"train-offline-{tag_t}", t0, **info)
+    offline_tmp.cleanup()
+
     launch_probe("end")
 
-    # --------------------------------------------------------------- 57. bign
+    # --------------------------------------------------------------- 62. bign
     t0 = time.perf_counter()
     state = bign_bench.seeded_state(2)
     rows = []
@@ -3454,7 +3902,8 @@ def main() -> None:
     # [train-ponita]'s, [train-segnn]'s, [train-painn]'s, [train-cgenn]'s and
     # [train-gmn]'s fresh training,
     # its evaluation and its resumed run, [train-eqv2]'s and [train-gt]'s
-    # resumed training, its evaluation and its fresh run
+    # resumed training, its evaluation and its fresh run, and
+    # [train-offline-*]'s training and resumed training
     counter_of = {"egnn_messages (K1)": "k1", "gravity (K2)": "k2",
                   "gravity leapfrog (K2-leapfrog)": "leapfrog", "egnn_stream (K3)": "k3",
                   "egnn_messages bf16 (K1-bf16)": "k1_bf16",
@@ -3470,7 +3919,8 @@ def main() -> None:
         # GraphTransformer's ([gt], [gt-rollout], [battery-gt], [hpo-gt]),
         # PaiNN's ([painn], [painn-rollout], [hpo-painn]), CGENN's ([cgenn],
         # [cgenn-rollout], [hpo-cgenn]) and GMN's ([gmn], [gmn-rollout],
-        # [hpo-gmn])
+        # [hpo-gmn]), and [train-offline-*]'s validations (EGNN-MC's through
+        # K1 on the cutoff-rate masks)
         entry["launches_eval"] = {path: c[counter_of[entry["name"]]]
                                   for path, c in eval_counts.items()}
     print(f"total {time.perf_counter() - T_START:.2f} s on {card}", flush=True)

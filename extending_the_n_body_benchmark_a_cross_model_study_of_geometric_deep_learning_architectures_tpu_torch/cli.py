@@ -180,7 +180,7 @@ def validate_main(argv=None):
     from .core import graph as G
     from .train.losses import build_loss_fn, percentage_errors
     from .train.restore import load_run
-    from .train.trainer import _cast, resolve_dtype
+    from .train.trainer import resolve_dtype
 
     model, dataset, targs = load_run(args.run_dir, checkpoint=args.checkpoint, device=args.device)
     model.eval()
@@ -194,7 +194,7 @@ def validate_main(argv=None):
     with torch.no_grad():  # the model's edge stage is then kernel K1 on the card
         for _ in range(args.batches):
             scene, y = dataset.get_batch()
-            scene, y = _cast(scene, dtype), y.to(dtype)
+            scene, y = scene.astype(dtype), y.to(dtype)
             pred = model(scene, G.knn_mask(scene.pos, k))
             total, terms = loss_fn(pred, scene, y)
             rows.append((total, terms, percentage_errors(pred, y, targets)))

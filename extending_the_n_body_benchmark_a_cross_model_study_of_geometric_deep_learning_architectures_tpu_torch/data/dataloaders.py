@@ -1,9 +1,11 @@
 """Dataloader layer: owns the dataset, hands out dense ``(Scene, y)`` batches
 and builds the model's neighbour mask.
 
-Counterpart of the JAX package's ``data/dataloaders.py``, for the on-the-fly
-gravity data that the ported families train on.  Its registry keeps the JAX package's
-keys; the offline charged-systems loader is not ported yet and raises.
+Counterpart of the JAX package's ``data/dataloaders.py``, with its registry's
+keys: the on-the-fly gravity loader of every family, and
+``segnn_nbody_offline``, the offline charged-systems loader, whose dataset
+(``data/offline_dataset.py``) hands the trainer its cutoff-rate masks with
+each batch.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 from ..core import graph as G
 from ..core.scene import Scene
 from .gravity_otf import GravityDatasetOtf
+from .offline_dataset import OfflineNBodyDataset
 
 
 class NBodyDataLoader:
@@ -78,12 +81,41 @@ class NBodyDataLoader:
 
 
 class OfflineSegnnDataLoader:
-    """The offline charged-systems loader: not ported yet."""
+    """The offline charged-systems loader (files from ``data/offline_datagen.py``
+    in ``data_directory``), on ``device``."""
 
     def __init__(self, args, partition: str = "train", device="cuda"):
-        raise NotImplementedError(
-            "the offline charged-systems dataset (segnn_nbody_offline) is not ported yet: "
-            "ROADMAP.md, queue 1 item 7")
+        self.args = args
+        self.dataset = OfflineNBodyDataset(
+            dataset_name=args.dataset_name,
+            data_dir=getattr(args, "data_directory", "datasets_offline/data"),
+            partition=partition,
+            max_samples=getattr(args, "max_samples", 10**8),
+            frame_0=getattr(args, "frame_0", 30),
+            frame_T=getattr(args, "frame_T", 40),
+            cutoff_rate=getattr(args, "cutoff_rate", 0.0),
+            target=args.target,
+            batch_size=args.batch_size,
+            # batch selection and the test split's rotations follow the run's data seed
+            seed=getattr(args, "data_seed", None) or 0,
+            device=device,
+        )
+
+    def get_batch(self) -> Tuple[Scene, torch.Tensor]:
+        scene, y, _mask = self.dataset.get_batch()
+        return scene, y
+
+    def preprocess_batch(self, scene: Scene) -> torch.Tensor:
+        """The cutoff-rate mask of ``scene`` itself (not of the last batch
+        drawn), computed on the host as the dataset computes it."""
+        mask = self.dataset.edge_mask(scene.pos.detach().cpu().numpy())
+        return torch.from_numpy(mask).to(scene.pos.device)
+
+    def postprocess_batch(self, predictions):
+        return predictions
+
+    def get_num_nodes(self) -> int:
+        return self.dataset.num_nodes
 
 
 DATALOADER_REGISTRY: Dict[str, Type] = {

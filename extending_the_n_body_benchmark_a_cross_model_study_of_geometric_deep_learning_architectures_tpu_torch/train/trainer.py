@@ -18,7 +18,12 @@ Epochs, metric names, checkpoints, crash handling, the run-dir layout
 (``debug_layer_stats_every``, ``evaluation.layer_stats``) are the JAX
 trainer's, and so is PONITA's one-time calibration of its convolution kernels
 on the first training batch (``models.ponita.calibrate_params``), before a
-checkpoint is loaded over it.  A model with live dropout (GraphTransformer,
+checkpoint is loaded over it.  A dataset whose ``get_batch`` returns three
+items, ``(scene, y, mask)`` (the offline charged systems'), trains,
+validates, calibrates and logs layer statistics on the mask the data
+carries, never on the kNN mask; it has no ground-truth trajectories, so its
+run cannot score itself by self-feed (set ``test_macros_every`` past the
+run's epochs).  A model with live dropout (GraphTransformer,
 EquiformerV2) draws each step's masks from one ``torch.Generator`` on the
 device, seeded with the run's ``seed`` (0 without one), where the JAX trainer
 splits a key a step: the streams differ, and the same seed gives the same
@@ -98,15 +103,12 @@ def matmul_precision(precision: Optional[str]):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
-def _cast(scene: Scene, dtype: torch.dtype) -> Scene:
-    return Scene(*(t.to(dtype) for t in (scene.pos, scene.vel, scene.force, scene.mass)))
-
-
 def make_train_step(model, optim: NoamAdamW, loss_fn, targets, num_neighbors: int,
                     dtype: torch.dtype, abort_on_nan: bool = False,
                     generator: Optional[torch.Generator] = None):
-    """``(step, metric_names)``: ``step(scene, y)`` takes one optimizer step
-    (through the dense edge stage, for a model with one) and returns the
+    """``(step, metric_names)``: ``step(scene, y, mask=None)`` takes one
+    optimizer step on ``mask`` (the ``num_neighbors`` nearest bodies where
+    None) (through the dense edge stage, for a model with one) and returns the
     metric vector ``[loss, *sorted(terms), *sorted(percentage errors)]``
     (float32, on the device); ``metric_names`` fills at the first call.
     ``abort_on_nan`` skips an update whose prediction is not finite, decided
@@ -115,11 +117,13 @@ def make_train_step(model, optim: NoamAdamW, loss_fn, targets, num_neighbors: in
     metric_names: list = []
     dense = {"edge_impl": "dense"} if has_edge_stage(model) else {}
 
-    def step(scene: Scene, y: torch.Tensor) -> torch.Tensor:
-        scene, y = _cast(scene, dtype), y.to(dtype)
+    def step(scene: Scene, y: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        scene, y = scene.astype(dtype), y.to(dtype)
+        if mask is None:
+            mask = G.knn_mask(scene.pos, num_neighbors)
         model.train()
         dropout = {"generator": generator} if needs_generator(model) else {}
-        pred = model(scene, G.knn_mask(scene.pos, num_neighbors), **dense, **dropout)
+        pred = model(scene, mask, **dense, **dropout)
         loss, terms = loss_fn(pred, scene, y)
         optim.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -173,12 +177,16 @@ class Trainer:
         set_matmul_precision(getattr(args, "matmul_precision", None))
 
         # the JAX trainer draws one batch to initialise its parameters, and
-        # calibrates PONITA's on it; this draw keeps the frame order the same
-        scene0 = dataset.get_batch()[0]
+        # calibrates PONITA's on it; this draw keeps the frame order (and an
+        # offline dataset's numpy stream) the same.  A batch of three items
+        # carries its mask: the run's steps read their masks from the data
+        batch0 = dataset.get_batch()
+        self._data_masks = len(batch0) == 3
         if args.model_type == "ponita":
-            scene0 = _cast(scene0, self.dtype)
-            calibrate_params(model, scene0, G.knn_mask(scene0.pos, self.num_neighbors))
-        del scene0
+            scene0 = batch0[0].astype(self.dtype)
+            mask0 = batch0[2] if self._data_masks else G.knn_mask(scene0.pos, self.num_neighbors)
+            calibrate_params(model, scene0, mask0)
+        del batch0
         # the JAX trainer's count: every leaf of its params tree, PONITA's
         # calibration statistics (3 a layer) included
         self.n_params = count_params(model)
@@ -292,10 +300,14 @@ class Trainer:
 
     # ---------------------------------------------------------------- train
 
-    def log_layer_stats(self, scene: Scene) -> Dict[str, float]:
+    def log_layer_stats(self, scene: Scene, mask: Optional[torch.Tensor] = None
+                        ) -> Dict[str, float]:
         """Append the model's per-layer statistics on ``scene`` (on its
-        training graph) to ``layer_stats.jsonl``; one fetch."""
-        stats = layer_stats.capture(self.model, scene, G.knn_mask(scene.pos, self.num_neighbors))
+        training graph: ``mask``, the kNN mask where None) to
+        ``layer_stats.jsonl``; one fetch."""
+        if mask is None:
+            mask = G.knn_mask(scene.pos, self.num_neighbors)
+        stats = layer_stats.capture(self.model, scene, mask)
         record = layer_stats.record(self.step_count, stats)
         with open(os.path.join(self.save_dir_path, "layer_stats.jsonl"), "a") as f:
             f.write(json.dumps(record) + "\n")
@@ -308,10 +320,11 @@ class Trainer:
         stats_every = getattr(self.args, "debug_layer_stats_every", None)
         vecs = []  # per-step metric vectors, on the device until the epoch ends
         for step_i in range(n_steps):
-            scene, y = self.dataset.get_batch()
+            batch = self.dataset.get_batch()  # (scene, y), or (scene, y, mask)
+            scene = batch[0]
             if stats_every and step_i % int(stats_every) == 0:
-                self.log_layer_stats(_cast(scene, self.dtype))
-            vecs.append(self._train_step(scene, y))
+                self.log_layer_stats(scene.astype(self.dtype), *batch[2:])
+            vecs.append(self._train_step(*batch))
             examples += scene.pos.shape[0]
         arr = torch.stack(vecs).cpu().numpy()  # the epoch's one fetch
         dt = time.time() - t_epoch
@@ -383,20 +396,23 @@ class Trainer:
 
     @torch.no_grad()
     def validate_one_epoch(self, num_batches: int = 10) -> Dict[str, float]:
-        """Loss and percentage errors over fresh batches of the valid stream;
-        saves ``model_best_valid_loss.ckpt`` on improvement."""
+        """Loss and percentage errors over fresh batches of the valid stream
+        (an offline run's on the valid split's own masks); saves
+        ``model_best_valid_loss.ckpt`` on improvement."""
         vds = self.valid_dataset if self.valid_dataset is not None else self.dataset
         self.model.eval()
         results = []
         for _ in range(num_batches):
-            scene, y = vds.get_batch()
-            scene, y = _cast(scene, self.dtype), y.to(self.dtype)
-            pred = self.model(scene, G.knn_mask(scene.pos, self.num_neighbors))
+            batch = vds.get_batch()
+            scene, y = batch[0].astype(self.dtype), batch[1].to(self.dtype)
+            mask = batch[2] if self._data_masks else G.knn_mask(scene.pos, self.num_neighbors)
+            pred = self.model(scene, mask)
             total, terms = self.loss_fn(pred, scene, y)
             results.append((total, {**terms, **percentage_errors(pred, y, self.targets)}))
-        # one device-to-host fetch for the whole epoch
+        # one device-to-host fetch for the whole epoch, in float64: the JAX
+        # trainer reads each value in its own dtype (float64 in a double run)
         keys = list(results[0][1])
-        arr = torch.stack([torch.stack([t] + [n[k] for k in keys]).float()
+        arr = torch.stack([torch.stack([t] + [n[k] for k in keys]).double()
                            for t, n in results]).cpu().numpy()
         means: Dict[str, RunningMean] = {}
         for row in arr:
@@ -420,6 +436,11 @@ class Trainer:
         if getattr(self.args, "save_checkpoint_params", False):
             os.makedirs(save_dir, exist_ok=True)
             self.save_model(filename=os.path.join("checkpoints", str(self.step_count), "model.ckpt"))
+        if not hasattr(self.dataset, "get_ground_truth_trajectories"):
+            raise ValueError(
+                f"self-feed needs ground-truth trajectories, which the "
+                f"{type(self.dataset).__name__} ({self.args.dataset_name!r}) has not: an "
+                "offline run sets test_macros_every past its epochs")
         with matmul_precision(getattr(self.args, "self_feed_matmul_precision", None)):
             loc_gt, vel_gt, loc_pred, vel_pred, survived = run_self_feed(
                 self.model,

@@ -7,7 +7,8 @@ the JAX one on the same arrays for all six targets, with int frames and with
 a gathered index of frames; the ``.npz`` cache round-trips and its folder name
 equals the JAX package's; the metadata dict equals the JAX package's and
 ``from_metadata`` round-trips; the valid partition never caches and is
-reseeded; the offline loader is refused.
+reseeded; the offline loader refuses a directory without its files and
+loads one with them.
 
 Config (``utils/config.py``): the port's own defaults equal
 ``default_config.yaml`` as the JAX package reads it, ``parse_args`` gives the
@@ -177,10 +178,18 @@ def test_partitions_as_jax(data_seed, model_path, tmp_path, monkeypatch):
         assert valid._explicit_seed == data_seed + 7919
 
 
-def test_offline_loader_is_refused():
-    args = _loader_args(dataloader_type="segnn_nbody_offline")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+def test_offline_loader_is_refused(tmp_path):
+    """Without its files the offline loader refuses, naming the file it
+    misses; with them it is the port's loader."""
+    args = _loader_args(dataloader_type="segnn_nbody_offline", data_directory=str(tmp_path),
+                        dataset_name="5_0_0")
+    with pytest.raises(FileNotFoundError, match="loc_train_charged5_0_0.npy"):
         TDL.create_dataloader(args, device="cpu")
+    for name in ("loc", "vel"):
+        np.save(tmp_path / f"{name}_train_charged5_0_0.npy", np.zeros((2, 50, 5, 3), np.float32))
+    np.save(tmp_path / "charges_train_charged5_0_0.npy", np.ones((2, 5, 1), np.float32))
+    loader = TDL.create_dataloader(args, device="cpu")
+    assert isinstance(loader, TDL.OfflineSegnnDataLoader) and loader.get_num_nodes() == 5
 
 
 def test_default_config_equals_jax():
