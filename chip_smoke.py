@@ -17,7 +17,9 @@ the width of its stability run and depth 2 (phases 45-48), CGENN's with a
 fresh model at its 10M run's shape (phases 49-52), GMN's with a fresh
 model at its defaults (phases 53-56), and the offline charged systems
 (phases 57-61: the legacy sims, the offline datagen, training SEGNN, EGNN-MC
-and GMN on it through ``cli train``): the bench
+and GMN on it through ``cli train``), and the multi-GPU paths on gloo ranks
+that share the card (phases 63-64: data-parallel ``cli train`` and the
+body-sharded ring, each rank a process of its own): the bench
 workload (B=64 sims of N=100 bodies, dense edge stage K1) and the big-N path
 (B=8 sims of N=512 bodies, streaming edge stage K3), each in f32 and in the
 mixed-bf16 model (``compute_dtype="bfloat16"``: hidden and message stack in
@@ -262,7 +264,9 @@ bf16, coordinates, geometry and integration in f32):
                    scene, and the CPU's own rotation residual is printed;
                    translation and permutation; the parameter count 9,814,466
                    (also by hpo's meta-device count)
- 50. cgenn-rollout  GT at the reference workload through one K2-leapfrog launch,
+ 50. cgenn-rollout  a fresh CGENN of its own at [cgenn]'s width and depth 2 (L6
+                   cut for the smoke's time; count 3,272,898): GT at the
+                   reference workload through one K2-leapfrog launch,
                    100 self-feed steps (no kernel), six-macro KS score; 20 steps
                    on the card against the CPU's float64 on 4 sims; the 100 steps
                    repeated from the same GT bitwise equal, their steps/s warm
@@ -325,6 +329,25 @@ bf16, coordinates, geometry and integration in f32):
  61. train-offline-gmn  the same for GMN at its defaults (h64, L4) on 3_2_1
  62. bign          bign_bench rows: steps/s and peak memory, dense K1 against
                    streaming K3, at (N,B) = (256,16), (512,8), (1024,2), (4096,1)
+ 63. dp-train      `cli train` data parallel (parallel/) on 2 gloo ranks that share
+                   the card (NCCL puts one rank on a card; the machine has one):
+                   [train]'s study run resumed from the committed checkpoint at
+                   B=64 (32 sims a rank), 4 steps and a 20-step evaluation; each
+                   rank's GT rows bitwise the single-process batch's, the ranks'
+                   parameters bitwise equal after every step, the first step
+                   within [train]'s gates of the single-process card step on the
+                   whole batch, the gathered evaluation rollout within YARDSTICK x
+                   the nudged spread of the single-process one and survived per
+                   sim equal, 120 K1 and 2 K2-leapfrog launches a rank, only the
+                   first rank writing; step ms a rank, the gradient all_reduce's
+                   share of a step, peak memory, the backend
+ 64. ring          the body-sharded ring on 4 gloo ranks, a (sim, body) = (2, 2)
+                   mesh at [bign-rollout]'s workload (B=8, N=512: 4 sims and 256
+                   bodies a rank): the ring force at a GT frame against K2 within
+                   K2's tolerance; 20 steps of the committed checkpoint as
+                   EGNNMC(body_ring=True) against the single-process plain dense
+                   rollout of the same frame (YARDSTICK), survived per sim equal;
+                   each rank's peak memory beside the dense path's
 
 Each phase prints one line with its result and elapsed seconds, and
 ``[launch-probe]`` lines give the host's microseconds a tiny op at a few
@@ -333,7 +356,8 @@ the families' phases, the end).  Any failed check exits non-zero before the
 result is printed.  The second-to-last line
 is a JSON object with every kernel's launches on its path (and on the
 training and evaluation paths), its error against the plain version, its
-time, the plain version's time and its bound; the last line is ``{"ok":
+time, the plain version's time and its bound (and its launches per rank on
+the multi-GPU paths); the last line is ``{"ok":
 true, "device": {...}}``.  The script writes only into the package's ignored
 build directory and, for the training and evaluation phases, into temporary
 working directories that it removes.  It sets ``CUBLAS_WORKSPACE_CONFIG`` so that
@@ -672,6 +696,10 @@ CGENN_SEED = 15
 # same 1e-4; translation and permutation as PaiNN's
 CGENN_FWD_RTOL, CGENN_EQUIV_RTOL = 1e-4, 1e-4
 CGENN_CMP_B, CGENN_ROLL_RTOL, CGENN_NUDGE_FACTOR = 4, 1e-3, 100.0
+# [cgenn-rollout]'s own fresh model: the 10M shape at depth 2 (the L6 model's
+# 28 s rollout cut for the smoke's time; its gates as they were)
+CGENN_ROLL_KW = dict(CGENN_KW, num_layers=2)
+CGENN_ROLL_PARAMS = 3_272_898
 # the tensors a fresh CGENN starts at zero: the gates' biases, the product's
 # normalisation logits, the linears' scalar-blade biases.  After [train-cgenn]'s
 # 40 steps their values are those steps' updates alone (one update is ~5% of
@@ -762,6 +790,32 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 K2_FLOPS_PER_PAIR = 20  # 3 sub, 6 for r2 + eps^2, rsqrt, 3 for inv^3 * m, 3 FMA
+# the multi-GPU paths: gloo ranks that share the one card (NCCL puts one rank
+# on a card, and the machine has one).  [dp-train]: `cli train` on DP_RANKS
+# ranks at [train]'s study settings (N=100) with B=64 (32 a rank), resumed
+# from the committed checkpoint for DP_STEPS steps and one evaluation of
+# DP_FRAMES frames (the GT cache, the trajectory files and the extended
+# artifacts off: the CPU tests hold the cache's one writer, [train] the rest)
+DP_RANKS, DP_B, DP_STEPS, DP_FRAMES = 2, 64, 4, 21
+DP_ARGV = ["--dataloader.batch_size", str(DP_B),
+           "--dataloader.gravity_dataset.num_atoms", "100",
+           "--dataloader.gravity_dataset.sim_length", "2500", "--dataloader.seed", "0",
+           "--dataloader.cache_data", "false", "--trainer.steps_per_epoch", str(DP_STEPS),
+           "--trainer.train_steps", "31", "--trainer.save_model_every", "1",
+           "--trainer.test_macros_every", "1", "--trainer.self_feed_limit_steps", str(DP_FRAMES),
+           "--trainer.save_trajectory_npys", "false", "--trainer.plot_macros", "false",
+           "--trainer.run_name", "dp"]
+# [ring]: RING_RANKS ranks on a (sim, body) = (2, 2) mesh at [bign-rollout]'s
+# workload (B=8, N=512: 4 sims and 256 bodies a rank), RING_STEPS steps
+RING_RANKS, RING_BODY, RING_STEPS = 4, 2, 20
+# a rank that has not finished by then fails its phase (and each group's
+# collectives time out after it too)
+RANK_TIMEOUT_S = 300.0
+# a sharded rollout against the single-process one: at every step within
+# YARDSTICK times the spread that a 1e-7 relative nudge of frame 0 gives the
+# single-process rollout, or K1's tolerance of the largest position where that
+# is larger (a closed loop amplifies last-bit differences, [rollout]'s reading)
+YARDSTICK = 10.0
 T_START = time.perf_counter()
 
 
@@ -842,6 +896,480 @@ def tp_flops(tp) -> float:
     return 2.0 * macs
 
 
+def _kernel_counters(mods) -> dict:
+    """Every kernel form's launch counter: name -> (wrapper, attribute)."""
+    EM, ES, gravity = mods
+    return {"k1": (EM.fused_egnn_messages, "launches"),
+            "k1_bf16": (EM.fused_egnn_messages, "launches_bf16"),
+            "k2": (gravity.acceleration, "launches"), "leapfrog": (gravity.leapfrog, "launches"),
+            "k3": (ES.streaming_egnn_messages, "launches"),
+            "k3_bf16": (ES.streaming_egnn_messages, "launches_bf16"),
+            "k3_elem": (ES.streaming_egnn_messages, "launches_elem")}
+
+
+def _kernel_counts(mods) -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in _kernel_counters(mods).items()}
+
+
+def _host_copies_only() -> dict:
+    """Wrap this process's gloo collectives to count the tensors they are
+    handed and those of them on the card (gloo moves host memory: the
+    port's collectives hand it host copies, by backend)."""
+    import torch.distributed as dist
+
+    seen = {"collectives": 0, "tensors": 0, "on_card": 0}
+
+    def note(tensors):
+        seen["collectives"] += 1
+        for t in tensors:
+            seen["tensors"] += 1
+            seen["on_card"] += t.device.type != "cpu"
+
+    def wrap(name, tensors_of):
+        fn = getattr(dist, name)
+
+        def wrapped(*a, **k):
+            note(tensors_of(*a, **k))
+            return fn(*a, **k)
+        setattr(dist, name, wrapped)
+
+    wrap("all_reduce", lambda t, *a, **k: [t])
+    wrap("broadcast", lambda t, *a, **k: [t])
+    wrap("all_gather", lambda parts, t, *a, **k: [*parts, t])
+    wrap("batch_isend_irecv", lambda ops: [op.tensor for op in ops])
+    return seen
+
+
+def _rank_setup():
+    """A rank's card and flags (``main``'s), and its kernel wrappers' modules."""
+    import importlib
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    mods = tuple(importlib.import_module(f"{PKG}.{m}")
+                 for m in ("ops.egnn_messages", "ops.egnn_stream", "ops.gravity"))
+    importlib.import_module(f"{PKG}.ops._build").kernels()  # built by the parent: loads
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.empty(0, device=dev)  # the rank's context, before its memory statistics
+    return dev, mods
+
+
+def _dp_rank(rank: int, argv, root: str) -> dict:
+    """A [dp-train] rank: ``cli.train_main(argv)`` in ``<root>/rank<r>``,
+    recording its first GT batch (its rows), each step's batch (the first),
+    parameters and ms, each gradient all_reduce's ms, and the evaluation
+    rollout's scene, parameters and gathered trajectories."""
+    t_enter = time.time()
+    import importlib
+
+    import torch
+
+    dev, mods = _rank_setup()
+    wire = _host_copies_only()
+    cli = importlib.import_module(f"{PKG}.cli")
+    trainer_mod = importlib.import_module(f"{PKG}.train.trainer")
+    sharded = importlib.import_module(f"{PKG}.parallel.sharded")
+    self_feed = importlib.import_module(f"{PKG}.rollout.self_feed")
+    otf = importlib.import_module(f"{PKG}.data.gravity_otf")
+    cwd = os.path.join(root, f"rank{rank}")
+    os.makedirs(cwd)
+    os.chdir(cwd)
+    rec = {"gt": None, "steps": [], "step_ms": [], "reduce_ms": [], "eval": None,
+           "marks": {"enter": t_enter}}
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    generate = otf.GravityDatasetOtf.generate_trajectories
+
+    def first_gt(self, bs):
+        out = generate(self, bs)
+        if rec["gt"] is None:
+            rec["gt"] = {k: v.cpu() for k, v in out.items()}
+        return out
+
+    make_step = trainer_mod.make_sharded_train_step
+
+    def make_timed(model, *a, **k):
+        step, names = make_step(model, *a, **k)
+
+        def timed(scene, y, mask=None):
+            sync()
+            rec["marks"].setdefault("first_step", time.time())
+            t = time.perf_counter()
+            vec = step(scene, y, mask)
+            sync()
+            rec["step_ms"].append((time.perf_counter() - t) * 1e3)
+            rec["steps"].append({
+                "batch": None if rec["steps"] else tuple(
+                    x.cpu() for x in (scene.pos, scene.vel, scene.force, scene.mass, y)),
+                "params": {n: p.detach().cpu().clone() for n, p in model.named_parameters()}})
+            return vec
+        return timed, names
+
+    average = sharded.average_step
+
+    def average_timed(*a, **k):
+        sync()
+        t = time.perf_counter()
+        out = average(*a, **k)
+        sync()
+        rec["reduce_ms"].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    sharded_rollout = self_feed.make_sharded_rollout_fn
+
+    def sharded_rollout_rec(model, *a, **k):
+        fn = sharded_rollout(model, *a, **k)
+
+        def rollout(scene0, rng=None):
+            rec["marks"]["eval_rollout"] = time.time()
+            out = fn(scene0, rng)
+            rec["marks"]["eval_rollout_end"] = time.time()
+            rec["eval"] = {"scene0": tuple(x.cpu() for x in (scene0.pos, scene0.vel,
+                                                             scene0.force, scene0.mass)),
+                           "params": {n: v.cpu() for n, v in model.state_dict().items()},
+                           "loc": out[0].cpu(), "vel": out[1].cpu(), "survived": out[2].cpu()}
+            return out
+        return rollout
+
+    for fn, attr in _kernel_counters(mods).values():
+        setattr(fn, attr, 0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    rec["marks"]["train_main"] = time.time()
+    with mock.patch.object(otf.GravityDatasetOtf, "generate_trajectories", first_gt), \
+            mock.patch.object(trainer_mod, "make_sharded_train_step", make_timed), \
+            mock.patch.object(sharded, "average_step", average_timed), \
+            mock.patch.object(self_feed, "make_sharded_rollout_fn", sharded_rollout_rec):
+        trainer = cli.train_main(argv)
+    sync()
+    rec["marks"]["end"] = time.time()
+    rec.update(seconds=time.perf_counter() - t, counts=_kernel_counts(mods), wire=wire,
+               peak_mib=torch.cuda.max_memory_allocated(dev) / 2**20,
+               backend=torch.distributed.get_backend(), save_dir=trainer.save_dir_path,
+               data_parallel=trainer.mesh is not None, count=trainer.optim.count,
+               files=sorted(os.path.relpath(os.path.join(b, n), cwd)
+                            for b, _, ns in os.walk(cwd) for n in ns))
+    return rec
+
+
+def _ring_rank(rank: int, scene0, state, frames: int) -> dict:
+    """A [ring] rank on the (2, 2) mesh: the ring force at ``scene0`` and the
+    body-ring rollout of ``frames`` frames from it, this rank's blocks, its
+    peak memory above its start and its seconds."""
+    import importlib
+
+    import torch
+
+    t_enter = time.time()
+    dev, mods = _rank_setup()
+    wire = _host_copies_only()
+    par = importlib.import_module(f"{PKG}.parallel")
+    models = importlib.import_module(f"{PKG}.models")
+    physics = importlib.import_module(f"{PKG}.core.physics")
+    Scene = importlib.import_module(f"{PKG}.core.scene").Scene
+    mesh = par.make_mesh(RING_RANKS, body_parallel=RING_BODY)
+    scene = Scene(*(x.to(dev) for x in scene0))
+    local = par.shard_scene(scene, mesh, shard_bodies=True)
+    params = physics.GravityParams(interaction_strength=G_CONST, softening=SOFTENING)
+    t = time.perf_counter()
+    acc = par.make_ring_acceleration(mesh, params)(local.pos, local.mass)
+    torch.cuda.synchronize(dev)
+    force_s = time.perf_counter() - t
+    model = models.create_model("egnn_mc", device=dev, body_ring=True)
+    model.load_state_dict(state)
+    model.eval()
+    fn = par.make_body_ring_rollout_fn(model, frames, mesh)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.memory_allocated(dev)
+    before = _kernel_counts(mods)
+    t = time.perf_counter()
+    loc, vel, surv = fn(scene)
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t
+    after = _kernel_counts(mods)
+    return {"coord": (mesh.get_local_rank("sim"), mesh.get_local_rank("body")),
+            "acc": acc.cpu(), "loc": loc.cpu(), "vel": vel.cpu(), "survived": surv.cpu(),
+            "seconds": seconds, "force_s": force_s, "enter": t_enter, "end": time.time(),
+            "peak_mib": (torch.cuda.max_memory_allocated(dev) - start) / 2**20,
+            "backend": torch.distributed.get_backend(), "wire": wire,
+            "counts": {k: after[k] - before[k] for k in after}}
+
+
+def _against_single(tag: str, got_loc, single_loc, nudged_loc) -> dict:
+    """A sharded rollout's positions against the single-process rollout's from
+    the same frame, at every step within YARDSTICK times the nudged spread
+    or K1's tolerance of the largest position, whichever is larger."""
+    import torch
+
+    d = (got_loc - single_loc).abs().amax(dim=(0, 2, 3))  # per frame
+    d_n = (nudged_loc - single_loc).abs().amax(dim=(0, 2, 3))
+    size = single_loc.abs().amax(dim=(0, 2, 3))
+    limit = torch.maximum(YARDSTICK * d_n, K1_ATOL + K1_RTOL * size)
+    if not (torch.isfinite(got_loc).all() and bool((d <= limit).all())):
+        t = int(torch.argmax(d - limit))
+        fail(f"{tag}: frame {t} differs from the single-process rollout by {d[t].item():.3e} "
+             f"(limit {limit[t].item():.3e}: the nudged spread {d_n[t].item():.3e})")
+    last = len(d) - 1
+    for t in sorted({t_ for t_ in (1, 2, 5, 10, last) if t_ <= last}):
+        print(f"  {tag} step {t:3d}: max|dpos| against the single process {d[t].item():.3e}, "
+              f"single vs nudged single {d_n[t].item():.3e}", flush=True)
+    return {"max_dpos": f"{d.max().item():.3e}", "max_dpos_nudged": f"{d_n.max().item():.3e}",
+            "bitwise": bool((d == 0).all())}
+
+
+def _phase_modules():
+    import importlib
+
+    return {m: importlib.import_module(f"{PKG}.{m}") for m in (
+        "models", "weights", "cli", "train.trainer", "train.losses", "utils.config",
+        "data.dataloaders", "data.gravity_otf", "rollout.self_feed", "ops.gravity",
+        "parallel.launch", "core.scene")}
+
+
+def _dp_train_phase(dev) -> dict:
+    """Phase 63, [dp-train]; returns each rank's kernel launches."""
+    # `cli train` data parallel over DP_RANKS gloo ranks that share the card
+    # (each rank its half of every batch, one gradient all_reduce a step), at
+    # [train]'s study settings with B=64, resumed from the committed
+    # checkpoint: each rank's GT rows bitwise the single-process batch's, the
+    # ranks' parameters bitwise equal after every step, the first step within
+    # [train]'s gates of the single-process card step on the whole batch, the
+    # gathered evaluation rollout against the single-process one (YARDSTICK),
+    # survived per sim equal; K1 and K2-leapfrog launches per rank; only the
+    # first rank writes
+    import torch
+
+    m = _phase_modules()
+    models, weights, trainer_mod = m["models"], m["weights"], m["train.trainer"]
+    config_mod, dataloaders = m["utils.config"], m["data.dataloaders"]
+    self_feed = m["rollout.self_feed"]
+    launch, Scene = m["parallel.launch"], m["core.scene"].Scene
+    t0 = time.perf_counter()
+    parallel_counts = {}
+    with tempfile.TemporaryDirectory() as root:
+        argv = ["--trainer.model_path", shutil.copy(CKPT, root)] + DP_ARGV
+        logs = os.path.join(root, "logs")
+        t_spawn = time.time()
+        try:
+            ranks = launch.spawn_ranks(_dp_rank, DP_RANKS, (argv, root), timeout=RANK_TIMEOUT_S,
+                                       threads=2, workdir=logs)
+        except RuntimeError as e:
+            fail(f"dp-train: {e}")
+        t_back = time.time()
+        print(f"  dp-train: ranks {t_back - t_spawn:.2f} s", flush=True)
+        dp_args, _ = config_mod.parse_args(argv)
+        whole = dataloaders.create_dataloader(dp_args, device=dev).dataset.generate_trajectories(
+            DP_B)
+        half = DP_B // DP_RANKS
+        for r, rec in enumerate(ranks):
+            for k, v in whole.items():
+                if not torch.equal(rec["gt"][k], v[r * half:(r + 1) * half].cpu()):
+                    fail(f"dp-train: rank {r}'s GT {k} is not the single-process batch's rows")
+            if not rec["wire"]["collectives"] or rec["wire"]["on_card"]:
+                fail(f"dp-train: rank {r}'s gloo collectives got {rec['wire']} (want host "
+                     "tensors only)")
+            if not rec["data_parallel"] or rec["count"] != ranks[0]["count"]:
+                fail(f"dp-train: rank {r} data parallel {rec['data_parallel']}, AdamW count "
+                     f"{rec['count']}")
+            want = dict.fromkeys(rec["counts"], 0)
+            want["k1"], want["leapfrog"] = LAYERS * (DP_FRAMES - 1), 2
+            if rec["counts"] != want:
+                fail(f"dp-train: rank {r} launched {rec['counts']}, want {want} (the training "
+                     "GT batch and the evaluation's, its sims' evaluation steps through K1)")
+        if len(ranks[0]["steps"]) != DP_STEPS or any(
+                len(rec["steps"]) != DP_STEPS for rec in ranks):
+            fail(f"dp-train: {[len(rec['steps']) for rec in ranks]} steps, want {DP_STEPS}")
+        for i in range(DP_STEPS):
+            a, b = ranks[0]["steps"][i]["params"], ranks[1]["steps"][i]["params"]
+            if not all(torch.equal(a[k], b[k]) for k in a):
+                fail(f"dp-train: the ranks' parameters differ after step {i + 1}")
+        # the first step against the single-process card step on the whole batch
+        sp = models.create_model("egnn_mc", device=dev)
+        sp_optim = trainer_mod.create_optimizer(
+            sp.parameters(), learning_rate=dp_args.learning_rate, model_size=sp.get_model_size(),
+            factor=dp_args.learning_rate_factor, warmup=dp_args.learning_rate_warmup_steps,
+            clip_value=dp_args.clip_gradients_value, clip_norm=dp_args.clip_gradients_norm,
+            discard_nan_gradients=dp_args.discard_nan_gradients)
+        trainer_mod.load_training_state(sp, sp_optim, weights.read_checkpoint(CKPT), "egnn_mc")
+        sp_before = {n: p.detach().cpu().clone() for n, p in sp.named_parameters()}
+        parts = [rec["steps"][0]["batch"] for rec in ranks]
+        pos_, vel_, force_, mass_, y_ = (torch.cat([p[i] for p in parts]).to(dev)
+                                          for i in range(5))
+        sp_step, _ = trainer_mod.make_train_step(
+            sp, sp_optim, m["train.losses"].build_loss_fn(dp_args), dp_args.target.split("+"),
+            N - 1, torch.float32)
+        sp_step(Scene(pos=pos_, vel=vel_, force=force_, mass=mass_), y_)
+        p_err = up_err = 0.0
+        bad = []
+        for n, p in sp.named_parameters():
+            got, ref = ranks[0]["steps"][0]["params"][n], p.detach().cpu()
+            e = (got - ref).abs().max().item() / (ref.abs().max().item() or 1.0)
+            du = (ref - sp_before[n]).abs().max().item() or 1.0
+            u = ((got - sp_before[n]) - (ref - sp_before[n])).abs().max().item() / du
+            p_err, up_err = max(p_err, e), max(up_err, u)
+            if not (e <= TRAIN_PARAM_RTOL and u <= TRAIN_UPDATE_RTOL):
+                bad.append(f"{n} by {e:.3e} of its largest value, its update by {u:.3e}")
+        if bad:
+            fail("dp-train: the first step against the single-process step on the whole batch "
+                 f"(limits {TRAIN_PARAM_RTOL}, {TRAIN_UPDATE_RTOL}): " + "; ".join(bad))
+        del sp, sp_optim, sp_before
+        # the gathered evaluation rollout against the single-process one
+        ev = ranks[0]["eval"]
+        if ev is None or any(rec["eval"] is None for rec in ranks):
+            fail("dp-train: a rank ran no sharded evaluation rollout")
+        for rec in ranks[1:]:
+            if not (torch.equal(rec["eval"]["loc"], ev["loc"])
+                    and torch.equal(rec["eval"]["survived"], ev["survived"])):
+                fail("dp-train: the ranks' gathered evaluation rollouts differ")
+        sp = models.create_model("egnn_mc", device=dev)
+        sp.load_state_dict(ev["params"])
+        sp.eval()
+        scene_e = Scene(*(x.to(dev) for x in ev["scene0"]))
+        roll = self_feed.make_rollout_fn(sp, DP_FRAMES)
+        loc_s, _, surv_s = roll(scene_e)
+        loc_n, _, _ = roll(Scene(pos=scene_e.pos * (1 + 1e-7), vel=scene_e.vel,
+                                 force=scene_e.force, mass=scene_e.mass))
+        if not torch.equal(ev["survived"], surv_s.cpu()):
+            fail(f"dp-train: survived per sim {ev['survived'].tolist()}, the single process "
+                 f"{surv_s.tolist()}")
+        dp_cmp = _against_single("dp-train", ev["loc"], loc_s.cpu(), loc_n.cpu())
+        del sp, roll, loc_s, loc_n
+        if ranks[1]["files"]:
+            fail(f"dp-train: rank 1 wrote {ranks[1]['files'][:5]}")
+        run0 = ranks[0]["save_dir"]
+        need = {os.path.join(run0, f) for f in (
+            "model.ckpt", "metrics.jsonl", "config.yaml", "training_args.json",
+            os.path.join("checkpoints", "31", "nbody_macro_metrics.json"))}
+        if not need <= set(ranks[0]["files"]):
+            fail(f"dp-train: rank 0 did not write {sorted(need - set(ranks[0]['files']))}")
+    for r, rec in enumerate(ranks):
+        mk = rec["marks"]
+        print(f"  dp-train rank {r}: started {mk['enter'] - t_spawn:.2f} s after the spawn, "
+              f"train_main at +{mk['train_main'] - mk['enter']:.2f} s, its first step at "
+              f"+{mk['first_step'] - mk['train_main']:.2f} s, the evaluation rollout "
+              f"+{mk['eval_rollout'] - mk['train_main']:.2f} s to "
+              f"+{mk['eval_rollout_end'] - mk['train_main']:.2f} s, done at "
+              f"+{mk['end'] - mk['train_main']:.2f} s; back in the parent "
+              f"{t_back - mk['end']:.2f} s later", flush=True)
+        steady = rec["step_ms"][1:] or rec["step_ms"]
+        ms = sum(steady) / len(steady)
+        red = rec["reduce_ms"][1:] or rec["reduce_ms"]
+        print(f"  dp-train rank {r}: {rec['seconds']:.2f} s in train_main, step ms "
+              f"{' '.join(f'{x:.2f}' for x in rec['step_ms'])} (steady {ms:.3f}), gradient "
+              f"all_reduce {sum(red) / len(red):.3f} ms ({sum(red) / len(red) / ms:.1%} of a "
+              f"step), peak {rec['peak_mib']:.1f} MiB, backend {rec['backend']}", flush=True)
+        parallel_counts[f"dp-train_rank{r}"] = rec["counts"]
+    report("dp-train", t0, ranks=DP_RANKS, backend=ranks[0]["backend"], B=DP_B, N=N,
+           steps=DP_STEPS, cmp_param_err=f"{p_err:.3e}", cmp_update_err=f"{up_err:.3e}",
+           eval_frames=DP_FRAMES, survived_min=int(ev["survived"].min()),
+           eval_max_dpos=dp_cmp["max_dpos"], eval_max_dpos_nudged=dp_cmp["max_dpos_nudged"],
+           eval_bitwise=dp_cmp["bitwise"],
+           k1_launches_per_rank=ranks[0]["counts"]["k1"],
+           gloo_collectives_rank0=ranks[0]["wire"]["collectives"],
+           gloo_tensors_on_card=sum(rec["wire"]["on_card"] for rec in ranks),
+           leapfrog_launches_per_rank=ranks[0]["counts"]["leapfrog"],
+           **{f"step_ms_rank{r}": f"{sum(rec['step_ms'][1:]) / max(1, DP_STEPS - 1):.3f}"
+              for r, rec in enumerate(ranks)})
+    return parallel_counts
+
+
+def _ring_phase(dev, state) -> dict:
+    """Phase 64, [ring], with the committed checkpoint's ``state``; returns each
+    rank's kernel launches."""
+    # the body-sharded ring on RING_RANKS gloo ranks that share the card, a
+    # (sim, body) = (2, 2) mesh at [bign-rollout]'s workload: the ring force
+    # at a GT frame against K2; the body-ring rollout of the committed
+    # checkpoint against the single-process plain dense rollout
+    # (edge_impl="dense") of the same frame (YARDSTICK), survived per sim
+    # equal; each rank's peak memory beside the dense path's
+    import torch
+
+    m = _phase_modules()
+    models, self_feed, gravity = m["models"], m["rollout.self_feed"], m["ops.gravity"]
+    otf, launch, Scene = m["data.gravity_otf"], m["parallel.launch"], m["core.scene"].Scene
+    parallel_counts = {}
+    t0 = time.perf_counter()
+    gt_ring = otf.GravityDatasetOtf(batch_size=BIG_B, sim_length=BIG_SUBSTEPS,
+                                    sample_freq=SAMPLE_FREQ, num_nodes=BIG_N,
+                                    interaction_strength=G_CONST, softening=SOFTENING, seed=64,
+                                    device=dev).get_ground_truth_trajectories()
+    scene_r = Scene(pos=gt_ring[0][:, 0], vel=gt_ring[1][:, 0], force=gt_ring[2][:, 0],
+                    mass=gt_ring[3])
+    t_spawn = time.time()
+    try:
+        ranks = launch.spawn_ranks(
+            _ring_rank, RING_RANKS, (tuple(x.cpu() for x in (scene_r.pos, scene_r.vel,
+                                                            scene_r.force, scene_r.mass)),
+                                     state, RING_STEPS + 1),
+            timeout=RANK_TIMEOUT_S, threads=2)
+    except RuntimeError as e:
+        fail(f"ring: {e}")
+    t_back = time.time()
+    sims, bodies = RING_RANKS // RING_BODY, RING_BODY
+    block = {rec["coord"]: rec for rec in ranks}
+
+    def whole(key, axis):
+        return torch.cat([torch.cat([block[(s, b)][key] for b in range(bodies)], dim=axis)
+                          for s in range(sims)])
+
+    acc_k2 = gravity.acceleration(scene_r.pos, scene_r.mass, G_CONST, SOFTENING).cpu()
+    acc_ring = whole("acc", 1)
+    ring_err = (acc_ring - acc_k2).abs()
+    if not bool((ring_err <= K2_ATOL + K2_RTOL * acc_k2.abs()).all()):
+        fail(f"ring: the ring force differs from K2 by {ring_err.max().item():.3e} "
+             f"(rtol {K2_RTOL}, atol {K2_ATOL})")
+    ring_rel = ring_err.max().item() / acc_k2.abs().max().item()
+    dense = models.create_model("egnn_mc", device=dev, edge_impl="dense")
+    dense.load_state_dict(state)
+    dense.eval()
+    roll = self_feed.make_rollout_fn(dense, RING_STEPS + 1)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.memory_allocated(dev)
+    loc_d, _, surv_d = roll(scene_r)
+    torch.cuda.synchronize(dev)
+    dense_peak = (torch.cuda.max_memory_allocated(dev) - start) / 2**20
+    loc_n, _, _ = roll(Scene(pos=scene_r.pos * (1 + 1e-7), vel=scene_r.vel, force=scene_r.force,
+                             mass=scene_r.mass))
+    surv_ring = torch.cat([block[(s, 0)]["survived"] for s in range(sims)])
+    for rec in ranks:
+        if not torch.equal(rec["survived"], block[(rec["coord"][0], 0)]["survived"]):
+            fail("ring: the body shards of a sim disagree on survived")
+        if any(rec["counts"].values()):
+            fail(f"ring: the ring rollout launched {rec['counts']} (plain PyTorch, no kernel)")
+        if not rec["wire"]["collectives"] or rec["wire"]["on_card"]:
+            fail(f"ring: a rank's gloo collectives got {rec['wire']} (want host tensors only)")
+    if not torch.equal(surv_ring, surv_d.cpu()):
+        fail(f"ring: survived per sim {surv_ring.tolist()}, the dense rollout {surv_d.tolist()}")
+    ring_cmp = _against_single("ring", whole("loc", 2), loc_d.cpu(), loc_n.cpu())
+    del dense, roll, loc_d, loc_n
+    for rec in sorted(ranks, key=lambda r_: r_["coord"]):
+        print(f"  ring rank at (sim, body) = {rec['coord']}: started "
+              f"{rec['enter'] - t_spawn:.2f} s after the spawn, done "
+              f"{rec['end'] - rec['enter']:.2f} s later, back in the parent "
+              f"{t_back - rec['end']:.2f} s later; rollout {rec['seconds']:.2f} s "
+              f"({RING_STEPS / rec['seconds']:.2f} steps/s), ring force {rec['force_s']:.3f} s, "
+              f"peak {rec['peak_mib']:.1f} MiB above its start, backend {rec['backend']}",
+              flush=True)
+        parallel_counts[f"ring_{rec['coord'][0]}{rec['coord'][1]}"] = rec["counts"]
+    report("ring", t0, ranks=RING_RANKS, mesh=f"{sims}x{bodies}", backend=ranks[0]["backend"],
+           B=BIG_B, N=BIG_N, steps=RING_STEPS, force_max_rel_err=f"{ring_rel:.3e}",
+           rollout_max_dpos=ring_cmp["max_dpos"], max_dpos_nudged=ring_cmp["max_dpos_nudged"],
+           survived_min=int(surv_ring.min()),
+           gloo_collectives_per_rank=ranks[0]["wire"]["collectives"],
+           gloo_tensors_on_card=sum(rec["wire"]["on_card"] for rec in ranks),
+           peak_mib_per_rank=f"{max(rec['peak_mib'] for rec in ranks):.1f}",
+           dense_peak_mib=f"{dense_peak:.1f}")
+    return parallel_counts
+
+
 def main() -> None:
     import torch
 
@@ -883,6 +1411,9 @@ def main() -> None:
         steerable = importlib.import_module(f"{PKG}.ops.steerable")
         legacy = importlib.import_module(f"{PKG}.core.legacy_sims")
         offline_datagen = importlib.import_module(f"{PKG}.data.offline_datagen")
+        launch = importlib.import_module(f"{PKG}.parallel.launch")
+        dataloaders = importlib.import_module(f"{PKG}.data.dataloaders")
+        losses_mod = importlib.import_module(f"{PKG}.train.losses")
     except ImportError as e:
         fail(f"the port's package is not importable from {REPO}: {e}")
     if not os.path.exists(CKPT):
@@ -956,6 +1487,7 @@ def main() -> None:
 
     # ------------------------------------------------------------- 2. build
     t0 = time.perf_counter()
+    launch.start_server()  # the gloo ranks' fork server (phases 63-64) imports torch meanwhile
     with ThreadPoolExecutor(max_workers=2) as pool:
         kern_job = pool.submit(_build.build)
         macro_job = pool.submit(native_build.build)
@@ -3321,11 +3853,15 @@ def main() -> None:
            leapfrog_launches=eval_counts["cgenn"]["leapfrog"])
 
     # ------------------------------------------------------ 50. cgenn-rollout
-    t0 = time.perf_counter()
-    info = family_rollout("cgenn", cmodel, ccpu, REF_B, REF_N, REF_SUBSTEPS, 72, CGENN_CMP_B,
-                          CGENN_ROLL_RTOL, CGENN_NUDGE_FACTOR)
+    # a fresh CGENN of its own at depth 2 (CGENN_ROLL_KW), every gate as at L6
     del ccpu, cmodel, scene_c
-    report("cgenn-rollout", t0, **info)
+    t0 = time.perf_counter()
+    rmodel, rcpu = fresh_pair("cgenn", CGENN_ROLL_KW, CGENN_SEED, CGENN_ROLL_PARAMS)
+    info = family_rollout("cgenn", rmodel, rcpu, REF_B, REF_N, REF_SUBSTEPS, 72, CGENN_CMP_B,
+                          CGENN_ROLL_RTOL, CGENN_NUDGE_FACTOR)
+    del rmodel, rcpu
+    report("cgenn-rollout", t0, layers=CGENN_ROLL_KW["num_layers"], n_params=CGENN_ROLL_PARAMS,
+           **info)
 
     # -------------------------------------------------------- 51. train-cgenn
     # the 10M run's argv from a fresh initialisation, with one step from the
@@ -3799,6 +4335,12 @@ def main() -> None:
             rows.append(row)
     report("bign", t0, steps=BIGN_STEPS, rows=len(rows))
 
+    # --------------------------------------------------- 63-64. dp-train, ring
+    torch.cuda.empty_cache()
+    parallel_counts = _dp_train_phase(dev)
+    torch.cuda.empty_cache()
+    parallel_counts.update(_ring_phase(dev, {k: v.cpu() for k, v in model.state_dict().items()}))
+
     kernels = [
         {
             "name": "egnn_messages (K1)",
@@ -3923,6 +4465,10 @@ def main() -> None:
         # K1 on the cutoff-rate masks)
         entry["launches_eval"] = {path: c[counter_of[entry["name"]]]
                                   for path, c in eval_counts.items()}
+        # ... and on the multi-GPU paths, per rank: [dp-train]'s (its training
+        # GT and evaluation) and [ring]'s (plain PyTorch: none)
+        entry["launches_parallel"] = {path: c[counter_of[entry["name"]]]
+                                      for path, c in parallel_counts.items()}
     print(f"total {time.perf_counter() - T_START:.2f} s on {card}", flush=True)
     print(json.dumps({"bign": rows}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

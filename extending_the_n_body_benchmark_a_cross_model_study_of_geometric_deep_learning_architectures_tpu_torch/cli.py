@@ -7,7 +7,11 @@ The JAX package's mains, with their flags and defaults, each on the card
 unless ``--device`` names another device:
 
 * ``train``: its ``train_main`` (``train.py``), the same config and
-  dot-overrides;
+  dot-overrides; under a launcher (``torchrun --nproc_per_node K -m
+  <package>.cli train ...``) it joins the launcher's process group first
+  (``parallel.mesh.initialize_distributed``), and with a group of K > 1
+  ranks up (the launcher's, or one the caller set up) the trainer runs
+  data parallel;
 * ``self-feed``: its ``self_feed_main`` (``self_feed.py``), a battery of
   self-feed draws of a run's checkpoint against fresh GT;
 * ``validate``: its ``validate_main`` (``validate.py``), the run's loss and
@@ -60,9 +64,12 @@ def _device_flag(argv):
 
 
 def train_main(argv=None):
+    from .parallel.mesh import initialize_distributed, launcher_env
     from .train.trainer import create_trainer_from_args
     from .utils.config import parse_args
 
+    if launcher_env():
+        initialize_distributed()
     device, rest = _device_flag(argv)
     args, resolved = parse_args(rest)
     set_seed(getattr(args, "seed", None))

@@ -17,6 +17,14 @@ Counterpart of the JAX package's ``data/gravity_otf.py``:
 * ``get_serializable_attributes`` / ``from_metadata`` keep its metadata schema,
   so run-dir ``metadata.json`` files are interchangeable.
 
+``shard(mesh)`` makes it a data-parallel rank's (the JAX trainer's sharded
+batch, ``parallel.sharded``): it takes over the first rank's generator and
+frame order, so every rank draws the same batches, and it integrates and
+serves only this rank's sims of each training batch
+(``parallel.sharded.sharded_datagen``: on the card bitwise the
+single-process batch's rows); ``get_ground_truth_trajectories`` gathers the whole batch back, and
+only the first rank writes the cache (the whole batch, gathered).
+
 One difference: the JAX dataset generates its first training batch in the
 constructor; this one at the first ``get_batch``, so a dataset that only
 serves evaluation generates (and caches) nothing that it does not return.  The
@@ -40,6 +48,8 @@ import torch
 from ..core.physics import GravityParams, sample_trajectory_batch
 from ..core.scene import Scene
 from ..core.targets import TARGETS
+from ..parallel import mesh as pmesh
+from ..parallel.sharded import sharded_datagen
 
 
 class GravityDatasetOtf:
@@ -108,6 +118,22 @@ class GravityDatasetOtf:
         # loc/vel/force [B, T, N, 3], mass [B, N, 1] on the device
         self._traj: Optional[Dict[str, torch.Tensor]] = None
         self._unused: list = []
+        self._mesh = None  # a data-parallel rank's mesh (``shard``)
+
+    def shard(self, mesh) -> None:
+        """Serve this rank's sims of every training batch over ``mesh``'s ``sim``
+        axis, from the first rank's generator state and frame order."""
+        if self.batch_size % pmesh.axis_size(mesh, pmesh.SIM_AXIS):
+            raise ValueError(f"batch {self.batch_size} does not split over the sim axis")
+        gen, frames = pmesh.broadcast_object((self.generator.get_state(), self._rng.getstate()))
+        self.generator.set_state(gen)
+        self._rng.setstate(frames)
+        self._mesh = mesh
+
+    def _whole(self, traj: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A sharded batch's sims gathered back, in rank order."""
+        group = pmesh.axis_group(self._mesh, pmesh.SIM_AXIS)
+        return {k: pmesh.all_gather_rows(v, group) for k, v in traj.items()}
 
     # ------------------------------------------------------------------ cache
 
@@ -188,7 +214,15 @@ class GravityDatasetOtf:
     # -------------------------------------------------------------- generation
 
     def generate_trajectories(self, batch_size: int) -> Dict[str, torch.Tensor]:
-        """``loc/vel/force [B, T, N, 3]`` and ``mass [B, N, 1]`` on the device."""
+        """``loc/vel/force [B, T, N, 3]`` and ``mass [B, N, 1]`` on the device:
+        this rank's sims of them once sharded, where ``batch_size`` splits."""
+        sims = 0 if self._mesh is None else pmesh.axis_size(self._mesh, pmesh.SIM_AXIS)
+        if sims and batch_size % sims == 0:
+            loc, vel, force, mass = sharded_datagen(
+                self.generator, self._mesh, batch_size, self.num_nodes, T=self.sim_length,
+                sample_freq=self.sample_freq, params=self.params, dtype=self.dtype,
+                device=self.device)
+            return {"loc": loc, "vel": vel, "force": force, "mass": mass}
         loc, vel, force, mass = sample_trajectory_batch(
             batch_size,
             self.num_nodes,
@@ -209,10 +243,14 @@ class GravityDatasetOtf:
                 self.cache_index = -1  # ran out of cached sims; generate live
             else:
                 self.cache_index += 1
+                if self._mesh is not None:
+                    traj = {k: pmesh.local_rows(v, self._mesh) for k, v in traj.items()}
         if traj is None:
             traj = self.generate_trajectories(self.batch_size)
             if self.cache_data:
-                self._save_batch_to_cache(traj)
+                whole = traj if self._mesh is None else self._whole(traj)
+                if self._mesh is None or torch.distributed.get_rank() == 0:
+                    self._save_batch_to_cache(whole)
         self._traj = traj
         self._unused = list(range(int(traj["loc"].shape[1]) - 1))
 
@@ -260,8 +298,11 @@ class GravityDatasetOtf:
         )
 
     def get_ground_truth_trajectories(self, batch_size: Optional[int] = None):
-        """Fresh GT rollout targets ``(loc, vel, force, mass)``; never cached."""
+        """Fresh GT rollout targets ``(loc, vel, force, mass)``, the whole batch
+        on every rank; never cached."""
         traj = self.generate_trajectories(batch_size or self.batch_size)
+        if self._mesh is not None and traj["loc"].shape[0] != (batch_size or self.batch_size):
+            traj = self._whole(traj)
         return traj["loc"], traj["vel"], traj["force"], traj["mass"]
 
     # ---------------------------------------------------------------- metadata

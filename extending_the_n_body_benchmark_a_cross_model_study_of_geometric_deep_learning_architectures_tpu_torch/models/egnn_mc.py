@@ -36,7 +36,16 @@ elementwise stack in bf16.
 (``torch.utils.checkpoint``, the JAX model's ``nn.remat`` of its scanned
 block): the same numbers for less activation memory.
 
-Not ported yet, and refused: ``body_ring`` (multi-GPU) and ``fc_fast``.
+``body_ring=True`` is the body-sharded ring (``parallel/ring_egnn.py``, the
+JAX model's ``body_ring``): the forward runs on this rank's block of bodies
+and takes the ``body`` group as ``forward(..., ring=group)``
+(``parallel.sharded.make_body_ring_rollout_fn`` passes it); the edge stage
+featurises from the O(N) node data, as the streaming one does, over fully
+connected graphs (no mask), in plain PyTorch with silu, under
+``torch.no_grad()`` (a body-sharded training step is not ported).  The
+parameter tree is the dense model's.
+
+Not ported, and refused: ``fc_fast``.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ from ..core import graph as G
 from ..core.scene import Scene
 from ..ops import egnn_messages as EM
 from ..ops import egnn_stream as ES
+from ..parallel.ring_egnn import ring_edge_stage
 from .common import (
     MLP,
     TorchLinear,
@@ -62,10 +72,7 @@ from .common import (
 
 EDGE_IMPLS = ("kernel", "dense")
 
-_LATER = {
-    "fc_fast": "ROADMAP.md, queue 1 (fc_fast dense path)",
-    "body_ring": "ROADMAP.md, queue 1 (multi-GPU)",
-}
+_LATER = {"fc_fast": "ROADMAP.md, queue 1 (fc_fast dense path)"}
 
 
 class EGNNBlock(nn.Module):
@@ -85,6 +92,7 @@ class EGNNBlock(nn.Module):
         tanh: bool = False,
         streaming: bool = False,
         elem_bf16: bool = False,
+        body_ring: bool = False,
     ):
         super().__init__()
         H, He, Hc = hidden_node_dim, hidden_edge_dim, hidden_coord_dim
@@ -110,6 +118,7 @@ class EGNNBlock(nn.Module):
         self.tanh = tanh
         self.streaming = streaming
         self.elem_bf16 = elem_bf16
+        self.body_ring = body_ring
 
     def node_terms(self, h):
         """``hA = h W1[:H] + b1`` (receiver term) and ``hB = h W1[H:2H]`` (sender term),
@@ -153,12 +162,19 @@ class EGNNBlock(nn.Module):
         return G.masked_segment_mean(m_ij, mask), G.masked_segment_mean(trans, mask)
 
     def forward(self, h, coord, velocity, edge_attr, mask,
-                edge_impl: str = "kernel") -> Tuple[torch.Tensor, torch.Tensor]:
+                edge_impl: str = "kernel", ring=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """``h [B,N,H]``, ``coord``/``velocity [B,N,3]``, ``mask [B,N,N]``, and
-        ``edge_attr [B,N,N,E]`` -- or, under ``streaming``, the scene's
-        ``(pos [B,N,3], mass [B,N,1])`` -> ``(h, coord)``.  ``edge_impl`` picks
-        the dense edge stage's form (``"kernel"`` or ``"dense"``)."""
-        if edge_impl == "dense":
+        ``edge_attr [B,N,N,E]`` -- or, under ``streaming`` and ``body_ring``, the
+        scene's ``(pos [B,N,3], mass [B,N,1])`` -> ``(h, coord)``.  ``edge_impl``
+        picks the dense edge stage's form (``"kernel"`` or ``"dense"``);
+        ``ring`` is the ``body`` group of ``body_ring``."""
+        if self.body_ring:
+            pos0, mass = edge_attr
+            hA, hB = self.node_terms(h)
+            agg, trans = ring_edge_stage(hA, hB, pos0, velocity, mass, coord,
+                                         *self.edge_weights(h.dtype), tanh=self.tanh,
+                                         norm_diff=self.norm_diff, group=ring)
+        elif edge_impl == "dense":
             agg, trans = self.dense_edge_stage(h, coord, edge_attr, mask)
         elif self.streaming:
             pos0, mass = edge_attr
@@ -221,12 +237,15 @@ class EGNNMC(nn.Module):
         super().__init__()
         self.init_kwargs = {k: v for k, v in locals().items()
                             if k not in ("self", "__class__")}
-        for name, value in (("body_ring", body_ring), ("fc_fast", fc_fast)):
-            if value:
-                raise NotImplementedError(f"EGNNMC({name}=...) is not ported yet: {_LATER[name]}")
+        if fc_fast:
+            raise NotImplementedError(
+                f"EGNNMC(fc_fast=...) is not ported yet: {_LATER['fc_fast']}")
+        if body_ring and activation != "silu":
+            raise ValueError(f"body_ring computes its edge MLP with silu, not {activation!r}")
         if compute_dtype not in ("", "float32", "bfloat16"):
             raise ValueError(f"compute_dtype {compute_dtype!r}: '', 'float32' or 'bfloat16'")
         self.streaming = streaming
+        self.body_ring = body_ring
         self.edge_impl = self._check_impl(edge_impl)
         H = hidden_node_dim
         self.hidden_node_dim = H
@@ -235,7 +254,8 @@ class EGNNMC(nn.Module):
         self.embedding = TorchLinear(node_input_dim, H)
         self.layers = nn.ModuleList(
             EGNNBlock(H, hidden_edge_dim, hidden_coord_dim, edge_attr_dim, activation,
-                      coords_weight, recurrent, norm_diff, tanh, streaming, stream_elem_bf16)
+                      coords_weight, recurrent, norm_diff, tanh, streaming, stream_elem_bf16,
+                      body_ring)
             for _ in range(num_layers)
         )
         self.heads = nn.ModuleList(
@@ -264,10 +284,21 @@ class EGNNMC(nn.Module):
                              "as the JAX model streams only through its Pallas kernel")
         return edge_impl
 
-    def forward(self, scene: Scene, mask: torch.Tensor,
-                edge_impl: Optional[str] = None) -> torch.Tensor:
+    def forward(self, scene: Scene, mask: Optional[torch.Tensor],
+                edge_impl: Optional[str] = None, ring=None) -> torch.Tensor:
+        """``ring``: the ``body`` process group of a ``body_ring`` model, whose
+        ``scene`` is this rank's block of bodies and whose ``mask`` is unused
+        (fully connected)."""
         impl = self.edge_impl if edge_impl is None else self._check_impl(edge_impl)
-        if self.streaming:  # the edge kernel featurises from the O(N) node data
+        if self.body_ring:
+            if ring is None:
+                raise ValueError("a body_ring model runs inside a ring: pass forward(..., "
+                                 "ring=<the body group>), as make_body_ring_rollout_fn does")
+            if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
+                raise NotImplementedError("a body-sharded training step is not ported yet "
+                                          "(ROADMAP.md, queue 1 item 9): run the ring under "
+                                          "torch.no_grad()")
+        if self.streaming or self.body_ring:  # the edge stage featurises from the node data
             speed = torch.linalg.vector_norm(scene.vel, dim=-1, keepdim=True)
             x, edge_attr = torch.cat([speed, scene.mass], dim=-1), (scene.pos, scene.mass)
         else:
@@ -276,13 +307,13 @@ class EGNNMC(nn.Module):
         if self.compute_dtype is not None:
             h = h.to(self.compute_dtype)
         coord = scene.pos
-        maskf = mask.to(scene.dtype)  # converted once for all layers
+        maskf = None if self.body_ring else mask.to(scene.dtype)  # converted once for all layers
         for layer in self.layers:
             if self.remat and torch.is_grad_enabled():
-                h, coord = checkpoint(layer, h, coord, scene.vel, edge_attr, maskf, impl,
+                h, coord = checkpoint(layer, h, coord, scene.vel, edge_attr, maskf, impl, ring,
                                       use_reentrant=False)
             else:
-                h, coord = layer(h, coord, scene.vel, edge_attr, maskf, impl)
+                h, coord = layer(h, coord, scene.vel, edge_attr, maskf, impl, ring)
         head_in = torch.cat([h.to(coord.dtype), coord - scene.pos, scene.vel], dim=-1)
         return torch.cat([head(head_in) for head in self.heads], dim=-1)
 

@@ -14,7 +14,11 @@ wait on the device inside the loop.  Semantics kept:
   EquiformerV2) draws fresh masks every step, from one ``torch.Generator``
   on the scene's device seeded with the rollout's integer ``rng`` (0 without
   one): the same seed gives the same rollout, bit for bit, though not the
-  JAX package's stream.
+  JAX package's stream;
+* ``run_self_feed(..., mesh=...)`` shards the sims over the mesh's ``sim``
+  axis where the batch divides by it (``parallel.sharded.
+  make_sharded_rollout_fn``: each rank its rows, then gathered), else every
+  rank rolls out the whole batch.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from ..core import graph as G
 from ..core.scene import Scene
 from ..core.targets import decode_next_state
 from ..models import generator_kwargs
+from ..parallel.mesh import SIM_AXIS, axis_size
+from ..parallel.sharded import make_sharded_rollout_fn
 
 EXPLOSION_THRESHOLD = 1e9
 
@@ -94,6 +100,7 @@ def run_self_feed(
     batch_size: Optional[int] = None,
     train_mode: bool = False,
     rng=None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """Checkpoint evaluation against fresh ground truth: draw GT trajectories,
     seed the model with frame 0 and roll forward.
@@ -102,7 +109,9 @@ def run_self_feed(
     else ``model.eval()``), as the JAX package's rollout does: a model with
     dropout (GraphTransformer, EquiformerV2) then draws fresh masks every step,
     from a generator seeded with the integer ``rng`` (0 for None); a model
-    without dropout gives the same numbers in either mode.
+    without dropout gives the same numbers in either mode.  ``mesh`` (a
+    ``parallel.mesh.make_mesh``) shards the sims over its ``sim`` axis where
+    the batch divides by it; every rank then returns the whole batch.
 
     Returns ``(loc_actual, vel_actual, loc_pred, vel_pred, steps_survived)``
     with ``[B, T, N, 3]`` tensors and the minimum over sims of ``survived``.
@@ -114,6 +123,9 @@ def run_self_feed(
         T = num_steps
         loc_gt, vel_gt = loc_gt[:, :T], vel_gt[:, :T]
     scene0 = Scene(pos=loc_gt[:, 0], vel=vel_gt[:, 0], force=force_gt[:, 0], mass=mass)
-    fn = make_rollout_fn(model, T, num_neighbors=num_neighbors, target=dataset.target)
+    if mesh is not None and scene0.pos.shape[0] % axis_size(mesh, SIM_AXIS) == 0:
+        fn = make_sharded_rollout_fn(model, T, mesh, num_neighbors, target=dataset.target)
+    else:
+        fn = make_rollout_fn(model, T, num_neighbors=num_neighbors, target=dataset.target)
     loc_pred, vel_pred, survived = fn(scene0, rng)
     return loc_gt, vel_gt, loc_pred, vel_pred, int(survived.min())

@@ -25,13 +25,27 @@ carries, never on the kNN mask; it has no ground-truth trajectories, so its
 run cannot score itself by self-feed (set ``test_macros_every`` past the
 run's epochs).  A model with live dropout (GraphTransformer,
 EquiformerV2) draws each step's masks from one ``torch.Generator`` on the
-device, seeded with the run's ``seed`` (0 without one), where the JAX trainer
-splits a key a step: the streams differ, and the same seed gives the same
-run.  Not ported yet, and refused: the multi-device
-mesh.  On the card the edge kernel K1 and the GT
-integrator compute float32 (K1 also bf16 operands in the mixed model), so a
-``double``, ``bfloat16`` or ``autocast`` run there needs the model's
-``edge_impl="dense"``.
+device, seeded with the run's ``seed`` (0 without one; plus the rank in a
+data-parallel run), where the JAX trainer splits a key a step: the streams
+differ, and the same seed gives the same run.
+
+**Several ranks** (a ``torch.distributed`` group of world size K > 1, as
+``torchrun`` or ``parallel.launch.spawn_ranks`` sets up; the JAX trainer's
+mesh, ``train/trainer.py:100-114``): with ``data_parallel`` on and the
+batch divisible by K, the run is data parallel over the sims
+(``parallel.sharded``).  Every rank draws the same whole batch (the
+dataset's generator and frame order are the first rank's) and trains its
+B/K rows; one ``all_reduce`` a step averages the gradients, so the
+clipping, the skip of a non-finite update and AdamW run on the same numbers
+everywhere; the evaluation rollout shards the sims (``run_self_feed(...,
+mesh=...)``) and the first rank scores it and hands the outcome to the
+others.  Otherwise every rank trains the whole batch (a line says which).
+Either way only the first rank writes: the run dir, logs, checkpoints,
+evaluation artifacts and the GT cache.
+
+On the card the edge kernel K1 and the GT integrator compute float32 (K1
+also bf16 operands in the mixed model), so a ``double``, ``bfloat16`` or
+``autocast`` run there needs the model's ``edge_impl="dense"``.
 """
 
 from __future__ import annotations
@@ -57,6 +71,8 @@ from ..metrics.ks import fisher_combine, ks_p
 from ..models import count_params, create_model, has_edge_stage, needs_generator
 from ..models.ponita import calibrate_params
 from ..ops import _build
+from ..parallel import mesh as pmesh
+from ..parallel.sharded import make_sharded_train_step, shard_scene
 from ..rollout.self_feed import run_self_feed
 from ..utils.config import save_config
 from ..weights import opt_state_from_jax, params_from_jax, params_to_jax
@@ -105,7 +121,7 @@ def matmul_precision(precision: Optional[str]):
 
 def make_train_step(model, optim: NoamAdamW, loss_fn, targets, num_neighbors: int,
                     dtype: torch.dtype, abort_on_nan: bool = False,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None, group=None):
     """``(step, metric_names)``: ``step(scene, y, mask=None)`` takes one
     optimizer step on ``mask`` (the ``num_neighbors`` nearest bodies where
     None) (through the dense edge stage, for a model with one) and returns the
@@ -113,7 +129,12 @@ def make_train_step(model, optim: NoamAdamW, loss_fn, targets, num_neighbors: in
     (float32, on the device); ``metric_names`` fills at the first call.
     ``abort_on_nan`` skips an update whose prediction is not finite, decided
     on the device.  ``generator`` draws the dropout masks of a model that has
-    live dropout in training mode."""
+    live dropout in training mode.  ``group`` (data parallel: each rank's
+    ``scene`` its rows) averages the gradients, the metric vector and the
+    non-finite flag over its ranks before the update
+    (``parallel.sharded.average_step``)."""
+    from ..parallel.sharded import average_step
+
     metric_names: list = []
     dense = {"edge_impl": "dense"} if has_edge_stage(model) else {}
 
@@ -127,11 +148,14 @@ def make_train_step(model, optim: NoamAdamW, loss_fn, targets, num_neighbors: in
         loss, terms = loss_fn(pred, scene, y)
         optim.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        optim.update(torch.isfinite(pred).all() if abort_on_nan else None)
+        ok = torch.isfinite(pred).all() if abort_on_nan else None
         with torch.no_grad():
             perc = percentage_errors(pred, y, targets)
             vec = torch.stack([loss.float()] + [terms[n].float() for n in sorted(terms)]
                               + [perc[n].float() for n in sorted(perc)])
+            if group is not None:
+                vec, ok = average_step(list(model.parameters()), vec, ok, group)
+        optim.update(ok)
         if not metric_names:
             metric_names.extend(["loss"] + sorted(terms) + sorted(perc))
         return vec
@@ -175,16 +199,27 @@ class Trainer:
         # always set: the flags are process-global, so an earlier Trainer in
         # this process must not leak its precision into this one
         set_matmul_precision(getattr(args, "matmul_precision", None))
+        self.world = torch.distributed.get_world_size() if _group_up() else 1
+        self.writes = self.world == 1 or torch.distributed.get_rank() == 0
+        self.mesh = self._data_parallel_mesh()
+        # the dataset serves this rank's rows itself, or the trainer takes them
+        self._rows = None
+        if self.mesh is not None:
+            if hasattr(dataset, "shard"):
+                dataset.shard(self.mesh)
+            else:
+                self._rows = self.mesh
 
         # the JAX trainer draws one batch to initialise its parameters, and
         # calibrates PONITA's on it; this draw keeps the frame order (and an
         # offline dataset's numpy stream) the same.  A batch of three items
         # carries its mask: the run's steps read their masks from the data
-        batch0 = dataset.get_batch()
+        batch0 = self._next_batch()
         self._data_masks = len(batch0) == 3
         if args.model_type == "ponita":
-            scene0 = batch0[0].astype(self.dtype)
-            mask0 = batch0[2] if self._data_masks else G.knn_mask(scene0.pos, self.num_neighbors)
+            scene0 = self._whole_batch(batch0[0]).astype(self.dtype)
+            mask0 = (self._whole_batch(batch0[2]) if self._data_masks
+                     else G.knn_mask(scene0.pos, self.num_neighbors))
             calibrate_params(model, scene0, mask0)
         del batch0
         # the JAX trainer's count: every leaf of its params tree, PONITA's
@@ -201,35 +236,78 @@ class Trainer:
             discard_nan_gradients=args.discard_nan_gradients,
         )
         self.loss_fn = build_loss_fn(args)
-        # the dropout masks' stream (the JAX trainer's PRNGKey(seed))
+        # the dropout masks' stream (the JAX trainer's PRNGKey(seed)); a rank's own
         seed = args.seed if getattr(args, "seed", None) is not None else 0
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.generator.manual_seed(seed + (torch.distributed.get_rank() if self.mesh else 0))
         self.step_count = 0  # counts finished epochs
         self.best_metrics: Dict[str, float] = {}
 
         ts = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
         suffix = "" if args.run_name is None else f"__{args.run_name}"
         self.save_dir_path = os.path.join("runs", args.model_type, f"{ts}{suffix}")
-        os.makedirs(self.save_dir_path, exist_ok=True)
-        self.logger = MetricsLogger(self.save_dir_path)
-        if resolved_config is not None:
-            save_config(resolved_config, self.save_dir_path)
-        self._save_run_artifacts()
+        if self.world > 1:  # the first rank's, which alone writes there
+            self.save_dir_path = pmesh.broadcast_object(self.save_dir_path)
+        if self.writes:
+            os.makedirs(self.save_dir_path, exist_ok=True)
+            self.logger = MetricsLogger(self.save_dir_path)
+            if resolved_config is not None:
+                save_config(resolved_config, self.save_dir_path)
+            self._save_run_artifacts()
+        else:
+            self.logger = _NoLogger()
         if args.model_path:
             self.load_model_from_checkpoint(args.model_path)
+        if self.mesh is not None:  # every rank starts from the first rank's parameters
+            pmesh.replicate(list(model.state_dict().values()))
 
-        self._train_step, self._metric_names = make_train_step(
-            model, self.optim, self.loss_fn, self.targets, self.num_neighbors, self.dtype,
-            getattr(args, "abort_on_nan_activations", False), self.generator)
+        step_args = (model, self.optim, self.loss_fn, self.targets, self.num_neighbors)
+        step_kw = dict(abort_on_nan=getattr(args, "abort_on_nan_activations", False),
+                       generator=self.generator)
+        if self.mesh is not None:
+            self._train_step, self._metric_names = make_sharded_train_step(
+                *step_args, mesh=self.mesh, dtype=self.dtype, **step_kw)
+        else:
+            self._train_step, self._metric_names = make_train_step(*step_args, self.dtype,
+                                                                   **step_kw)
+
+    def _data_parallel_mesh(self):
+        """The ``(sim, body=1)`` mesh of a data-parallel run, or None: data
+        parallel when ``data_parallel`` is on, a group of K > 1 ranks is up and
+        the batch divides by K; a line says which."""
+        if self.world == 1:
+            return None
+        a = self.args
+        backend = torch.distributed.get_backend()
+        if getattr(a, "data_parallel", True) and a.batch_size % self.world == 0:
+            print(f"Data-parallel over {self.world} ranks (sim axis, {backend})")
+            return pmesh.make_mesh(self.world)
+        why = ("data_parallel is off" if not getattr(a, "data_parallel", True)
+               else f"batch {a.batch_size} does not divide by {self.world}")
+        print(f"Not data-parallel ({why}): each of the {self.world} ranks ({backend}) trains "
+              "the whole batch; the first rank writes")
+        return None
+
+    def _next_batch(self):
+        """The next training batch: this rank's rows of it in a data-parallel run."""
+        batch = self.dataset.get_batch()
+        if self._rows is None:
+            return batch
+        return (shard_scene(batch[0], self._rows),
+                *(pmesh.local_rows(x, self._rows) for x in batch[1:]))
+
+    def _whole_batch(self, x):
+        """A tensor or scene of this rank's rows gathered back to the whole batch."""
+        if self.mesh is None:
+            return x
+        group = pmesh.axis_group(self.mesh, pmesh.SIM_AXIS)
+        if isinstance(x, Scene):
+            return Scene(*(None if t is None else pmesh.all_gather_rows(t, group)
+                           for t in (x.pos, x.vel, x.force, x.mass, x.charge)))
+        return pmesh.all_gather_rows(x, group)
 
     def _refuse_what_is_not_ported(self) -> None:
         a = self.args
-        if (getattr(a, "data_parallel", True) and self.device.type == "cuda"
-                and torch.cuda.device_count() > 1):
-            raise NotImplementedError(
-                "data parallel training over several cards is not ported yet (ROADMAP.md, queue "
-                "1 item 9): make one card visible, or set --trainer.data_parallel false")
         on_card = _build.wants_kernel(torch.empty(0, device=self.device))
         if (on_card and self.dtype != torch.float32 and has_edge_stage(self.model)
                 and self.model.edge_impl != "dense"):
@@ -244,6 +322,8 @@ class Trainer:
         write_run_files(self.save_dir_path, self.args, self.model, self.dataset)
 
     def save_model(self, filename: str = "model.ckpt", final: bool = False):
+        if not self.writes:  # only the first rank writes
+            return os.path.join(self.save_dir_path, filename)
         names = [n for n, _ in self.model.named_parameters()]
         state = self.model.state_dict()
 
@@ -291,7 +371,8 @@ class Trainer:
         """Parameters, AdamW's count and moments (and with the count the Noam
         schedule), the epoch count and best metrics of a checkpoint, the JAX
         package's or the port's."""
-        self._model_restoring_links(path)
+        if self.writes:
+            self._model_restoring_links(path)
         ckpt = load_checkpoint(path)
         load_training_state(self.model, self.optim, ckpt, self.args.model_type)
         self.step_count = ckpt.get("step_count", 0)
@@ -309,6 +390,8 @@ class Trainer:
             mask = G.knn_mask(scene.pos, self.num_neighbors)
         stats = layer_stats.capture(self.model, scene, mask)
         record = layer_stats.record(self.step_count, stats)
+        if not self.writes:
+            return record
         with open(os.path.join(self.save_dir_path, "layer_stats.jsonl"), "a") as f:
             f.write(json.dumps(record) + "\n")
         return record
@@ -320,12 +403,12 @@ class Trainer:
         stats_every = getattr(self.args, "debug_layer_stats_every", None)
         vecs = []  # per-step metric vectors, on the device until the epoch ends
         for step_i in range(n_steps):
-            batch = self.dataset.get_batch()  # (scene, y), or (scene, y, mask)
+            batch = self._next_batch()  # (scene, y), or (scene, y, mask)
             scene = batch[0]
             if stats_every and step_i % int(stats_every) == 0:
                 self.log_layer_stats(scene.astype(self.dtype), *batch[2:])
             vecs.append(self._train_step(*batch))
-            examples += scene.pos.shape[0]
+            examples += scene.pos.shape[0] * (1 if self.mesh is None else self.world)
         arr = torch.stack(vecs).cpu().numpy()  # the epoch's one fetch
         dt = time.time() - t_epoch
         epoch_means = np.nanmean(arr, axis=0)
@@ -351,6 +434,8 @@ class Trainer:
         if prof is None:
             return
         prof.stop()
+        if not self.writes:
+            return
         out = os.path.join(self.save_dir_path, "profile")
         os.makedirs(out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out, "trace.json"))
@@ -424,6 +509,8 @@ class Trainer:
         if log["valid/loss"] < self.best_metrics.get("valid_loss", float("inf")):
             self.best_metrics["valid_loss"] = log["valid/loss"]
             self.save_model(filename="model_best_valid_loss.ckpt")
+        if self.world > 1:  # every rank keeps the first rank's decisions
+            self.best_metrics = pmesh.broadcast_object(self.best_metrics)
         return log
 
     # ------------------------------------------------------------- self-feed
@@ -433,7 +520,7 @@ class Trainer:
         parameters; writes the artifacts into ``checkpoints/<epoch>``."""
         print(f"Running self feed (epoch {self.step_count - 1})")
         save_dir = os.path.join(self.save_dir_path, "checkpoints", str(self.step_count))
-        if getattr(self.args, "save_checkpoint_params", False):
+        if getattr(self.args, "save_checkpoint_params", False) and self.writes:
             os.makedirs(save_dir, exist_ok=True)
             self.save_model(filename=os.path.join("checkpoints", str(self.step_count), "model.ckpt"))
         if not hasattr(self.dataset, "get_ground_truth_trajectories"):
@@ -449,7 +536,27 @@ class Trainer:
                 num_neighbors=None,  # the rollout is fully connected
                 train_mode=getattr(self.args, "self_feed_train_mode", True),
                 rng=self.step_count,
+                mesh=self.mesh,  # the sims sharded in a data-parallel run
             )
+        if self.world == 1:
+            return self._score_self_feed(save_dir, loc_gt, vel_gt, loc_pred, vel_pred, survived)
+        # the first rank scores; every rank keeps its outcome (or its failure)
+        outcome = None
+        if self.writes:
+            try:
+                outcome = self._score_self_feed(save_dir, loc_gt, vel_gt, loc_pred, vel_pred,
+                                                survived)
+            except Exception as e:  # handed to every rank, raised below on each
+                traceback.print_exc()
+                outcome = e
+        outcome, self.best_metrics = pmesh.broadcast_object((outcome, self.best_metrics))
+        if isinstance(outcome, Exception):
+            raise RuntimeError(f"scoring the self-feed failed on the first rank: {outcome!r}")
+        return outcome
+
+    def _score_self_feed(self, save_dir, loc_gt, vel_gt, loc_pred, vel_pred, survived) -> int:
+        """Macro and energy KS of a rollout, its artifacts in ``save_dir``, the
+        best-checkpoint decision; returns ``survived``."""
         per_macro, macro_combined, _, _ = artifacts.evaluate_rollout(
             save_dir,
             loc_gt,
@@ -522,6 +629,20 @@ class Trainer:
         print(f"Self feed: survived={survived} "
               f"macro_combined_p={macro_combined:.3e} energy_combined_p={energy_combined:.3e}")
         return int(survived)
+
+
+def _group_up() -> bool:
+    return torch.distributed.is_available() and torch.distributed.is_initialized()
+
+
+class _NoLogger:
+    """The logger of a rank that does not write."""
+
+    def log(self, payload) -> None:
+        pass
+
+    def alert(self, title: str, text: str) -> None:
+        pass
 
 
 def create_trainer_from_args(args, resolved_config=None, device="cuda") -> Trainer:

@@ -156,7 +156,7 @@ def test_run_self_feed_on_fresh_ground_truth():
         GravityDatasetOtf(target="nope", device="cpu")
 
 
-@pytest.mark.parametrize("option", [dict(body_ring=True), dict(fc_fast=True)])
+@pytest.mark.parametrize("option", [dict(fc_fast=True)])
 def test_options_not_in_this_slice_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_model("egnn_mc", device="cpu", **SMALL, **option)
