@@ -347,7 +347,19 @@ bf16, coordinates, geometry and integration in f32):
                    K2's tolerance; 20 steps of the committed checkpoint as
                    EGNNMC(body_ring=True) against the single-process plain dense
                    rollout of the same frame (YARDSTICK), survived per sim equal;
-                   each rank's peak memory beside the dense path's
+                   each rank's peak memory beside the dense path's; then, in the
+                   same ranks, the body-sharded training step: a GT batch at
+                   B=8, N=100 from sharded_datagen (1 K2-leapfrog launch a rank,
+                   its rows bitwise the single-process batch's), one step of the
+                   committed checkpoint's training state on the fully connected
+                   mask and one on a k=50 mask (make_sharded_train_step(...,
+                   shard_bodies=True): receiver rows against gathered senders)
+                   within [train]'s gates of the single-process card step, the
+                   ranks' parameters bitwise equal, and one backward of
+                   EGNNMC(body_ring=True) whose gradient, summed over the ranks,
+                   is within [train]'s parameter gate of the dense model's; step
+                   ms and peak memory a rank beside the single-process step's;
+                   0 card tensors among every rank's gloo collectives
 
 Each phase prints one line with its result and elapsed seconds, and
 ``[launch-probe]`` lines give the host's microseconds a tiny op at a few
@@ -808,6 +820,18 @@ DP_ARGV = ["--dataloader.batch_size", str(DP_B),
 # [ring]: RING_RANKS ranks on a (sim, body) = (2, 2) mesh at [bign-rollout]'s
 # workload (B=8, N=512: 4 sims and 256 bodies a rank), RING_STEPS steps
 RING_RANKS, RING_BODY, RING_STEPS = 4, 2, 20
+# [ring]'s training steps (shard_bodies=True) in the same ranks: a GT batch of
+# RING_TRAIN_B sims at N=100 (RING_TRAIN_SUBSTEPS substeps from
+# RING_TRAIN_SEED), the training pair at frame RING_TRAIN_FRAME, one step on
+# the fully connected mask and one on a kNN mask of RING_TRAIN_KNN.  The
+# checkpoint was trained fully connected: on a much sparser mask (k=10) its
+# loss runs away, AdamW's update turns into the gradient's signs, and f32
+# rounding sets the signs of the gradients near 0, so the step would test
+# conditioning, not the sharding; at k=50 the step is as well conditioned
+# as the fully connected one
+RING_TRAIN_B, RING_TRAIN_SUBSTEPS, RING_TRAIN_FRAME = 8, 200, 5
+RING_TRAIN_KNN, RING_TRAIN_SEED = 50, 65
+RING_TRAIN_CASES = (("fc", N - 1), ("knn", RING_TRAIN_KNN))
 # a rank that has not finished by then fails its phase (and each group's
 # collectives time out after it too)
 RANK_TIMEOUT_S = 300.0
@@ -1058,10 +1082,114 @@ def _dp_rank(rank: int, argv, root: str) -> dict:
     return rec
 
 
+def _train_pair(Scene, loc, vel, force, mass):
+    """[ring]'s training pair (``pos_dt+vel``) at RING_TRAIN_FRAME of a GT batch."""
+    import torch
+
+    f = RING_TRAIN_FRAME
+    y = torch.cat([loc[:, f + 1] - loc[:, f], vel[:, f + 1]], dim=-1)
+    return Scene(pos=loc[:, f], vel=vel[:, f], force=force[:, f], mass=mass), y
+
+
+def _ring_weights(dev):
+    """The weights ``w [RING_TRAIN_B, N, 6]`` of the ring's backward, ``sum(pred * w)``."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(RING_TRAIN_SEED + 1)
+    return torch.randn((RING_TRAIN_B, N, 6), generator=g, device=dev)
+
+
+def _train_setup(model, payload):
+    """An optimizer and loss for [ring]'s training steps, the default
+    config's; ``load`` puts the committed checkpoint's parameters and AdamW
+    state (``payload``) into the model and the optimizer, as often as a step
+    needs them anew."""
+    import importlib
+
+    trainer_mod = importlib.import_module(f"{PKG}.train.trainer")
+    args, _ = importlib.import_module(f"{PKG}.utils.config").parse_args([])
+    optim = trainer_mod.create_optimizer(
+        model.parameters(), learning_rate=args.learning_rate, model_size=model.get_model_size(),
+        factor=args.learning_rate_factor, warmup=args.learning_rate_warmup_steps,
+        clip_value=args.clip_gradients_value, clip_norm=args.clip_gradients_norm,
+        discard_nan_gradients=args.discard_nan_gradients)
+    loss_fn = importlib.import_module(f"{PKG}.train.losses").build_loss_fn(args)
+
+    def load():
+        trainer_mod.load_training_state(model, optim, payload, "egnn_mc")
+
+    return optim, loss_fn, args.target.split("+"), load
+
+
+def _timed_step(step, scene, y, dev) -> dict:
+    """One step's ms, its peak MiB above its start and its loss."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.memory_allocated(dev)
+    t = time.perf_counter()
+    vec = step(scene, y)
+    torch.cuda.synchronize(dev)
+    return {"ms": (time.perf_counter() - t) * 1e3,
+            "peak_mib": (torch.cuda.max_memory_allocated(dev) - start) / 2**20,
+            "loss": float(vec[0])}
+
+
+def _ring_train(dev, mods, mesh, ring_model, params) -> dict:
+    """A [ring] rank's training work: its rows of a GT batch from
+    sharded_datagen, the body-sharded step from the committed checkpoint on
+    each of RING_TRAIN_CASES (ms, peak MiB, loss, parameters after), and its
+    share of the ring model's gradient of ``sum(pred * w)``; the kernel
+    launches of all of it."""
+    import importlib
+
+    import torch
+
+    par = importlib.import_module(f"{PKG}.parallel")
+    pmesh = importlib.import_module(f"{PKG}.parallel.mesh")
+    models = importlib.import_module(f"{PKG}.models")
+    Scene = importlib.import_module(f"{PKG}.core.scene").Scene
+    before = _kernel_counts(mods)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(RING_TRAIN_SEED)
+    gt = par.sharded_datagen(gen, mesh, RING_TRAIN_B, N, T=RING_TRAIN_SUBSTEPS,
+                             sample_freq=SAMPLE_FREQ, params=params, device=dev)
+    scene, y = _train_pair(Scene, *gt)
+    body = pmesh.axis_rows(N, mesh, pmesh.BODY_AXIS)
+    rows = Scene(*(t[:, body] for t in (scene.pos, scene.vel, scene.force, scene.mass)))
+    out = {"gt": tuple(t.cpu() for t in gt), "steps": {}}
+    marks = {"gt": time.perf_counter()}
+    model = models.create_model("egnn_mc", device=dev)
+    optim, loss_fn, targets, load = _train_setup(
+        model, importlib.import_module(f"{PKG}.weights").read_checkpoint(CKPT))
+    marks["setup"] = time.perf_counter()
+    for tag, k in RING_TRAIN_CASES:
+        load()
+        step, _ = par.make_sharded_train_step(model, optim, loss_fn, targets, k, mesh,
+                                              torch.float32, shard_bodies=True)
+        rec = _timed_step(step, rows, y[:, body], dev)
+        rec["params"] = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+        out["steps"][tag] = rec
+        marks[tag] = time.perf_counter()
+    del model, optim, step
+    w = pmesh.local_rows(_ring_weights(dev), mesh, shard_bodies=True)
+    ring_model.zero_grad(set_to_none=True)
+    (ring_model(rows, None, ring=pmesh.axis_group(mesh, pmesh.BODY_AXIS)) * w).sum().backward()
+    out["ring_grads"] = {n: p.grad.cpu() for n, p in ring_model.named_parameters()}
+    torch.cuda.synchronize(dev)
+    marks["ring_backward"] = time.perf_counter()
+    after = _kernel_counts(mods)
+    out["counts"] = {k: after[k] - before[k] for k in after}
+    out["seconds"] = {k: v - t0 for k, v in marks.items()}
+    return out
+
+
 def _ring_rank(rank: int, scene0, state, frames: int) -> dict:
     """A [ring] rank on the (2, 2) mesh: the ring force at ``scene0`` and the
     body-ring rollout of ``frames`` frames from it, this rank's blocks, its
-    peak memory above its start and its seconds."""
+    peak memory above its start and its seconds; then its training work
+    (``_ring_train``)."""
     import importlib
 
     import torch
@@ -1094,12 +1222,13 @@ def _ring_rank(rank: int, scene0, state, frames: int) -> dict:
     torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - t
     after = _kernel_counts(mods)
+    peak_mib = (torch.cuda.max_memory_allocated(dev) - start) / 2**20
+    train = _ring_train(dev, mods, mesh, model, params)
     return {"coord": (mesh.get_local_rank("sim"), mesh.get_local_rank("body")),
             "acc": acc.cpu(), "loc": loc.cpu(), "vel": vel.cpu(), "survived": surv.cpu(),
             "seconds": seconds, "force_s": force_s, "enter": t_enter, "end": time.time(),
-            "peak_mib": (torch.cuda.max_memory_allocated(dev) - start) / 2**20,
-            "backend": torch.distributed.get_backend(), "wire": wire,
-            "counts": {k: after[k] - before[k] for k in after}}
+            "peak_mib": peak_mib, "backend": torch.distributed.get_backend(), "wire": wire,
+            "counts": {k: after[k] - before[k] for k in after}, "train": train}
 
 
 def _against_single(tag: str, got_loc, single_loc, nudged_loc) -> dict:
@@ -1206,19 +1335,8 @@ def _dp_train_phase(dev) -> dict:
             sp, sp_optim, m["train.losses"].build_loss_fn(dp_args), dp_args.target.split("+"),
             N - 1, torch.float32)
         sp_step(Scene(pos=pos_, vel=vel_, force=force_, mass=mass_), y_)
-        p_err = up_err = 0.0
-        bad = []
-        for n, p in sp.named_parameters():
-            got, ref = ranks[0]["steps"][0]["params"][n], p.detach().cpu()
-            e = (got - ref).abs().max().item() / (ref.abs().max().item() or 1.0)
-            du = (ref - sp_before[n]).abs().max().item() or 1.0
-            u = ((got - sp_before[n]) - (ref - sp_before[n])).abs().max().item() / du
-            p_err, up_err = max(p_err, e), max(up_err, u)
-            if not (e <= TRAIN_PARAM_RTOL and u <= TRAIN_UPDATE_RTOL):
-                bad.append(f"{n} by {e:.3e} of its largest value, its update by {u:.3e}")
-        if bad:
-            fail("dp-train: the first step against the single-process step on the whole batch "
-                 f"(limits {TRAIN_PARAM_RTOL}, {TRAIN_UPDATE_RTOL}): " + "; ".join(bad))
+        p_err, up_err = _step_gate("dp-train: the first step", ranks[0]["steps"][0]["params"],
+                                   sp, sp_before)
         del sp, sp_optim, sp_before
         # the gathered evaluation rollout against the single-process one
         ev = ranks[0]["eval"]
@@ -1278,6 +1396,112 @@ def _dp_train_phase(dev) -> dict:
            **{f"step_ms_rank{r}": f"{sum(rec['step_ms'][1:]) / max(1, DP_STEPS - 1):.3f}"
               for r, rec in enumerate(ranks)})
     return parallel_counts
+
+
+def _step_gate(tag: str, got: dict, ref_model, before: dict):
+    """A sharded step's parameters ``got`` against the single-process step's
+    (``ref_model``'s) from the same ``before``: each within TRAIN_PARAM_RTOL of
+    its largest value and its update within TRAIN_UPDATE_RTOL of its largest
+    update.  Returns the largest of each error."""
+    p_err = up_err = 0.0
+    bad = []
+    for n, p in ref_model.named_parameters():
+        ref = p.detach().cpu()
+        e = (got[n] - ref).abs().max().item() / (ref.abs().max().item() or 1.0)
+        du = (ref - before[n]).abs().max().item() or 1.0
+        u = ((got[n] - before[n]) - (ref - before[n])).abs().max().item() / du
+        p_err, up_err = max(p_err, e), max(up_err, u)
+        if not (e <= TRAIN_PARAM_RTOL and u <= TRAIN_UPDATE_RTOL):
+            bad.append(f"{n} by {e:.3e} of its largest value, its update by {u:.3e}")
+    if bad:
+        fail(f"{tag} against the single-process step on the whole batch (limits "
+             f"{TRAIN_PARAM_RTOL}, {TRAIN_UPDATE_RTOL}): " + "; ".join(bad))
+    return p_err, up_err
+
+
+def _ring_train_phase(dev, ranks, state, m) -> dict:
+    """[ring]'s training checks in the parent: each rank's GT rows bitwise the
+    single-process batch's and its launches (one K2-leapfrog, nothing else),
+    each body-sharded step within [train]'s gates of the single-process card
+    step, the ranks' parameters bitwise equal, and the ring's gradient summed
+    over the ranks within TRAIN_PARAM_RTOL of the dense model's.  Returns the
+    report's fields."""
+    import importlib
+
+    import torch
+
+    models, Scene = m["models"], m["core.scene"].Scene
+    physics = importlib.import_module(f"{PKG}.core.physics")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(RING_TRAIN_SEED)
+    gt = physics.sample_trajectory_batch(
+        RING_TRAIN_B, N, T=RING_TRAIN_SUBSTEPS, sample_freq=SAMPLE_FREQ,
+        params=physics.GravityParams(interaction_strength=G_CONST, softening=SOFTENING),
+        device=dev, generator=gen)
+    rows = RING_TRAIN_B // (RING_RANKS // RING_BODY)
+    for rec in ranks:
+        tr, s = rec["train"], rec["coord"][0]
+        if not all(torch.equal(a, b[s * rows:(s + 1) * rows].cpu()) for a, b in zip(tr["gt"], gt)):
+            fail(f"ring: rank {rec['coord']}'s GT rows are not the single-process batch's")
+        want = dict.fromkeys(tr["counts"], 0)
+        want["leapfrog"] = 1
+        if tr["counts"] != want:
+            fail(f"ring: rank {rec['coord']}'s training work launched {tr['counts']}, want {want}")
+    scene, y = _train_pair(Scene, *gt)
+    fields = {}
+    marks = {"gt": time.perf_counter() - t0}
+    sp = models.create_model("egnn_mc", device=dev, edge_impl="dense")
+    optim, loss_fn, targets, load = _train_setup(sp, m["weights"].read_checkpoint(CKPT))
+    marks["setup"] = time.perf_counter() - t0
+    for tag, k in RING_TRAIN_CASES:
+        got = [rec["train"]["steps"][tag] for rec in ranks]
+        if not all(torch.equal(g["params"][n], got[0]["params"][n])
+                   for g in got[1:] for n in got[0]["params"]):
+            fail(f"ring: the ranks' parameters differ after the {tag} step")
+        load()
+        before = {n: p.detach().cpu().clone() for n, p in sp.named_parameters()}
+        step, _ = m["train.trainer"].make_train_step(sp, optim, loss_fn, targets, k,
+                                                      torch.float32)
+        single = _timed_step(step, scene, y, dev)
+        p_err, up_err = _step_gate(f"ring: the body-sharded {tag} step", got[0]["params"], sp,
+                                   before)
+        ms = max(g["ms"] for g in got)
+        peak = max(g["peak_mib"] for g in got)
+        print(f"  ring train {tag} (k={k}): loss {got[0]['loss']:.8f} (single process "
+              f"{single['loss']:.8f}), params max rel err {p_err:.3e}, update max rel err "
+              f"{up_err:.3e}; a rank's step {ms:.2f} ms, peak {peak:.1f} MiB above its start, "
+              f"the single-process step {single['ms']:.2f} ms, {single['peak_mib']:.1f} MiB",
+              flush=True)
+        marks[tag] = time.perf_counter() - t0
+        fields.update({f"train_{tag}_param_err": f"{p_err:.3e}",
+                       f"train_{tag}_update_err": f"{up_err:.3e}",
+                       f"train_{tag}_rank_ms": f"{ms:.3f}",
+                       f"train_{tag}_single_ms": f"{single['ms']:.3f}",
+                       f"train_{tag}_rank_peak_mib": f"{peak:.1f}",
+                       f"train_{tag}_single_peak_mib": f"{single['peak_mib']:.1f}"})
+    del optim, step
+    sp.load_state_dict(state)
+    sp.zero_grad(set_to_none=True)
+    G = importlib.import_module(f"{PKG}.core.graph")
+    (sp(scene, G.knn_mask(scene.pos, N - 1)) * _ring_weights(dev)).sum().backward()
+    g_err = 0.0
+    for n, p in sp.named_parameters():
+        got = sum(rec["train"]["ring_grads"][n] for rec in ranks)
+        want = p.grad.cpu()
+        e = (got - want).abs().max().item() / (want.abs().max().item() or 1.0)
+        g_err = max(g_err, e)
+        if e > TRAIN_PARAM_RTOL:
+            fail(f"ring: the ring's gradient of {n} differs from the dense model's by {e:.3e} "
+                 f"of its largest value (limit {TRAIN_PARAM_RTOL})")
+    secs = ranks[0]["train"]["seconds"]
+    print(f"  ring train: the ring's gradient summed over the ranks against the dense model's: "
+          f"max rel err {g_err:.3e} (limit {TRAIN_PARAM_RTOL}); a rank's training work, s from "
+          "its start: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+          + "; the parent's checks, s: " + ", ".join(f"{k} {v:.2f}" for k, v in marks.items())
+          + f", ring_backward {time.perf_counter() - t0:.2f}", flush=True)
+    del sp
+    fields["ring_grad_err"] = f"{g_err:.3e}"
+    return fields
 
 
 def _ring_phase(dev, state) -> dict:
@@ -1350,6 +1574,7 @@ def _ring_phase(dev, state) -> dict:
         fail(f"ring: survived per sim {surv_ring.tolist()}, the dense rollout {surv_d.tolist()}")
     ring_cmp = _against_single("ring", whole("loc", 2), loc_d.cpu(), loc_n.cpu())
     del dense, roll, loc_d, loc_n
+    train_fields = _ring_train_phase(dev, ranks, state, m)
     for rec in sorted(ranks, key=lambda r_: r_["coord"]):
         print(f"  ring rank at (sim, body) = {rec['coord']}: started "
               f"{rec['enter'] - t_spawn:.2f} s after the spawn, done "
@@ -1359,6 +1584,7 @@ def _ring_phase(dev, state) -> dict:
               f"peak {rec['peak_mib']:.1f} MiB above its start, backend {rec['backend']}",
               flush=True)
         parallel_counts[f"ring_{rec['coord'][0]}{rec['coord'][1]}"] = rec["counts"]
+        parallel_counts[f"ring-train_{rec['coord'][0]}{rec['coord'][1]}"] = rec["train"]["counts"]
     report("ring", t0, ranks=RING_RANKS, mesh=f"{sims}x{bodies}", backend=ranks[0]["backend"],
            B=BIG_B, N=BIG_N, steps=RING_STEPS, force_max_rel_err=f"{ring_rel:.3e}",
            rollout_max_dpos=ring_cmp["max_dpos"], max_dpos_nudged=ring_cmp["max_dpos_nudged"],
@@ -1366,7 +1592,7 @@ def _ring_phase(dev, state) -> dict:
            gloo_collectives_per_rank=ranks[0]["wire"]["collectives"],
            gloo_tensors_on_card=sum(rec["wire"]["on_card"] for rec in ranks),
            peak_mib_per_rank=f"{max(rec['peak_mib'] for rec in ranks):.1f}",
-           dense_peak_mib=f"{dense_peak:.1f}")
+           dense_peak_mib=f"{dense_peak:.1f}", **train_fields)
     return parallel_counts
 
 
@@ -3024,12 +3250,12 @@ def main() -> None:
             run_dir_f = os.path.abspath(trainer.save_dir_path)
             saved = os.path.join(run_dir_f, "model.ckpt")
             written = weights.read_checkpoint(saved)
+            w_count, w_mu, w_nu = weights._find_adam(written["opt_state"])
             layout = key_shapes(weights.params_to_jax(trainer.model.state_dict()))
             if not (key_shapes(written["params"]) == layout
-                    and key_shapes(written["opt_state"]["mu"]) == layout
-                    and key_shapes(written["opt_state"]["nu"]) == layout
+                    and key_shapes(w_mu) == layout and key_shapes(w_nu) == layout
                     and (payload is None or key_shapes(payload["params"]) == layout)
-                    and int(written["opt_state"]["count"]) == run["count"]):
+                    and int(w_count) == run["count"]):
                 fail(f"{tag}: the written checkpoint's params / mu / nu / count leave the JAX "
                      "layout of the model" + ("" if payload is None else
                                               " and of the committed checkpoint"))
@@ -4466,7 +4692,8 @@ def main() -> None:
         entry["launches_eval"] = {path: c[counter_of[entry["name"]]]
                                   for path, c in eval_counts.items()}
         # ... and on the multi-GPU paths, per rank: [dp-train]'s (its training
-        # GT and evaluation) and [ring]'s (plain PyTorch: none)
+        # GT and evaluation), [ring]'s rollout (plain PyTorch: none) and
+        # [ring]'s training work (its GT batch: one K2-leapfrog)
         entry["launches_parallel"] = {path: c[counter_of[entry["name"]]]
                                       for path, c in parallel_counts.items()}
     print(f"total {time.perf_counter() - T_START:.2f} s on {card}", flush=True)

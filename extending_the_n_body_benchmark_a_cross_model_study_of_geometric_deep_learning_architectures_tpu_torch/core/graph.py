@@ -23,19 +23,23 @@ def rel_positions(pos: torch.Tensor) -> torch.Tensor:
     return pos[..., :, None, :] - pos[..., None, :, :]
 
 
-def knn_mask(pos: torch.Tensor, num_neighbors: int) -> torch.Tensor:
+def knn_mask(pos: torch.Tensor, num_neighbors: int, rows: slice = slice(None)) -> torch.Tensor:
     """Bool ``[B, N, N]``: ``j`` is one of the ``num_neighbors`` nearest
     non-self nodes of ``i``.  ``num_neighbors == N - 1`` short-circuits to the
-    fully connected pattern."""
+    fully connected pattern.  ``rows``: only those receivers' rows ``[B, n,
+    N]``, with no ``[B, N, N]`` tensor made (each row's squared distances are
+    the whole mask's, elementwise, and the same top-k picks its neighbours)."""
     n = pos.shape[-2]
     if not 0 < num_neighbors < n:
         raise ValueError(
             "Graph cannot have more neighbors than there are nodes in simulation - 1"
         )
-    eye = torch.eye(n, dtype=torch.bool, device=pos.device)
+    recv = torch.arange(n, device=pos.device)[rows]
+    self_ = recv[:, None] == torch.arange(n, device=pos.device)  # [n, N]
     if num_neighbors == n - 1:
-        return (~eye).expand(pos.shape[:-1] + (n,))
-    d2 = pairwise_sq_dists(pos).masked_fill(eye, float("inf"))
+        return (~self_).expand(pos.shape[:-2] + self_.shape)
+    rel = pos[..., rows, None, :] - pos[..., None, :, :]
+    d2 = torch.sum(rel * rel, dim=-1).masked_fill(self_, float("inf"))
     idx = torch.topk(d2, num_neighbors, dim=-1, largest=False).indices
     mask = torch.zeros(d2.shape, dtype=torch.bool, device=pos.device)
     return mask.scatter_(-1, idx, True)

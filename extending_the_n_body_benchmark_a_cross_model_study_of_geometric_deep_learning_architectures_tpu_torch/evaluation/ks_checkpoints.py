@@ -7,8 +7,8 @@ predicted), Fisher-combines them, optionally draws the GT-vs-GT floor, and
 reports the best checkpoint: ``ks_results.csv`` and ``ks_summary.json`` in the
 run dir.  :func:`combined_pvalues_report` aggregates several runs into one
 summary CSV, :func:`time_cutoff_report` the checkpoint each run reached within
-a wall-clock budget.  No figure is drawn: matplotlib is not installed beside
-the port (ROADMAP.md, queue 1 item 10).
+a wall-clock budget.  No figure is drawn: the port may not import matplotlib
+(``tests/test_torch_weights.py:39`` forbids it; ROADMAP.md, queue 1 item 10).
 
     python -m <package>.cli ks-test RUN [RUN ...] [--baseline] [--multi-out CSV] [--hours H]
 """

@@ -9,8 +9,9 @@
 
 Every GT batch comes from ``data.gravity_otf.GravityDatasetOtf`` on its
 device: on the card, one launch of the integrator K2-leapfrog a batch.  No
-figure is drawn: matplotlib is not installed beside the port (ROADMAP.md,
-queue 1 item 10); every JSON is written with the JAX package's keys.
+figure is drawn: the port may not import matplotlib
+(``tests/test_torch_weights.py:39`` forbids it; ROADMAP.md, queue 1 item 10);
+every JSON is written with the JAX package's keys.
 
     python -m <package>.evaluation.studies metamacros|compare_dt [--device cpu] ...
 """

@@ -11,8 +11,9 @@ file::
 
 Trajectories may be tensors (on any device) or arrays.  ``plot=True`` keeps the
 JAX package's rule that plotting never fails an evaluation, but draws nothing:
-its ``viz/`` (matplotlib) is not ported, and matplotlib is not installed beside
-the port (ROADMAP.md, queue 1 item 10).
+its ``viz/`` (matplotlib) is not ported, since the port may not import
+matplotlib (``tests/test_torch_weights.py:39`` forbids it; ROADMAP.md, queue 1
+item 10).
 """
 
 from __future__ import annotations

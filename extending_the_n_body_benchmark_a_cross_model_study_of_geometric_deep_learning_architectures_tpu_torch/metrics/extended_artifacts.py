@@ -9,8 +9,9 @@
 Schema per file: ``{suffix: {"timestamp": ..., <fields>}}`` with the suffixes
 ``ground truth`` / ``predicted``; raw value lists are capped at ``max_items``
 evenly spaced samples.  ``plot=True`` draws nothing: the JAX package's
-plots use matplotlib, which is not installed beside the port (its ``viz/``
-is ROADMAP.md, queue 1 item 10).
+plots use matplotlib, which the port may not import
+(``tests/test_torch_weights.py:39`` forbids it; its ``viz/`` is ROADMAP.md,
+queue 1 item 10).
 """
 
 from __future__ import annotations

@@ -41,16 +41,25 @@ JAX model's ``body_ring``): the forward runs on this rank's block of bodies
 and takes the ``body`` group as ``forward(..., ring=group)``
 (``parallel.sharded.make_body_ring_rollout_fn`` passes it); the edge stage
 featurises from the O(N) node data, as the streaming one does, over fully
-connected graphs (no mask), in plain PyTorch with silu, under
-``torch.no_grad()`` (a body-sharded training step is not ported).  The
-parameter tree is the dense model's.
+connected graphs (no mask), in plain PyTorch with silu, and autograd
+differentiates it through the ring (each rank's parameter gradients are
+then its block's share: their sum over the ``body`` group is the whole
+sim's).  The parameter tree is the dense model's.
+
+``forward(..., senders=Senders(scene, gather))`` is the receiver-rows form
+of the dense edge stage (``parallel.sharded.make_sharded_train_step(...,
+shard_bodies=True)``): ``scene`` and ``mask [B, n, N]`` are this rank's
+receivers' rows, ``Senders.scene`` every body of their sims, and
+``Senders.gather`` takes a node tensor of the receivers' rows to every
+sender's (differentiable); every edge tensor is ``[B, n, N, *]``, on any
+mask.
 
 Not ported, and refused: ``fc_fast``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -73,6 +82,15 @@ from .common import (
 EDGE_IMPLS = ("kernel", "dense")
 
 _LATER = {"fc_fast": "ROADMAP.md, queue 1 (fc_fast dense path)"}
+
+
+class Senders(NamedTuple):
+    """Every sender of a receiver-rows forward: ``scene`` the whole sims'
+    (``[B, N, *]``), ``gather`` a node tensor of the receivers' rows ``[B, n,
+    *]`` to every sender's ``[B, N, *]``, differentiable."""
+
+    scene: Scene
+    gather: Callable[[torch.Tensor], torch.Tensor]
 
 
 class EGNNBlock(nn.Module):
@@ -127,12 +145,17 @@ class EGNNBlock(nn.Module):
         W1, b1 = self.edge_w1.to(h.dtype), self.edge_b1.to(h.dtype)
         return h @ W1[:H] + b1, h @ W1[H : 2 * H]
 
-    def edge_inputs(self, h, coord, edge_attr):
+    def edge_inputs(self, h, coord, edge_attr, gather=None):
         """The dense edge stage's per-call inputs: ``hA``, ``hB [B,N,He]`` and
-        ``geom [B,N,N,8] = [d2, edge_attr(4), coord_diff(3)]``."""
+        ``geom [B,N,N,8] = [d2, edge_attr(4), coord_diff(3)]``.  ``gather``
+        (the receiver-rows form): ``hB`` and the senders' coordinates are
+        every sender's, ``geom`` the receivers' rows ``[B,n,N,8]``."""
         hA, hB = self.node_terms(h)
+        coord_s = coord
+        if gather is not None:
+            hB, coord_s = gather(hB), gather(coord)
         # coord2radial: receiver-minus-sender differences
-        coord_diff = G.rel_positions(coord)
+        coord_diff = coord[..., :, None, :] - coord_s[..., None, :, :]
         radial = torch.sum(coord_diff * coord_diff, dim=-1, keepdim=True)
         if self.norm_diff:
             coord_diff = coord_diff / torch.clamp(G.safe_sqrt(radial), min=1.0)
@@ -145,12 +168,14 @@ class EGNNBlock(nn.Module):
              self.coord_w1, self.coord_b1, self.coord_w2[:, 0])
         return w if dtype is None else tuple(t.to(dtype) for t in w)
 
-    def dense_edge_stage(self, h, coord, edge_attr, mask) -> Tuple[torch.Tensor, torch.Tensor]:
+    def dense_edge_stage(self, h, coord, edge_attr, mask,
+                         gather=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """The JAX model's XLA edge stage (``models/egnn_mc.py:141-201``) in torch
         ops, differentiable: ``(agg [B,N,He], trans [B,N,3])``, the masked means
-        over senders of the messages and of the clipped coordinate terms."""
+        over senders of the messages and of the clipped coordinate terms; with
+        ``gather``, the receivers' rows against every sender."""
         act = get_activation(self.activation)
-        hA, hB, geom = self.edge_inputs(h, coord, edge_attr)
+        hA, hB, geom = self.edge_inputs(h, coord, edge_attr, gather)
         w_geom, W2, b2, Wc1, bc1, wc2 = self.edge_weights(h.dtype)
         g_term = geom[..., :5].to(h.dtype) @ w_geom  # [d2, edge_attr] @ W1[2H:]
         m_ij = act(act(hA[:, :, None, :] + hB[:, None, :, :] + g_term) @ W2 + b2)
@@ -161,13 +186,14 @@ class EGNNBlock(nn.Module):
         trans = torch.clamp(w[..., None].to(coord.dtype) * geom[..., 5:], -100.0, 100.0)
         return G.masked_segment_mean(m_ij, mask), G.masked_segment_mean(trans, mask)
 
-    def forward(self, h, coord, velocity, edge_attr, mask,
-                edge_impl: str = "kernel", ring=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, h, coord, velocity, edge_attr, mask, edge_impl: str = "kernel",
+                ring=None, gather=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """``h [B,N,H]``, ``coord``/``velocity [B,N,3]``, ``mask [B,N,N]``, and
         ``edge_attr [B,N,N,E]`` -- or, under ``streaming`` and ``body_ring``, the
         scene's ``(pos [B,N,3], mass [B,N,1])`` -> ``(h, coord)``.  ``edge_impl``
         picks the dense edge stage's form (``"kernel"`` or ``"dense"``);
-        ``ring`` is the ``body`` group of ``body_ring``."""
+        ``ring`` is the ``body`` group of ``body_ring``; ``gather`` is
+        :class:`Senders`'s (the dense stage's receiver-rows form)."""
         if self.body_ring:
             pos0, mass = edge_attr
             hA, hB = self.node_terms(h)
@@ -175,7 +201,7 @@ class EGNNBlock(nn.Module):
                                          *self.edge_weights(h.dtype), tanh=self.tanh,
                                          norm_diff=self.norm_diff, group=ring)
         elif edge_impl == "dense":
-            agg, trans = self.dense_edge_stage(h, coord, edge_attr, mask)
+            agg, trans = self.dense_edge_stage(h, coord, edge_attr, mask, gather)
         elif self.streaming:
             pos0, mass = edge_attr
             hA, hB = self.node_terms(h)
@@ -263,17 +289,21 @@ class EGNNMC(nn.Module):
         )
 
     @staticmethod
-    def featurize(scene: Scene) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Node features ``[B,N,2]`` and edge attributes ``[B,N,N,4]``."""
+    def featurize(scene: Scene, senders: Optional[Scene] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Node features ``[B,N,2]`` and edge attributes ``[B,N,N,4]``; with
+        ``senders`` (every body of ``scene``'s sims), the rows ``[B,n,N,4]`` of
+        ``scene``'s receivers."""
+        s = scene if senders is None else senders
         speed = torch.linalg.vector_norm(scene.vel, dim=-1, keepdim=True)
         x = torch.cat([speed, scene.mass], dim=-1)
-        edge_vec = G.rel_positions(scene.pos)  # pos_i - pos_j
+        edge_vec = scene.pos[..., :, None, :] - s.pos[..., None, :, :]  # pos_i - pos_j
         dist_sq = torch.sum(edge_vec * edge_vec, dim=-1, keepdim=True)
         dist = torch.clamp(G.safe_sqrt(dist_sq), min=1e-12)
         direction = edge_vec / dist
         proj_i = torch.sum(scene.vel[:, :, None, :] * direction, dim=-1, keepdim=True)
-        proj_j = torch.sum(scene.vel[:, None, :, :] * direction, dim=-1, keepdim=True)
-        mass_prod = scene.mass[:, :, None, :] * scene.mass[:, None, :, :]
+        proj_j = torch.sum(s.vel[:, None, :, :] * direction, dim=-1, keepdim=True)
+        mass_prod = scene.mass[:, :, None, :] * s.mass[:, None, :, :]
         return x, torch.cat([mass_prod, proj_i, proj_j, dist_sq], dim=-1)
 
     def _check_impl(self, edge_impl: str) -> str:
@@ -285,24 +315,26 @@ class EGNNMC(nn.Module):
         return edge_impl
 
     def forward(self, scene: Scene, mask: Optional[torch.Tensor],
-                edge_impl: Optional[str] = None, ring=None) -> torch.Tensor:
+                edge_impl: Optional[str] = None, ring=None,
+                senders: Optional[Senders] = None) -> torch.Tensor:
         """``ring``: the ``body`` process group of a ``body_ring`` model, whose
         ``scene`` is this rank's block of bodies and whose ``mask`` is unused
-        (fully connected)."""
+        (fully connected).  ``senders``: the receiver-rows form of the dense
+        edge stage, ``scene`` and ``mask [B,n,N]`` the receivers' rows (see
+        the module note)."""
         impl = self.edge_impl if edge_impl is None else self._check_impl(edge_impl)
-        if self.body_ring:
-            if ring is None:
-                raise ValueError("a body_ring model runs inside a ring: pass forward(..., "
-                                 "ring=<the body group>), as make_body_ring_rollout_fn does")
-            if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
-                raise NotImplementedError("a body-sharded training step is not ported yet "
-                                          "(ROADMAP.md, queue 1 item 9): run the ring under "
-                                          "torch.no_grad()")
+        if self.body_ring and ring is None:
+            raise ValueError("a body_ring model runs inside a ring: pass forward(..., "
+                             "ring=<the body group>), as make_body_ring_rollout_fn does")
+        if senders is not None and (impl != "dense" or self.body_ring):
+            raise ValueError("the receiver-rows form (senders=) runs the dense edge stage "
+                             "(edge_impl='dense') of a model without body_ring")
         if self.streaming or self.body_ring:  # the edge stage featurises from the node data
             speed = torch.linalg.vector_norm(scene.vel, dim=-1, keepdim=True)
             x, edge_attr = torch.cat([speed, scene.mass], dim=-1), (scene.pos, scene.mass)
         else:
-            x, edge_attr = self.featurize(scene)
+            x, edge_attr = self.featurize(scene, None if senders is None else senders.scene)
+        gather = None if senders is None else senders.gather
         h = self.embedding(x)
         if self.compute_dtype is not None:
             h = h.to(self.compute_dtype)
@@ -311,9 +343,9 @@ class EGNNMC(nn.Module):
         for layer in self.layers:
             if self.remat and torch.is_grad_enabled():
                 h, coord = checkpoint(layer, h, coord, scene.vel, edge_attr, maskf, impl, ring,
-                                      use_reentrant=False)
+                                      gather, use_reentrant=False)
             else:
-                h, coord = layer(h, coord, scene.vel, edge_attr, maskf, impl, ring)
+                h, coord = layer(h, coord, scene.vel, edge_attr, maskf, impl, ring, gather)
         head_in = torch.cat([h.to(coord.dtype), coord - scene.pos, scene.vel], dim=-1)
         return torch.cat([head(head_in) for head in self.heads], dim=-1)
 

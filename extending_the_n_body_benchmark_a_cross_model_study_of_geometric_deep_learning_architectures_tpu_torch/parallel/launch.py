@@ -85,9 +85,11 @@ def _tail(path: str) -> str:
 
 def _context():
     ctx = multiprocessing.get_context("forkserver")
-    # read at the server's start; torch.optim imports torch.distributed.tensor at
-    # an optimizer's first construction, which a rank that trains would pay
-    ctx.set_forkserver_preload(["torch", "torch.distributed", "torch.distributed.tensor"])
+    # read at the server's start; torch.optim imports torch.distributed.tensor and
+    # torch._dynamo at an optimizer's first construction (~1 s), which a rank that
+    # trains would pay
+    ctx.set_forkserver_preload(["torch", "torch.distributed", "torch.distributed.tensor",
+                                "torch._dynamo"])
     return ctx
 
 

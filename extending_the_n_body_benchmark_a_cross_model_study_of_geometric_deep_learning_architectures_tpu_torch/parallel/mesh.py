@@ -11,6 +11,14 @@ takes the place of ``jax.sharding.Mesh``, and the collectives are explicit:
 * ``body`` -- the bodies of a simulation, for the ring of ``ring.py`` and
   ``ring_egnn.py``.
 
+The training step through the body-sharded paths differentiates two of
+them: :func:`ring_shift_grad` (the ring's pass; its backward the reverse
+pass) and :func:`all_gather_rows_grad` (the senders' rows gathered; its
+backward a reduce-scatter, or the rank's own slice).  Both are written over
+the collectives here, so under gloo they too hand the backend host copies
+(``torch.distributed.nn``'s gather runs ``all_to_all`` in its backward off
+NCCL, and takes the card's tensors).
+
 ``scene_sharding`` and ``replicate`` have no torch object: a rank holds its
 rows (:func:`local_rows`), and a tensor every rank holds whole is broadcast
 from the group's first rank (:func:`replicate`).
@@ -181,17 +189,22 @@ def psum(t: torch.Tensor, group=None) -> torch.Tensor:
     return buf.to(t.device)
 
 
-def ring_shift(tensors: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+def ring_shift(tensors: Sequence[torch.Tensor], group=None,
+               reverse: bool = False) -> List[torch.Tensor]:
     """Each rank sends ``tensors`` to the next rank of the group and receives
     the previous rank's (``batch_isend_irecv``; the JAX package's
-    ``lax.ppermute`` with ``j -> j + 1``).  A group of one returns them as
-    they are."""
+    ``lax.ppermute`` with ``j -> j + 1``); ``reverse`` sends to the previous
+    rank and receives the next one's.  A group of one returns them as they
+    are."""
     size = dist.get_world_size(group)
     if size == 1:
         return list(tensors)
-    r = dist.get_rank(group)
-    nxt = dist.get_global_rank(group, (r + 1) % size) if group is not None else (r + 1) % size
-    prv = dist.get_global_rank(group, (r - 1) % size) if group is not None else (r - 1) % size
+    r, step = dist.get_rank(group), -1 if reverse else 1
+
+    def peer(k: int) -> int:
+        return dist.get_global_rank(group, k % size) if group is not None else k % size
+
+    nxt, prv = peer(r + step), peer(r - step)
     sends = [_wire(t, group) for t in tensors]
     recvs = [torch.empty_like(s) for s in sends]
     ops = ([dist.P2POp(dist.isend, s, nxt, group) for s in sends]
@@ -211,6 +224,61 @@ def all_gather_rows(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
     parts = [torch.empty_like(buf) for _ in range(size)]
     dist.all_gather(parts, buf, group=group)
     return torch.cat(parts, dim=dim).to(t.device)
+
+
+# ------------------------------------------------ collectives under autograd
+
+class _RingShift(torch.autograd.Function):
+    """:func:`ring_shift` whose backward is the reverse shift: each received
+    tensor's gradient goes back to the rank that sent it."""
+
+    @staticmethod
+    def forward(ctx, group, *tensors):
+        ctx.group = group
+        return tuple(ring_shift(tensors, group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *ring_shift(grads, ctx.group, reverse=True))
+
+
+def ring_shift_grad(tensors: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """:func:`ring_shift` under autograd (the JAX package's ``lax.ppermute``,
+    which JAX transposes to the reverse permutation)."""
+    if dist.get_world_size(group) == 1:
+        return list(tensors)
+    return list(_RingShift.apply(group, *tensors))
+
+
+class _GatherRows(torch.autograd.Function):
+    """:func:`all_gather_rows` whose backward hands each rank the gradient of
+    its own rows: summed over the group's copies first (a reduce-scatter, as
+    a :func:`psum` and a slice), or, where every rank's copy is consumed
+    alike, the rank's slice of its own."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim, sum_grads):
+        ctx.group, ctx.dim, ctx.rows, ctx.sum_grads = group, dim, t.shape[dim], sum_grads
+        return all_gather_rows(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.sum_grads:
+            grad = psum(grad, ctx.group)
+        start = dist.get_rank(ctx.group) * ctx.rows
+        return grad.narrow(ctx.dim, start, ctx.rows).contiguous(), None, None, None
+
+
+def all_gather_rows_grad(t: torch.Tensor, group=None, dim: int = 0,
+                         sum_grads: bool = True) -> torch.Tensor:
+    """:func:`all_gather_rows` under autograd.  ``sum_grads``: each rank's copy
+    feeds a different part of the result (the senders' state that each rank's
+    receivers read), so the rows' gradient is the sum over the ranks; without
+    it every rank computes the same function of the gathered tensor (a loss
+    on the whole sim), and the rows' gradient is the rank's own slice."""
+    if dist.get_world_size(group) == 1:
+        return t
+    return _GatherRows.apply(t, group, dim, sum_grads)
 
 
 def replicate(tensors: Sequence[torch.Tensor], group=None) -> None:

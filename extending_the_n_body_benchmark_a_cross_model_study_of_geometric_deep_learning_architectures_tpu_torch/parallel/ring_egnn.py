@@ -5,8 +5,11 @@ Each rank of the ``body`` group holds a block of ``N/D`` bodies (``hA``,
 ``hB``, the initial positions, velocities, masses and the layer's
 coordinates: O(N) state).  At each of ``D`` ring steps it adds the masked
 message and coordinate sums of the *visiting* sender block onto its
-*resident* receivers, then passes the visitors on (:func:`.mesh.ring_shift`);
-every edge tensor it holds is a ``[B, N/D, N/D, *]`` block.  After ``D``
+*resident* receivers, then passes the visitors on
+(:func:`.mesh.ring_shift_grad`); every edge tensor it holds is a ``[B, N/D,
+N/D, *]`` block.  Under autograd the backward passes the visitors'
+gradients home the other way round the ring, so the stage trains, as the
+JAX package's does (JAX transposes its ``lax.ppermute``).  After ``D``
 steps the sums cover all N senders; the self pairs are left out at step 0
 (when each rank is visited by its own block), and the means divide by the
 fully connected count ``N - 1``.  Fully connected graphs only, as in the
@@ -30,7 +33,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .mesh import ring_shift
+from ..core.graph import safe_sqrt
+from .mesh import ring_shift_grad
 
 
 def geometry_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -66,7 +70,9 @@ def _block_sums(hA, hB_v, nd_i, nd_v, wg, W2, b2, Wc1, bc1, wc2, keep, tanh: boo
     cd = ci[:, :, None, :] - cv[:, None, :, :]
     radial = torch.sum(cd * cd, dim=-1, keepdim=True)
     if norm_diff:
-        cd = cd / torch.clamp(torch.sqrt(torch.clamp(radial, min=0.0)), min=1.0)
+        # the dense stage's safe_sqrt: the same values under the clamp at 1, and
+        # a zero derivative at the self pairs' radial 0, where sqrt's is infinite
+        cd = cd / torch.clamp(safe_sqrt(radial), min=1.0)
 
     scal = torch.cat([radial, mass_prod, proj_i, proj_j, d2_0], dim=-1).to(dtype)
     m1 = F.silu(hA[:, :, None, :] + hB_v[:, None, :, :] + scal @ wg)
@@ -107,6 +113,6 @@ def ring_edge_stage(hA, hB, pos0, vel, mass, coord, wg, W2, b2, Wc1, bc1, wc2,
         acc_agg = acc_agg + a_sum.to(gd)
         acc_tr = acc_tr + t_sum
         if step < size - 1:
-            hB_v, nd_v = ring_shift([hB_v, nd_v], group)
+            hB_v, nd_v = ring_shift_grad([hB_v, nd_v], group)
     inv = 1.0 / (n_local * size - 1)  # fully connected: N - 1 senders
     return (acc_agg * inv).to(hA.dtype), acc_tr * inv

@@ -22,11 +22,11 @@ out (``mesh.py``):
   vector and the non-finite flag), which equals the global batch's gradient
   since every loss term of ``train/losses.py`` is a mean over sims; the
   clipping, the skip of a non-finite update and AdamW + Noam then run on
-  the same numbers on every rank.
-
-A body-sharded training step (the JAX package's ``shard_bodies=True``, which
-GSPMD partitions for it) needs the ring under autograd and is not ported:
-``ROADMAP.md``, queue 1 item 9.
+  the same numbers on every rank.  With ``shard_bodies`` (the JAX package's
+  ``shard_bodies=True``, which GSPMD partitions there) each rank holds its
+  sims' block of bodies: EGNN-MC computes its receivers' rows against every
+  sender, and every other family trains on its sims gathered whole (see
+  the function).
 """
 
 from __future__ import annotations
@@ -35,11 +35,14 @@ from typing import List, Optional
 
 import torch
 
+import torch.distributed as dist
+
+from ..core import graph as G
 from ..core.physics import GravityParams, sample_initial_conditions, simulate
 from ..core.scene import Scene
 from ..core.targets import decode_next_state
-from .mesh import (BODY_AXIS, SIM_AXIS, all_gather_rows, axis_group, axis_rows, axis_size,
-                   local_rows, psum)
+from .mesh import (BODY_AXIS, SIM_AXIS, all_gather_rows, all_gather_rows_grad, axis_group,
+                   axis_rows, axis_size, local_rows, psum)
 
 
 def shard_scene(scene: Scene, mesh, shard_bodies: bool = False) -> Scene:
@@ -135,11 +138,14 @@ def make_body_ring_rollout_fn(model, num_steps: int, mesh, target: str = "pos_dt
 
 
 def average_step(params: List[torch.nn.Parameter], vec: torch.Tensor,
-                 ok: Optional[torch.Tensor], group):
+                 ok: Optional[torch.Tensor], group, grad_divisor: Optional[int] = None):
     """One ``all_reduce`` over ``group`` of every gradient, the step's metric
     vector and its non-finite flag: the gradients (in place) and the vector
     become their means over the ranks, ``ok`` true only where every rank's
-    prediction was finite.  Returns ``(vec, ok)``."""
+    prediction was finite.  ``grad_divisor`` divides the summed gradients in
+    place of the group's size (the body-sharded step's sims: each rank's
+    gradient is its receivers' share, summed over ``body``).  Returns
+    ``(vec, ok)``."""
     grads = [p.grad for p in params if p.grad is not None]
     dtype = grads[0].dtype
     if any(g.dtype != dtype for g in grads):
@@ -149,24 +155,104 @@ def average_step(params: List[torch.nn.Parameter], vec: torch.Tensor,
         parts.append((~ok).to(dtype).reshape(1))
     flat = psum(torch.cat(parts), group)
     k = torch.distributed.get_world_size(group)
+    kg = k if grad_divisor is None else grad_divisor
     at = 0
     for g in grads:
-        g.copy_(flat[at:at + g.numel()].view_as(g) / k)
+        g.copy_(flat[at:at + g.numel()].view_as(g) / kg)
         at += g.numel()
     vec_mean = (flat[at:at + vec.numel()] / k).to(vec.dtype)
     return vec_mean, (None if ok is None else flat[-1] == 0)
 
 
+def _whole_sims(mesh):
+    """``fn(x)``: a ``[B/S, N/D, ...]`` tensor (or a scene of them) gathered over
+    ``body`` to its sims' every body (no gradient); None stays None."""
+    body = axis_group(mesh, BODY_AXIS)
+
+    def whole(x):
+        if isinstance(x, Scene):
+            return Scene(*(whole(t) for t in (x.pos, x.vel, x.force, x.mass, x.charge)))
+        return None if x is None else all_gather_rows(x, body, dim=1)
+
+    return whole
+
+
+def _receiver_rows(model, num_neighbors: int, mesh):
+    """EGNN-MC's body-sharded forward for ``make_train_step(..., forward=)``:
+    ``(scene, y) -> (pred, scene, y)`` of the whole sims from this rank's
+    rows.  The mask is this rank's rows of ``knn_mask`` of the gathered
+    positions (``knn_mask(..., rows)``: each row's distances and top-k are
+    the whole mask's); the model runs its receiver
+    rows (``[B/S, N/D, N, *]`` edge tensors) against every sender, the
+    senders' ``hB`` and coordinates gathered under autograd (their gradient
+    summed over ``body``); the prediction is gathered so that the loss is the
+    whole sims', its gradient each rank's own rows."""
+    from ..models.egnn_mc import Senders
+
+    body = axis_group(mesh, BODY_AXIS)
+    whole = _whole_sims(mesh)
+
+    def gather(t):
+        return all_gather_rows_grad(t, body, dim=1)
+
+    def forward(scene: Scene, y: torch.Tensor):
+        every = whole(scene)
+        rows = axis_rows(every.pos.shape[1], mesh, BODY_AXIS)
+        mask = G.knn_mask(every.pos, num_neighbors, rows)
+        pred = model(scene, mask, edge_impl="dense", senders=Senders(every, gather))
+        return all_gather_rows_grad(pred, body, dim=1, sum_grads=False), every, whole(y)
+
+    return forward
+
+
 def make_sharded_train_step(model, optim, loss_fn, targets, num_neighbors: int, mesh,
                             dtype: torch.dtype, shard_bodies: bool = False, **kwargs):
-    """``train.trainer.make_train_step`` with its gradients averaged over the
-    mesh's ``sim`` axis: ``(step, metric_names)``, where ``step(scene, y,
-    mask=None)`` takes this rank's rows and returns the global batch's metric
-    vector."""
+    """``train.trainer.make_train_step`` over the mesh: ``(step, metric_names)``,
+    where ``step(scene, y, mask=None)`` takes this rank's rows and returns the
+    global batch's metric vector.  The gradients (with the metric vector and
+    the non-finite flag) are averaged over the ``sim`` axis.
+
+    ``shard_bodies``: the rows are this rank's sims' block of bodies, ``[B/S,
+    N/D, *]``, and the step is the JAX package's ``shard_bodies=True`` one:
+    the dense model on ``knn_mask(pos, num_neighbors)`` of the whole sims,
+    the loss on the whole sims, no data mask.
+
+    * EGNN-MC (dense edge stage, no ``body_ring``) runs its receiver rows
+      against every sender (:func:`_receiver_rows`): no rank holds a ``[B,
+      N, N, *]`` tensor, only ``[B/S, N/D, N, *]`` rows (the mask's too).
+      Every ``body`` rank of a sim
+      holds the same loss and a share of the gradient, so one ``all_reduce``
+      over the mesh sums the gradients over ``body`` and divides by the
+      ``sim`` size (the metric vector and the flag by the mesh's size).
+    * Every other family gathers its sims whole over ``body`` and runs the
+      data-parallel step on them, averaged over the whole mesh (each ``body``
+      rank of a sim computes the same gradient).  This shards no memory: a
+      rank holds its sims' every edge.  A model with live dropout must get
+      generators in the same state on the ``body`` ranks of a sim.
+    """
+    from ..models import has_edge_stage
     from ..train.trainer import make_train_step
 
-    if shard_bodies:
-        raise NotImplementedError("a body-sharded training step is not ported yet (ROADMAP.md, "
-                                  "queue 1 item 9: the ring under autograd)")
-    return make_train_step(model, optim, loss_fn, targets, num_neighbors, dtype,
-                           group=axis_group(mesh, SIM_AXIS), **kwargs)
+    if not shard_bodies:
+        return make_train_step(model, optim, loss_fn, targets, num_neighbors, dtype,
+                               group=axis_group(mesh, SIM_AXIS), **kwargs)
+    if has_edge_stage(model):
+        inner, names = make_train_step(
+            model, optim, loss_fn, targets, num_neighbors, dtype, group=dist.group.WORLD,
+            forward=_receiver_rows(model, num_neighbors, mesh),
+            grad_divisor=axis_size(mesh, SIM_AXIS), **kwargs)
+    else:
+        gathered, names = make_train_step(model, optim, loss_fn, targets, num_neighbors,
+                                          dtype, group=dist.group.WORLD, **kwargs)
+        whole = _whole_sims(mesh)
+
+        def inner(scene, y):
+            return gathered(whole(scene), whole(y))
+
+    def step(scene: Scene, y: torch.Tensor, mask: Optional[torch.Tensor] = None):
+        if mask is not None:
+            raise ValueError("the body-sharded step trains on the kNN mask of the whole sims "
+                             "(no data mask), as the JAX package's shard_bodies step does")
+        return inner(scene, y)
+
+    return step, names

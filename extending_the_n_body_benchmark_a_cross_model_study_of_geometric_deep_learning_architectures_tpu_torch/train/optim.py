@@ -14,7 +14,12 @@ skip of non-finite updates: counterpart of the JAX package's ``train/optim.py``
   scales by ``max_norm / (norm + 1e-6)`` instead.)
 * ``discard_nan_gradients`` is ``optax.apply_if_finite``: an update whose raw
   gradient has a non-finite value is skipped whole, so parameters, moments and
-  count stay, and with the count the schedule.
+  count stay, and with the count the schedule.  Its three counters are kept
+  as optax keeps them (``ApplyIfFiniteState``: the run of non-finite
+  gradients, whether the last was finite, the total of non-finite ones), on
+  the device; an update that the caller's own decision skips (a non-finite
+  prediction) leaves them as they were, as the JAX trainer restores its
+  whole optimizer state then.
 
 The skip is decided on the device, without a host sync: the update runs, and
 where the decision says so every parameter, moment and count is put back.  So
@@ -28,7 +33,7 @@ sync.)
 from __future__ import annotations
 
 import functools
-from typing import Iterable, List, Optional, Sequence
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -82,12 +87,21 @@ class NoamAdamW:
         self.lr = self.schedule(0).to(device=device, dtype=self.params[0].dtype)
         self.optimizer = torch.optim.AdamW(self.params, lr=self.lr, betas=BETAS, eps=EPS,
                                            weight_decay=weight_decay, capturable=self.capturable)
+        # apply_if_finite's notfinite_count, last_finite and total_notfinite
+        self.skips = (torch.zeros((), dtype=torch.int32, device=device),
+                      torch.ones((), dtype=torch.bool, device=device),
+                      torch.zeros((), dtype=torch.int32, device=device))
         self.set_state(0)
 
     def set_state(self, count: int, exp_avg: Optional[Sequence[torch.Tensor]] = None,
-                  exp_avg_sq: Optional[Sequence[torch.Tensor]] = None) -> None:
+                  exp_avg_sq: Optional[Sequence[torch.Tensor]] = None,
+                  skips: Optional[Tuple[int, bool, int]] = None) -> None:
         """Start from ``count`` updates taken and these moments (zeros by
-        default), as a resumed run does; the learning rate follows the count."""
+        default), as a resumed run does; the learning rate follows the count.
+        ``skips``: ``apply_if_finite``'s counters ``(notfinite_count,
+        last_finite, total_notfinite)``, ``(0, True, 0)`` by default."""
+        for t, v in zip(self.skips, skips or (0, True, 0)):
+            t.fill_(v)
         for i, p in enumerate(self.params):
             self.optimizer.state[p] = {
                 "step": torch.tensor(float(count), dtype=torch.float32,
@@ -107,10 +121,24 @@ class NoamAdamW:
         """Updates taken (a host sync on the card)."""
         return int(self._step_count().item())
 
+    def skip_counts(self) -> Tuple[int, bool, int]:
+        """``apply_if_finite``'s counters (a host sync on the card)."""
+        nf, last, total = self.skips
+        return int(nf.item()), bool(last.item()), int(total.item())
+
     def moments(self):
         """``(exp_avg, exp_avg_sq)``, each a list in ``params`` order."""
         st = [self.optimizer.state[p] for p in self.params]
         return [s["exp_avg"] for s in st], [s["exp_avg_sq"] for s in st]
+
+    def _count_skips(self, finite: torch.Tensor, ok: Optional[torch.Tensor]) -> None:
+        """``apply_if_finite``'s counters after a gradient that is ``finite`` or
+        not; kept where the caller's ``ok`` skips the update."""
+        nf, last, total = self.skips
+        new = (torch.where(finite, torch.zeros_like(nf), nf + 1), finite,
+               torch.where(finite, total, total + 1))
+        for t, v in zip(self.skips, new):
+            t.copy_(v if ok is None else torch.where(ok, v, t))
 
     @torch.no_grad()
     def update(self, ok: Optional[torch.Tensor] = None) -> None:
@@ -125,6 +153,7 @@ class NoamAdamW:
         grads = [p.grad for p in self.params]
         if self.discard_nan_gradients:
             finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+            self._count_skips(finite, ok)
             ok = finite if ok is None else ok & finite
         if self.clip_value is not None:
             for g in grads:

@@ -75,8 +75,8 @@ from ..parallel import mesh as pmesh
 from ..parallel.sharded import make_sharded_train_step, shard_scene
 from ..rollout.self_feed import run_self_feed
 from ..utils.config import save_config
-from ..weights import opt_state_from_jax, params_from_jax, params_to_jax
-from .checkpoint import load_checkpoint, save_checkpoint
+from ..weights import opt_state_from_jax, params_from_jax, params_to_jax, skip_counts_from_jax
+from .checkpoint import load_checkpoint, optax_opt_state, save_checkpoint
 from .logging_utils import MetricsLogger, RunningMean
 from .losses import build_loss_fn, percentage_errors
 from .optim import NoamAdamW, create_optimizer
@@ -121,7 +121,8 @@ def matmul_precision(precision: Optional[str]):
 
 def make_train_step(model, optim: NoamAdamW, loss_fn, targets, num_neighbors: int,
                     dtype: torch.dtype, abort_on_nan: bool = False,
-                    generator: Optional[torch.Generator] = None, group=None):
+                    generator: Optional[torch.Generator] = None, group=None, forward=None,
+                    grad_divisor: Optional[int] = None):
     """``(step, metric_names)``: ``step(scene, y, mask=None)`` takes one
     optimizer step on ``mask`` (the ``num_neighbors`` nearest bodies where
     None) (through the dense edge stage, for a model with one) and returns the
@@ -132,7 +133,12 @@ def make_train_step(model, optim: NoamAdamW, loss_fn, targets, num_neighbors: in
     live dropout in training mode.  ``group`` (data parallel: each rank's
     ``scene`` its rows) averages the gradients, the metric vector and the
     non-finite flag over its ranks before the update
-    (``parallel.sharded.average_step``)."""
+    (``parallel.sharded.average_step``; ``grad_divisor`` divides the summed
+    gradients in place of the group's size).  ``forward(scene, y) -> (pred,
+    scene, y)`` stands in for the model's call on the kNN mask: the
+    body-sharded step's, whose ranks take their rows and return the whole
+    sims' prediction, scene and targets, so that the loss and the metrics are
+    the whole sims'."""
     from ..parallel.sharded import average_step
 
     metric_names: list = []
@@ -140,11 +146,14 @@ def make_train_step(model, optim: NoamAdamW, loss_fn, targets, num_neighbors: in
 
     def step(scene: Scene, y: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         scene, y = scene.astype(dtype), y.to(dtype)
-        if mask is None:
-            mask = G.knn_mask(scene.pos, num_neighbors)
         model.train()
-        dropout = {"generator": generator} if needs_generator(model) else {}
-        pred = model(scene, mask, **dense, **dropout)
+        if forward is not None:
+            pred, scene, y = forward(scene, y)
+        else:
+            if mask is None:
+                mask = G.knn_mask(scene.pos, num_neighbors)
+            dropout = {"generator": generator} if needs_generator(model) else {}
+            pred = model(scene, mask, **dense, **dropout)
         loss, terms = loss_fn(pred, scene, y)
         optim.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -154,7 +163,7 @@ def make_train_step(model, optim: NoamAdamW, loss_fn, targets, num_neighbors: in
             vec = torch.stack([loss.float()] + [terms[n].float() for n in sorted(terms)]
                               + [perc[n].float() for n in sorted(perc)])
             if group is not None:
-                vec, ok = average_step(list(model.parameters()), vec, ok, group)
+                vec, ok = average_step(list(model.parameters()), vec, ok, group, grad_divisor)
         optim.update(ok)
         if not metric_names:
             metric_names.extend(["loss"] + sorted(terms) + sorted(perc))
@@ -166,14 +175,16 @@ def make_train_step(model, optim: NoamAdamW, loss_fn, targets, num_neighbors: in
 def load_training_state(model, optim: NoamAdamW, payload,
                         model_type: Optional[str] = None) -> None:
     """A checkpoint payload's parameters (and PONITA's calibration statistics)
-    and AdamW state into ``model`` and ``optim``, the JAX package's or the
-    port's; ``model_type`` names the family the payload must be of."""
+    and AdamW state (with ``apply_if_finite``'s counters, where it has them)
+    into ``model`` and ``optim``, the JAX package's or the port's;
+    ``model_type`` names the family the payload must be of."""
     model.load_state_dict(params_from_jax(payload["params"], model_type))
     adam = opt_state_from_jax(payload["opt_state"], model_type)
     if adam is not None:
         count, mu, nu = adam
         names = [n for n, _ in model.named_parameters()]
-        optim.set_state(count, [mu[n] for n in names], [nu[n] for n in names])
+        optim.set_state(count, [mu[n] for n in names], [nu[n] for n in names],
+                        skip_counts_from_jax(payload["opt_state"]))
 
 
 class Trainer:
@@ -334,12 +345,10 @@ class Trainer:
                                   **dict(zip(names, ts))})
 
         exp_avg, exp_avg_sq = self.optim.moments()
-        opt_state = {"count": np.asarray(self.optim.count, dtype=np.int32),
-                     "mu": moments(exp_avg), "nu": moments(exp_avg_sq)}
         path = save_checkpoint(
             self.save_dir_path,
             params_to_jax(state),
-            opt_state,
+            optax_opt_state(self.optim, moments(exp_avg), moments(exp_avg_sq)),
             self.step_count,
             self.best_metrics,
             filename=filename,

@@ -33,9 +33,10 @@ and ``b`` of its ``MVLinear_k``, ``MVSiLU_k``, ``_Normalization_0``,
 GraphTransformer's ``_EncoderLayer_k``.
 :func:`params_to_jax` is its inverse, for the port's own checkpoints.
 :func:`opt_state_from_jax` finds AdamW's state (optax's
-``ScaleByAdamState(count, mu, nu)``, or the port's ``{"count", "mu", "nu"}``)
-and maps its moments the same way, the ``calib`` entries left out: they are
-not parameters.
+``ScaleByAdamState(count, mu, nu)``, or the port's older ``{"count", "mu",
+"nu"}``) and maps its moments the same way, the ``calib`` entries left out:
+they are not parameters; :func:`skip_counts_from_jax` finds
+``apply_if_finite``'s counters.
 
 The family of a tree is the one a caller names (``model_type``) or, when it
 names none, the one whose top-level module the tree holds (EGNN-MC's
@@ -631,22 +632,43 @@ def params_to_jax(sd, model_type: Optional[str] = None) -> Dict[str, Any]:
     return {"params": p}
 
 
-def _find_adam(node) -> Optional[Tuple[Any, Any, Any]]:
+def _find_state(node, match):
+    """The first node of a state tree (dicts, tuples, lists) that ``match``
+    accepts, depth first, or None."""
+    if match(node):
+        return node
     if isinstance(node, dict):
-        if {"count", "mu", "nu"} <= set(node):
-            return node["count"], node["mu"], node["nu"]
         children = node.values()
     elif isinstance(node, (tuple, list)):
-        if type(node).__name__ == "ScaleByAdamState":
-            return tuple(node)
         children = node
     else:
         return None
     for child in children:
-        found = _find_adam(child)
+        found = _find_state(child, match)
         if found is not None:
             return found
     return None
+
+
+def _find_adam(node) -> Optional[Tuple[Any, Any, Any]]:
+    """``(count, mu, nu)`` of the first ``ScaleByAdamState`` (or the port's
+    older ``{"count", "mu", "nu"}``) in a state tree, or None."""
+    found = _find_state(node, lambda n: (isinstance(n, dict) and {"count", "mu", "nu"} <= set(n))
+                        or type(n).__name__ == "ScaleByAdamState")
+    if found is None:
+        return None
+    return (found["count"], found["mu"], found["nu"]) if isinstance(found, dict) else tuple(found)
+
+
+def skip_counts_from_jax(opt_state) -> Optional[Tuple[int, bool, int]]:
+    """``optax.apply_if_finite``'s counters in a checkpoint's ``opt_state``,
+    ``(notfinite_count, last_finite, total_notfinite)`` of its
+    ``ApplyIfFiniteState``, or None if it holds none."""
+    found = _find_state(opt_state, lambda n: type(n).__name__ == "ApplyIfFiniteState")
+    if found is None:
+        return None
+    nf, last, total = found[:3]
+    return int(np.asarray(nf)), bool(np.asarray(last)), int(np.asarray(total))
 
 
 def opt_state_from_jax(opt_state, model_type: Optional[str] = None) -> Optional[

@@ -196,8 +196,8 @@ def test_jax_reads_the_ports_run(small_pair):
     payload = weights.read_checkpoint(os.path.join(run_dir, "model.ckpt"))
     jtree = jax.tree_util.tree_structure(small_pair["jt"].params)
     assert jax.tree_util.tree_structure(payload["params"]) == jtree
-    for moment in ("mu", "nu"):
-        assert jax.tree_util.tree_structure(payload["opt_state"][moment]) == jtree
+    for moment in weights._find_adam(payload["opt_state"])[1:]:  # mu, nu
+        assert jax.tree_util.tree_structure(moment) == jtree
     jmodel, jparams, _, _ = JR.load_run(run_dir, seed=0)
     arrs = _scene_arrays()
     want = np.asarray(jmodel.apply(_f64(jparams), JScene(*(jnp.asarray(a) for a in arrs)),

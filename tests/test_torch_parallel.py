@@ -102,6 +102,7 @@ def test_mesh_shape_and_refusals(world1):
     assert torch.equal(pmesh.psum(x), x)
     assert torch.equal(pmesh.all_gather_rows(x), x)
     assert all(torch.equal(a, b) for a, b in zip(pmesh.ring_shift([x, x + 1]), [x, x + 1]))
+    assert pmesh.ring_shift_grad([x])[0] is x and pmesh.all_gather_rows_grad(x, dim=1) is x
     assert pmesh.broadcast_object({"a": 1}) == {"a": 1}
 
 
@@ -295,17 +296,70 @@ def test_world1_ring_matches_the_dense_stage(world1, norm_diff):
 
 
 def test_body_ring_model_refusals(world1):
+    """What the ring refuses (no ``ring=``, an activation other than silu, a
+    data mask in the body-sharded step); and what it no longer refuses: the
+    ring under autograd, whose gradient is the dense model's, and the
+    body-sharded step (``shard_bodies=True``), whose three steps are the
+    single-process step's, both in a world-size-1 ring in float64
+    (``BLOCK_RTOL``)."""
     rmodel = tmodels.create_model("egnn_mc", device="cpu", body_ring=True, **SMALL)
     scene = _scene(5).astype(torch.float32)
     with torch.no_grad(), pytest.raises(ValueError, match="ring="):
         rmodel(scene, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # no ring under autograd
-        rmodel(scene, None, ring=pmesh.axis_group(world1, "body"))
     with pytest.raises(ValueError, match="silu"):
         tmodels.create_model("egnn_mc", device="cpu", body_ring=True, activation="relu", **SMALL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sharded.make_sharded_train_step(None, None, None, [], 4, world1, torch.float32,
-                                        shard_bodies=True)
+    scene = _scene(5)
+    torch.manual_seed(4)
+    dense = tmodels.create_model("egnn_mc", device="cpu", dtype=torch.float64, **SMALL)
+    rmodel = tmodels.create_model("egnn_mc", device="cpu", dtype=torch.float64, body_ring=True,
+                                  **SMALL)
+    rmodel.load_state_dict(dense.state_dict())
+    # the ring under autograd
+    w = torch.from_numpy(np.random.default_rng(6).normal(size=(2, 7, 6)))
+    (dense(scene, tgraph.knn_mask(scene.pos, 6), edge_impl="dense") * w).sum().backward()
+    (rmodel(scene, None, ring=pmesh.axis_group(world1, "body")) * w).sum().backward()
+    for (n, p), q in zip(dense.named_parameters(), rmodel.parameters()):
+        _close(q.grad.numpy(), p.grad.numpy(), BLOCK_RTOL)
+    # the body-sharded step against the single-process one, on a kNN mask
+    losses = importlib.import_module(PORT + ".train.losses")
+    trainer = importlib.import_module(PORT + ".train.trainer")
+    optim = importlib.import_module(PORT + ".train.optim")
+    loss_fn = losses.build_loss_fn(type("A", (), {"target": "pos_dt+vel"})())
+    y = torch.from_numpy(np.random.default_rng(7).normal(size=(2, 7, 6)))
+    got = []
+    for shard in (True, False):
+        model = tmodels.create_model("egnn_mc", device="cpu", dtype=torch.float64, **SMALL)
+        model.load_state_dict(rmodel.state_dict())
+        opt = optim.create_optimizer(model.parameters(), 0.5, 16, warmup=4)
+        if shard:
+            step, _ = sharded.make_sharded_train_step(model, opt, loss_fn, ["pos_dt", "vel"], 3,
+                                                      world1, torch.float64, shard_bodies=True)
+            with pytest.raises(ValueError, match="no data mask"):
+                step(scene, y, torch.ones(2, 7, 7, dtype=torch.bool))
+        else:
+            step, _ = trainer.make_train_step(model, opt, loss_fn, ["pos_dt", "vel"], 3,
+                                              torch.float64)
+        vecs = [step(scene, y) for _ in range(3)]
+        got.append((vecs, dict(model.named_parameters())))
+    for a, b in zip(got[0][0], got[1][0]):
+        _close(a.numpy(), b.numpy(), BLOCK_RTOL)
+    for n, p in got[1][1].items():
+        _close(got[0][1][n].detach().numpy(), p.detach().numpy(), BLOCK_RTOL)
+
+
+@pytest.mark.parametrize("k", [1, 3, 6, 11])
+@pytest.mark.parametrize("blocks", [1, 2, 4])
+def test_knn_mask_rows_are_the_whole_masks_rows(k, blocks):
+    """``knn_mask(..., rows)`` (the body-sharded step's mask) gives the rows
+    of the whole mask, bitwise, coincident bodies (tied distances) included."""
+    pos = torch.from_numpy(np.random.default_rng(k).normal(size=(3, 12, 3)))
+    pos[0, 3] = pos[0, 5]
+    pos[1, 7] = pos[1, 0]
+    whole = tgraph.knn_mask(pos, k)
+    n = 12 // blocks
+    for b in range(blocks):
+        rows = slice(b * n, (b + 1) * n)
+        assert torch.equal(tgraph.knn_mask(pos, k, rows), whole[:, rows])
 
 
 def test_jax_checkpoint_runs_in_the_ring(world1):

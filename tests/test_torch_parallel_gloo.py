@@ -12,7 +12,16 @@ module; the parametrised tests below assert on what they return:
   "bfloat16"``; ``sharded_datagen``'s rows against the single-process batch,
   bitwise; the sharded evaluation rollout (``make_sharded_rollout_fn``, and
   ``run_self_feed(..., mesh=...)`` on a sharded dataset) gathered, against
-  the single-process one;
+  the single-process one; the body-sharded training step
+  (``make_sharded_train_step(..., shard_bodies=True)``) of a small EGNN-MC at
+  N=8 over (1, 4) and (2, 2), three steps each on a fully connected mask
+  with the centre-of-mass, energy and momentum losses on and on a kNN mask
+  below it, against the JAX package's body-sharded step on the virtual CPU
+  mesh and its unsharded step (with the first step's averaged gradients
+  against the port's single-process gradient of the whole batch's loss),
+  the ops' shapes of one kNN step (no ``[*, N, N, *]`` tensor on any rank), PaiNN's
+  gathered step against the port's single-process one, and the gradient of
+  ``EGNNMC(body_ring=True)`` summed over the ranks against the dense model's;
 * two ranks: three data-parallel steps of the port's ``Trainer`` (each rank
   its half of every batch) against the JAX package's ``Trainer`` on the whole
   batch, built as ``tests/test_torch_train_slice.py`` builds it, then its
@@ -32,7 +41,17 @@ Tolerances, each with its reason:
   averaged, is the whole batch's up to the order of the sums); the ranks'
   parameters bitwise equal after every step;
 * the sharded evaluation rollout against the single-process one, float64:
-  1e-12 (the same arithmetic on fewer sims), survived equal.
+  1e-12 (the same arithmetic on fewer sims), survived equal;
+* the body-sharded steps: each step's float64 loss within ``LOSS_RTOL`` and
+  the parameters after three steps within ``PARAM_RTOL`` of the JAX steps'
+  (the data-parallel steps' tolerances: the same float64 sums in another
+  order); the first step's gradients within ``GRAD_RTOL`` of each tensor's
+  largest value (the same), which AdamW's normalised update would hide if
+  a reduction scaled them; the ranks' parameters bitwise equal; PaiNN's
+  gathered steps within the same tolerances of the single-process ones;
+* the ring's gradient summed over the ranks against the dense model's,
+  float64: ``RING_GRAD_RTOL`` = 1e-12 of each tensor's largest value (the
+  same sums, in the ring's order).
 """
 
 import importlib
@@ -42,6 +61,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 TPU = "extending_the_n_body_benchmark_a_cross_model_study_of_geometric_deep_learning_architectures_tpu"
 PORT = TPU + "_torch"
@@ -65,6 +85,13 @@ ARGV = ["--model.num_layers", "2", "--model.hidden_node_dim", "16",
         "--trainer.self_feed_limit_steps", "12", "--trainer.learning_rate_warmup_steps", "4"]
 LOSS_RTOL, PARAM_RTOL = 1e-10, 1e-9
 STEPS = 3
+# the body-sharded steps: B=4 sims of N=8 at SMALL width, float64; case ->
+# (num_neighbors, the com / energy / momentum losses on)
+SB, SN = 4, 8
+STEP_CASES = {"fc": (SN - 1, True), "knn": (3, False)}
+OPT = dict(learning_rate=0.5, model_size=16, warmup=4)
+GRAD_RTOL, RING_GRAD_RTOL = 1e-10, 1e-12
+PAINN = dict(hidden_features=8, num_layers=2, num_rbf=6)
 
 
 def _scene_arrays(seed=0):
@@ -82,11 +109,96 @@ def _tscene(arrays, dtype=torch.float64):
     return Scene(*(torch.from_numpy(a).to(dtype) for a in arrays))
 
 
+def _step_arrays(seed=11):
+    """The body-sharded steps' float64 ``(pos, vel, force, mass, y)``."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(SB, SN, 3)), rng.normal(size=(SB, SN, 3)) * 0.3,
+            rng.normal(size=(SB, SN, 3)), rng.uniform(0.5, 1.5, size=(SB, SN, 1)),
+            rng.normal(size=(SB, SN, 6)) * 0.1)
+
+
+def _loss_args(phys: bool):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(target="pos_dt+vel", com_loss=phys, energy_loss=phys,
+                           momentum_loss=phys)
+
+
+class _Shapes(TorchDispatchMode):
+    """Records the shape of every op's tensor output."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in torch.utils._pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self.seen.add(tuple(t.shape))
+        return out
+
+
+def _body_sharded_steps(mesh, name, state, painn_state):
+    """Three body-sharded steps of each case (and of PaiNN at (2, 2)): each
+    step's float64 loss, the first step's averaged gradients, the parameters
+    after; the shapes of one rows-form step at (1, 4); the ring's gradient of
+    ``sum(pred * w)`` on this rank's block."""
+    par = importlib.import_module(PORT + ".parallel")
+    pmesh = importlib.import_module(PORT + ".parallel.mesh")
+    models = importlib.import_module(PORT + ".models")
+    losses = importlib.import_module(PORT + ".train.losses")
+    optim = importlib.import_module(PORT + ".train.optim")
+    pos, vel, force, mass, y = (torch.from_numpy(a) for a in _step_arrays())
+    rows = [pmesh.local_rows(t, mesh, shard_bodies=True) for t in (pos, vel, force, mass, y)]
+    scene, y_rows = Scene(*rows[:4]), rows[4]
+    out = {}
+    runs = [(case, "egnn_mc", state, {}) for case in STEP_CASES]
+    if name == "2x2":
+        runs.append(("painn", "painn", painn_state, PAINN))
+    for case, family, st, kw in runs:
+        k, phys = STEP_CASES.get(case, (SN - 1, False))
+        model = models.create_model(family, device="cpu", dtype=torch.float64,
+                                    **(kw or SMALL))
+        model.load_state_dict({n: torch.from_numpy(v) for n, v in st.items()})
+        opt = optim.create_optimizer(model.parameters(), **OPT)
+        base, seen = losses.build_loss_fn(_loss_args(phys)), []
+
+        def loss_fn(pred, s, yy, base=base, seen=seen):
+            total, terms = base(pred, s, yy)
+            seen.append(float(total.detach()))
+            return total, terms
+
+        step, _ = par.make_sharded_train_step(model, opt, loss_fn, ["pos_dt", "vel"], k, mesh,
+                                              torch.float64, shard_bodies=True)
+        rec = {"losses": seen}
+        for i in range(STEPS):
+            if case == "knn" and name == "1x4" and i == 0:
+                with _Shapes() as mode:
+                    step(scene, y_rows)
+                out["shapes"] = sorted(mode.seen)
+            else:
+                step(scene, y_rows)
+            if i == 0:
+                rec["grads"] = {n: p.grad.numpy().copy() for n, p in model.named_parameters()}
+        rec["params"] = {n: p.detach().numpy().copy() for n, p in model.named_parameters()}
+        out[f"step_{case}_{name}"] = rec
+    ring = models.create_model("egnn_mc", device="cpu", dtype=torch.float64, body_ring=True,
+                               **SMALL)
+    ring.load_state_dict({n: torch.from_numpy(v) for n, v in state.items()})
+    w = pmesh.local_rows(torch.from_numpy(np.random.default_rng(12).normal(size=(SB, SN, 6))),
+                         mesh, shard_bodies=True)
+    (ring(scene, None, ring=pmesh.axis_group(mesh, "body")) * w).sum().backward()
+    out[f"ring_grad_{name}"] = {n: p.grad.numpy().copy() for n, p in ring.named_parameters()}
+    return out
+
+
 # ------------------------------------------------------------ the ranks' work
 
-def _ring_ranks(rank, arrays, state, threshold):
-    """Four ranks: the ring force, the ring rollouts, sharded datagen and the
-    sharded evaluation rollout; this rank's blocks and coordinates."""
+def _ring_ranks(rank, arrays, state, threshold, painn_state):
+    """Four ranks: the ring force, the ring rollouts, the body-sharded steps
+    and the ring's gradient, sharded datagen and the sharded evaluation
+    rollout; this rank's blocks and coordinates."""
     par = importlib.import_module(PORT + ".parallel")
     pmesh = importlib.import_module(PORT + ".parallel.mesh")
     models = importlib.import_module(PORT + ".models")
@@ -110,6 +222,7 @@ def _ring_ranks(rank, arrays, state, threshold):
             s = scene if dt == "f64" else scene.astype(torch.float32)
             fn = par.make_body_ring_rollout_fn(model, T, mesh, explosion_threshold=threshold)
             out[f"ring_{dt}_{name}"] = tuple(t.numpy() for t in fn(s))
+        out.update(_body_sharded_steps(mesh, name, state, painn_state))
     mesh = par.make_mesh(4)  # (4, 1): the sims over the ranks
     out["sim_rank"] = mesh.get_local_rank("sim")
     for noise in (0.0, 0.01):
@@ -208,14 +321,20 @@ def ring_run():
     dense = models.create_model("egnn_mc", device="cpu", dtype=torch.float64, **SMALL)
     dense.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
     threshold = _threshold(dense)
+    torch.manual_seed(13)
+    painn = models.create_model("painn", device="cpu", dtype=torch.float64, **PAINN)
+    painn_state = {k: v.numpy() for k, v in painn.state_dict().items()}
     with ThreadPoolExecutor(1) as pool:  # the ranks run while the JAX references compile
         job = pool.submit(launch.spawn_ranks, _ring_ranks, 4,
-                          (_scene_arrays(), state, threshold), timeout=RANK_TIMEOUT)
+                          (_scene_arrays(), state, threshold, painn_state),
+                          timeout=RANK_TIMEOUT)
         jax_force = _jax_ring_force()
         jax_rollouts = _jax_ring_rollouts(jparams, threshold)
+        jax_steps = _jax_body_sharded_steps(jparams)
         ranks = job.result()
     return dict(ranks=ranks, jparams=jparams, dense=dense, threshold=threshold, state=state,
-                jax_force=jax_force, jax_rollouts=jax_rollouts)
+                jax_force=jax_force, jax_rollouts=jax_rollouts, jax_steps=jax_steps,
+                painn_state=painn_state)
 
 
 def _assemble(ranks, key, name, index, sims, bodies_axis):
@@ -378,6 +497,161 @@ def test_run_self_feed_on_a_sharded_dataset(ring_run):
         _close(got[2], want[2].numpy(), EVAL_RTOL)
         _close(got[3], want[3].numpy(), EVAL_RTOL)
         assert got[4] == want[4]
+
+
+# ------------------------------------------------------ body-sharded steps
+
+def _jax_body_sharded_steps(jparams):
+    """The JAX package's ``make_sharded_train_step(..., shard_bodies=True)``
+    at each mesh and case, and its unsharded step (a one-device mesh): each
+    step's loss and the parameters after."""
+    jax, jnp = _jax()
+    jmesh = importlib.import_module(TPU + ".parallel.mesh")
+    jsharded = importlib.import_module(TPU + ".parallel.sharded")
+    jmodels = importlib.import_module(TPU + ".models")
+    jlosses = importlib.import_module(TPU + ".train.losses")
+    joptim = importlib.import_module(TPU + ".train.optim")
+    JScene = importlib.import_module(TPU + ".core.scene").Scene
+    arrs = _step_arrays()
+    js, jy = JScene(*(jnp.asarray(a) for a in arrs[:4])), jnp.asarray(arrs[4])
+    model = jmodels.create_model("egnn_mc", **SMALL)
+    tx = joptim.create_optimizer(**OPT)
+    meshes = {name: jmesh.make_mesh(4, body_parallel=bp) for name, bp in MESHES.items()}
+    meshes["single"] = jmesh.make_mesh(1)
+    out = {}
+    for case, (k, phys) in STEP_CASES.items():
+        loss_fn = jlosses.build_loss_fn(_loss_args(phys))
+        for name, mesh in meshes.items():
+            bodies = name != "single"
+            step = jsharded.make_sharded_train_step(model, tx, loss_fn, k, mesh,
+                                                    shard_bodies=bodies)
+            scene = jsharded.shard_scene(js, mesh, shard_bodies=bodies)
+            y = jax.device_put(jy, scene.pos.sharding)
+            # placed as the step's outputs are, so that its first call's
+            # compile serves the later ones
+            params = jax.device_put(jparams, jmesh.replicate(mesh))
+            opt_state, seen = jax.device_put(tx.init(params), jmesh.replicate(mesh)), []
+            for _ in range(STEPS):
+                params, opt_state, loss = step(params, opt_state, scene, y, jax.random.PRNGKey(0))
+                seen.append(float(loss))
+            out[(name, case)] = (seen, jax.tree_util.tree_map(np.asarray, params))
+    return out
+
+
+def _rank_steps(ring_run, key):
+    return [r[key] for r in ring_run["ranks"] if key in r]
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+@pytest.mark.parametrize("name", list(MESHES))
+def test_body_sharded_step_matches_jax(ring_run, name, case):
+    """Three steps' losses and the parameters after them against the JAX
+    package's body-sharded step and its unsharded step; the first step's
+    averaged gradients against the port's single-process gradient of the
+    whole batch's loss; the ranks of a sim row hold the same loss, and every
+    rank, bitwise, the same parameters."""
+    weights = importlib.import_module(PORT + ".weights")
+    models = importlib.import_module(PORT + ".models")
+    losses_mod = importlib.import_module(PORT + ".train.losses")
+    tgraph = importlib.import_module(PORT + ".core.graph")
+    recs = _rank_steps(ring_run, f"step_{case}_{name}")
+    assert len(recs) == 4
+    # a rank's loss is its sims' (every body rank of a sim row holds it); the
+    # sim rows' mean is the batch's
+    losses = np.mean([r["losses"] for r in recs], axis=0)
+    for ref in (name, "single"):
+        jloss, jparams = ring_run["jax_steps"][(ref, case)]
+        for got, want in zip(losses, jloss):
+            assert abs(got - want) <= LOSS_RTOL * abs(want), (ref, got, want)
+        want = weights.params_from_jax(jparams)
+        for n, p in recs[0]["params"].items():
+            w = want[n].numpy()
+            assert np.abs(p - w).max() <= PARAM_RTOL * np.abs(w).max(), (ref, n)
+    k, phys = STEP_CASES[case]
+    dense = models.create_model("egnn_mc", device="cpu", dtype=torch.float64, **SMALL)
+    dense.load_state_dict({n: torch.from_numpy(v) for n, v in ring_run["state"].items()})
+    arrs = [torch.from_numpy(a) for a in _step_arrays()]
+    scene = Scene(*arrs[:4])
+    pred = dense(scene, tgraph.knn_mask(scene.pos, k), edge_impl="dense")
+    losses_mod.build_loss_fn(_loss_args(phys))(pred, scene, arrs[4])[0].backward()
+    for n, p in dense.named_parameters():
+        w = p.grad.numpy()
+        assert np.abs(recs[0]["grads"][n] - w).max() <= GRAD_RTOL * np.abs(w).max(), n
+    row_first = {}
+    for r, (sim, _) in zip(recs, _rank_steps(ring_run, f"coord_{name}")):
+        assert r["losses"] == row_first.setdefault(sim, r)["losses"]
+        for n, p in r["params"].items():
+            np.testing.assert_array_equal(p, recs[0]["params"][n])
+
+
+def test_body_sharded_step_makes_no_whole_edge_tensor(ring_run):
+    """One kNN step at (1, 4), forward and backward: no op on a rank outputs
+    a tensor whose receiver and sender dimensions are both N (the edge shape
+    ``[B, N, N, *]``, the mask's ``[B, N, N]`` too); the receiver rows ``[B,
+    N/4, N, He]`` are there."""
+    shapes = _rank_steps(ring_run, "shapes")
+    assert len(shapes) == 4
+    n_local, he = SN // 4, SMALL["hidden_edge_dim"]
+    for seen in shapes:
+        seen = [tuple(s) for s in seen]
+        assert (SB, n_local, SN, he) in seen
+        # [N, N, ...] or [B, N, N, ...] (a feature dim of width N may follow)
+        whole = [s for s in seen if any(a == b == SN for a, b in zip(s[:2], s[1:3]))]
+        assert not whole, whole
+
+
+def test_gathered_step_of_another_family(ring_run):
+    """PaiNN's body-sharded step (its sims gathered whole) at (2, 2) against
+    the port's single-process step on the whole batch."""
+    models = importlib.import_module(PORT + ".models")
+    losses = importlib.import_module(PORT + ".train.losses")
+    optim = importlib.import_module(PORT + ".train.optim")
+    trainer = importlib.import_module(PORT + ".train.trainer")
+    model = models.create_model("painn", device="cpu", dtype=torch.float64, **PAINN)
+    model.load_state_dict({n: torch.from_numpy(v) for n, v in ring_run["painn_state"].items()})
+    opt = optim.create_optimizer(model.parameters(), **OPT)
+    base, seen = losses.build_loss_fn(_loss_args(False)), []
+
+    def loss_fn(pred, s, yy):
+        total, terms = base(pred, s, yy)
+        seen.append(float(total.detach()))
+        return total, terms
+
+    step, _ = trainer.make_train_step(model, opt, loss_fn, ["pos_dt", "vel"], SN - 1,
+                                      torch.float64)
+    arrs = [torch.from_numpy(a) for a in _step_arrays()]
+    for _ in range(STEPS):
+        step(Scene(*arrs[:4]), arrs[4])
+    recs = _rank_steps(ring_run, "step_painn_2x2")
+    assert len(recs) == 4
+    for got, want in zip(np.mean([r["losses"] for r in recs], axis=0), seen):
+        assert abs(got - want) <= LOSS_RTOL * abs(want)
+    for r in recs:
+        for n, p in model.named_parameters():
+            w = p.detach().numpy()
+            assert np.abs(r["params"][n] - w).max() <= PARAM_RTOL * np.abs(w).max(), n
+            np.testing.assert_array_equal(r["params"][n], recs[0]["params"][n])
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_ring_gradient_matches_the_dense_model(ring_run, name):
+    """The gradient of ``sum(pred * w)`` through ``EGNNMC(body_ring=True)``,
+    each rank's share summed over the ranks, against the dense model's on the
+    whole batch."""
+    tgraph = importlib.import_module(PORT + ".core.graph")
+    dense = importlib.import_module(PORT + ".models").create_model(
+        "egnn_mc", device="cpu", dtype=torch.float64, **SMALL)
+    dense.load_state_dict({n: torch.from_numpy(v) for n, v in ring_run["state"].items()})
+    arrs = [torch.from_numpy(a) for a in _step_arrays()]
+    scene = Scene(*arrs[:4])
+    w = torch.from_numpy(np.random.default_rng(12).normal(size=(SB, SN, 6)))
+    (dense(scene, tgraph.knn_mask(scene.pos, SN - 1), edge_impl="dense") * w).sum().backward()
+    shares = _rank_steps(ring_run, f"ring_grad_{name}")
+    assert len(shares) == 4
+    for n, p in dense.named_parameters():
+        got = sum(share[n] for share in shares)
+        want = p.grad.numpy()
+        assert np.abs(got - want).max() <= RING_GRAD_RTOL * np.abs(want).max(), n
 
 
 # ------------------------------------------------------- data-parallel trainer
