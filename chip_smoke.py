@@ -74,6 +74,14 @@ bf16, coordinates, geometry and integration in f32):
  14. bign-rollout-bf16  the same GT in the mixed-bf16 streaming model, with
                    the bf16 elementwise stack (99 steps through K3-elem only)
                    and without it (through K3-bf16 only), KS score
+ 14b. rollout-full-bf16  a full-bf16 scene (scene and parameters in bf16, the
+                   JAX package's pallas-bf16-t64): the checkpoint on [determinism]'s
+                   GT frame, 20 steps through K1-bf16 only (120 launches), and in
+                   the streaming model on [bign-rollout]'s frame, 3 steps through
+                   K3-bf16 only (18), finite; each kernel given the bf16 geometry
+                   or node inputs bitwise equal to it given them cast to float32
+                   by hand; the trainer builds in precision_mode bfloat16 with
+                   the kernel edge stage and refuses double
  15. datagen-substeps  GT where simulate's rule takes the loop of K2 launches
                    (B=1, 20 substeps; N=8192, above the integrator's shared
                    memory, and N=7264, where the loop is faster): one K2
@@ -93,7 +101,7 @@ bf16, coordinates, geometry and integration in f32):
                    the committed N=100 protocol: B=16, 2500 substeps, 8 batches
                    (one K2-leapfrog launch each), 28 pairs; per-macro and
                    combined p beside the committed six-macro floor; the combined
-                   median at least 0.05
+                   median at least 0.05; its JSON and figure written for [viz]
  19. floor-n512    the same at N=512: B=8, 1000 substeps, 6 batches, 15 pairs
  20. battery       `cli self-feed --draws 3 --seed 281` on a run dir of the study
                    protocol around the committed checkpoint (its bytes unchanged):
@@ -103,7 +111,17 @@ bf16, coordinates, geometry and integration in f32):
                    package's keys
  21. validate      `cli validate --batches 2` on that run dir, every loss finite
  22. ks-test       `cli ks-test` on [train]'s run dir: its best checkpoint's
-                   combined p equals the one [train] scored, to 1e-12
+                   combined p equals the one [train] scored, to 1e-12; it writes
+                   ks_results.csv, ks_summary.json and ks_results.png
+ 22b. viz          the figures of [battery]'s first draw (B=16, N=100, T=249),
+                   drawn on the host with numpy and the standard library: the
+                   macro histograms, the projected trajectories and the KS
+                   figures (from [ks-test]'s JSON) by direct calls, then
+                   `viz.cli --html --animate --extended`, the checkpoint PDF of
+                   both PNG sets; every file there, every PNG decoded at its
+                   figure's size and not blank (the floor figure [floor-n100]
+                   drew too), each histogram np.histogram of its macro, no
+                   matplotlib or PIL imported, no launch, under 10 s
  23. inferencer    Inferencer on the battery's run dir: predict through K1
                    against the plain path, and a 20-step rollout bitwise equal to
                    run_self_feed's from the same scene
@@ -517,6 +535,12 @@ FLOORS = {"floor-n100": (16, 100, 2500, 8, "gtgt_n100_sixbasis_baseline_metamacr
 FLOOR_SEED, FLOOR_MEDIAN_MIN = 0, 0.05
 # the battery of the committed checkpoint (README section 3's first seed)
 BATTERY_DRAWS, BATTERY_SEED = 3, 281  # 3 of the committed battery's 6 draws
+# a full-bf16 scene (scene and parameters in bf16, the JAX package's
+# pallas-bf16-t64 config): steps through K1-bf16 at (B, N) and K3-bf16 at
+# (BIG_B, BIG_N)
+FULL_BF16_STEPS, FULL_BF16_BIG_STEPS = 20, 3
+# the figures of a card rollout, drawn on the host: the phase's limit
+VIZ_MAX_S = 10.0
 VALIDATE_BATCHES = 2
 # ks-test ranks [train]'s checkpoint from the JSONs [train] scored: the same
 # p-values, combined in another order
@@ -1626,6 +1650,12 @@ def main() -> None:
         trainer_mod = importlib.import_module(f"{PKG}.train.trainer")
         config_mod = importlib.import_module(f"{PKG}.utils.config")
         artifacts = importlib.import_module(f"{PKG}.metrics.artifacts")
+        extended = importlib.import_module(f"{PKG}.metrics.extended_artifacts")
+        ks_checkpoints = importlib.import_module(f"{PKG}.evaluation.ks_checkpoints")
+        viz_cli = importlib.import_module(f"{PKG}.viz.cli")
+        viz_encode = importlib.import_module(f"{PKG}.viz.encode")
+        viz_plots = importlib.import_module(f"{PKG}.viz.macro_plots")
+        viz_traj = importlib.import_module(f"{PKG}.viz.trajectories")
         cli = importlib.import_module(f"{PKG}.cli")
         studies = importlib.import_module(f"{PKG}.evaluation.studies")
         battery = importlib.import_module(f"{PKG}.battery")
@@ -2416,6 +2446,101 @@ def main() -> None:
         score(f"bign-score-bf16 {config}", run["loc_gt"], run["vel_gt"], run["loc_pred"],
               run["vel_pred"])
         del run, big_bf
+
+    # ------------------------------------------------- 14b. rollout-full-bf16
+    # a full-bf16 scene (scene and parameters in bf16, the JAX package's
+    # pallas-bf16-t64): the kernels take its geometry (K1) and node inputs (K3)
+    # as float32, as the JAX wrappers cast them.  The checkpoint in bf16 on
+    # [determinism]'s GT frame, FULL_BF16_STEPS counted steps through K1-bf16
+    # alone, and in the streaming model on [bign-rollout]'s GT frame,
+    # FULL_BF16_BIG_STEPS through K3-bf16 alone; each kernel given the bf16
+    # inputs bitwise equal to it given the same values cast to float32 by hand
+    t0 = time.perf_counter()
+    bf = torch.bfloat16
+    lg, vg, fg, mg = big["gt"]
+    full_bf16_counts = dict.fromkeys(counters, 0)
+    fb_info = {}
+    for tag, kw, scene_fb, steps, kernel in (
+            ("k1", {}, scene0.astype(bf), FULL_BF16_STEPS, "k1_bf16"),
+            ("k3", dict(streaming=True),
+             Scene(pos=lg[:, 0], vel=vg[:, 0], force=fg[:, 0], mass=mg).astype(bf),
+             FULL_BF16_BIG_STEPS, "k3_bf16")):
+        model_fb = models.create_model("egnn_mc", device=dev, **kw)
+        model_fb.load_state_dict(model.state_dict())
+        model_fb = model_fb.to(bf).eval()
+        if any(p.dtype != bf for p in model_fb.parameters()):
+            fail(f"rollout-full-bf16: the {tag} model's parameters are not all bf16")
+        reset_counts()
+        t = time.perf_counter()
+        loc_fb, vel_fb, surv_fb = self_feed.make_rollout_fn(model_fb, steps + 1)(scene_fb)
+        sync()
+        roll_s = time.perf_counter() - t
+        got_counts = counts()
+        want = dict.fromkeys(counters, 0)
+        want[kernel] = LAYERS * steps
+        if got_counts != want:
+            fail(f"rollout-full-bf16 ({tag}): launched {got_counts}, want {want}")
+        if loc_fb.dtype != bf or not (torch.isfinite(loc_fb).all() and torch.isfinite(vel_fb).all()):
+            fail(f"rollout-full-bf16 ({tag}): the rollout is {loc_fb.dtype} or not finite")
+        for k, v in got_counts.items():
+            full_bf16_counts[k] += v
+        # layer 0's inputs on the scene, as the model makes them
+        bb, nn_ = scene_fb.pos.shape[:2]
+        layer = model_fb.layers[0]
+        maskf = graph.knn_mask(scene_fb.pos, nn_ - 1).to(bf)
+        with torch.no_grad():
+            if tag == "k1":
+                x, edge_attr = model_fb.featurize(scene_fb)
+                hA, hB, geom = layer.edge_inputs(model_fb.embedding(x), scene_fb.pos, edge_attr)
+                ins = (hA, hB, geom, maskf, *layer.edge_weights(bf))
+                cast = (2,)
+                fn = EM.fused_egnn_messages
+            else:
+                speed = torch.linalg.vector_norm(scene_fb.vel, dim=-1, keepdim=True)
+                hA, hB = layer.node_terms(model_fb.embedding(torch.cat([speed, scene_fb.mass], -1)))
+                ins = (hA, hB, scene_fb.pos, scene_fb.vel, scene_fb.mass, scene_fb.pos, maskf,
+                       *layer.edge_weights(bf))
+                cast = (2, 3, 4, 5)
+                fn = ES.streaming_egnn_messages
+            if any(ins[i].dtype != bf for i in cast) or hA.dtype != bf:
+                fail(f"rollout-full-bf16 ({tag}): the scene's inputs are not bf16")
+            got = fn(*ins, tanh=layer.tanh)
+            by_hand = fn(*(t.float() if i in cast else t for i, t in enumerate(ins)),
+                         tanh=layer.tanh)
+        sync()
+        if not (got[0].dtype == bf and got[1].dtype == torch.float32
+                and all(torch.equal(a, b) for a, b in zip(got, by_hand))):
+            fail(f"rollout-full-bf16 ({tag}): the kernel given bf16 inputs differs from it "
+                 "given them cast to float32 by hand")
+        fb_info[f"{tag}_B"], fb_info[f"{tag}_N"] = bb, nn_
+        fb_info[f"{tag}_steps"], fb_info[f"{kernel}_launches"] = steps, got_counts[kernel]
+        fb_info[f"{tag}_rollout_s"] = f"{roll_s:.3f}"
+        fb_info[f"{tag}_survived_min"] = int(surv_fb.min())
+        fb_info[f"{tag}_bitwise_hand_cast"] = True
+        del model_fb, loc_fb, vel_fb
+    # the trainer builds in bfloat16 with the kernel edge stage; double still raises
+    class _FirstBatch(Exception):
+        pass
+
+    class _NoData:
+        def get_batch(self):
+            raise _FirstBatch
+
+    for mode in ("bfloat16", "double"):
+        targs, _ = config_mod.parse_args(["--trainer.precision_mode", mode])
+        kernel_model = models.create_model("egnn_mc", device=dev, num_layers=1)
+        try:
+            trainer_mod.Trainer(kernel_model, _NoData(), targs, device=str(dev))
+            fail(f"rollout-full-bf16: the trainer in {mode} drew no batch")
+        except _FirstBatch:
+            built = True
+        except NotImplementedError:
+            built = False
+        if built != (mode == "bfloat16"):
+            fail(f"rollout-full-bf16: precision_mode {mode} on the card "
+                 f"{'built' if built else 'was refused'}")
+        fb_info[f"trainer_{mode}"] = "builds" if built else "refused"
+    report("rollout-full-bf16", t0, **fb_info)
     del big
 
     # --------------------------------------------------- 15. datagen-substeps
@@ -2813,7 +2938,8 @@ def main() -> None:
     # ------------------------------------------- 18-19. floor-n100, floor-n512
     # the GT-vs-GT floor at the committed protocols, beside the committed
     # six-macro floors: datagen and scoring alone, no model
-    eval_counts = {}
+    eval_counts = {"rollout-full-bf16": full_bf16_counts}
+    floor_dirs = tempfile.TemporaryDirectory()  # the floors' JSON and figure, for [viz]
 
     def counted(want: dict, tag: str) -> dict:
         got = counts()
@@ -2830,7 +2956,8 @@ def main() -> None:
         reset_counts()
         ds = otf.GravityDatasetOtf(batch_size=fb, num_nodes=fn_, sim_length=flen,
                                    cache_data=False, seed=FLOOR_SEED, device=dev)
-        floor = studies.baseline_metamacros(ds, num_batches=fbatches)
+        floor = studies.baseline_metamacros(ds, num_batches=fbatches,
+                                            save_dir=os.path.join(floor_dirs.name, tag))
         sync()
         eval_counts[tag] = counted({"leapfrog": fbatches}, tag)
         comb = np.asarray(floor["combined_pvalues"])
@@ -2916,11 +3043,18 @@ def main() -> None:
     # ---------------------------------------------------------- 22. ks-test
     t0 = time.perf_counter()
     ranked = cli.main(["ks-test", study_run["dir"]])
-    written = [f for f in ("ks_results.csv", "ks_summary.json")
+    written = [f for f in ("ks_results.csv", "ks_summary.json", "ks_results.png")
                if os.path.exists(os.path.join(study_run["dir"], f))]
+    if len(written) != 3:
+        study_tmp.cleanup()
+        fail(f"ks-test: wrote {written} into the run dir, want ks_results.csv, "
+             "ks_summary.json and ks_results.png")
+    with open(os.path.join(study_run["dir"], "ks_summary.json")) as f:
+        ks_written = json.load(f)  # [viz] draws its figures from it
+    ks_png = viz_encode.read_png(os.path.join(study_run["dir"], "ks_results.png"))
     study_tmp.cleanup()
-    if len(written) != 2:
-        fail(f"ks-test: wrote {written} into the run dir, want ks_results.csv and ks_summary.json")
+    if ks_png.shape != (600, 1000, 3) or not (ks_png != 255).any():
+        fail(f"ks-test: ks_results.png is {ks_png.shape} or blank")
     rel = abs(ranked["best_combined_pvalue"] - study_run["macro_p"]) / study_run["macro_p"]
     if ranked["best_checkpoint"] != study_run["epoch"] or not rel <= KS_RTOL:
         fail(f"ks-test: best checkpoint {ranked['best_checkpoint']} p "
@@ -2930,6 +3064,101 @@ def main() -> None:
            best_checkpoint=ranked["best_checkpoint"],
            best_combined_p=f"{ranked['best_combined_pvalue']:.6e}",
            train_macro_p=f"{study_run['macro_p']:.6e}", rel_diff=f"{rel:.3e}", limit=KS_RTOL)
+
+    # ---------------------------------------------------------------- 22b. viz
+    # the figures of a card rollout, drawn on the host with numpy and the
+    # standard library: [battery]'s first draw (its GT and predicted
+    # trajectories, written from the card's tensors), the figure functions
+    # called directly (evaluate_rollout would swallow a rendering error),
+    # `viz.cli --html --animate --extended` on the same arrays, the checkpoint
+    # PDF of both PNG sets, the KS figures from [ks-test]'s JSON, and the
+    # floor figure [floor-n100] drew beside its JSON
+    t0 = time.perf_counter()
+    reset_counts()
+    draw_dir = os.path.join(run_dir, "generated_trajectories", "draw_00")
+    folder = os.path.join(draw_dir, "trajectories_data")
+    loc_a, vel_a, loc_p, vel_p = viz_cli.load_trajectories(folder)
+    viz_root = os.path.join(eval_tmp.name, "viz")
+    direct = os.path.join(viz_root, "checkpoints", "0")
+    read = artifacts.read_macro_jsons(draw_dir)  # the draw's macros, as [battery] wrote them
+    gt_m = {k: v["ground truth"] for k, v in read.items()}
+    pred_m = {k: v["predicted"] for k, v in read.items()}
+    figs = viz_plots.plot_macro_histograms(direct, gt_m, pred_m)
+    figs += viz_plots.plot_trajectories_2d(direct, loc_a, loc_p)
+    rows_ks = ks_written["results"]
+    keys_ks = sorted({k for r in rows_ks for k in r if k not in ("checkpoint", "combined_pvalue")})
+    figs += viz_plots.plot_pvalue_series(direct, [r["checkpoint"] for r in rows_ks],
+                                         [r["combined_pvalue"] for r in rows_ks],
+                                         {k: [r.get(k, float("nan")) for r in rows_ks]
+                                          for k in keys_ks}, filename="ks_results.png")
+    figs += viz_plots.save_figures(direct, [viz_plots.multi_model_figure(
+        {"egnn_mc (study_n100)": rows_ks}, "ks_multi.png")])
+    by_name = {f.filename: f for f in figs}
+    # each histogram's counts are np.histogram's of the macros, on the pair's edges
+    for field, (fname, _, bins) in viz_plots._MACRO_PLOTS.items():
+        if field not in gt_m:
+            continue
+        g, p = (np.asarray(d[field], np.float64) for d in (gt_m, pred_m))
+        lo = min(np.nanmin(g, initial=np.inf), np.nanmin(p, initial=np.inf))
+        hi = max(np.nanmax(g, initial=-np.inf), np.nanmax(p, initial=-np.inf))
+        lo, hi = (lo, hi) if np.isfinite(lo) and np.isfinite(hi) else (0.0, 1.0)
+        edges = np.linspace(lo, hi if hi > lo else lo + 1.0, bins + 1)
+        for panel, data in zip(by_name[fname].panels, (g, p)):
+            want = np.histogram(data[np.isfinite(data)], edges)[0]
+            if not (np.array_equal(panel.bars[0].edges, edges)
+                    and np.array_equal(panel.bars[0].counts, want)):
+                fail(f"viz: {fname}: the histogram is not np.histogram of the macro {field}")
+    viz_cli.main(["--folder", folder, "--out", os.path.join(viz_root, "checkpoints", "1"),
+                  "--html", "--animate", "--extended"])
+    pdf = viz_traj.aggregate_checkpoint_plots_pdf(viz_root)
+    viz_s = time.perf_counter() - t0
+    # every expected file, each PNG decoded at its figure's size and not blank
+    sizes = {name: f.size_px for name, f in by_name.items()}
+    sizes.update({"trajectory_3d_actual.png": (800, 800), "trajectory_3d_pred.png": (800, 800),
+                  "energy_statistics.png": (1200, 1200), "feature_distributions.png": (1400, 1000),
+                  "difference_distributions.png": (1400, 1000),
+                  "momentum_statistics_multiplot.png": (1000, 1000),
+                  "energies_of_all_sims.png": (1200, 1000),
+                  "energy_distributions_across_all_sims.png": (1600, 900)})
+    cli_pngs = [n for n in sizes if n not in ("ks_results.png", "ks_multi.png")]
+    floor_png = os.path.join(floor_dirs.name, "floor-n100", "baseline_metamacros.png")
+    expected = ([os.path.join(direct, f.filename) for f in figs]
+                + [os.path.join(viz_root, "checkpoints", "1", n) for n in cli_pngs
+                   + ["trajectory.html"]]
+                + [floor_png, os.path.join(viz_root, "checkpoint_plots.pdf")])
+    movie = [os.path.join(viz_root, "checkpoints", "1", n)
+             for n in ("trajectory.mp4", "trajectory.gif")]
+    missing = [f for f in expected if not os.path.exists(f)]
+    if missing or not any(os.path.exists(m) for m in movie) or pdf is None:
+        fail(f"viz: missing {missing}, movie {movie}, pdf {pdf}")
+    sizes["baseline_metamacros.png"] = (1200, 1400)
+    for path in expected:
+        if not path.endswith(".png"):
+            continue
+        img = viz_encode.read_png(path)
+        w, h = sizes[os.path.basename(path)]
+        if img.shape != (h, w, 3) or not (img != 255).any() or not (img != img[0, 0]).any():
+            fail(f"viz: {path} decodes to {img.shape} (want {(h, w, 3)}) or is blank")
+    with open(os.path.join(viz_root, "checkpoint_plots.pdf"), "rb") as f:
+        pdf_pages = f.read().count(b"/Type /Page ")
+    if pdf_pages != 4:
+        fail(f"viz: the checkpoint PDF has {pdf_pages} pages, want 4")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("matplotlib", "PIL"))
+    if loaded:
+        fail(f"viz: {loaded} imported")
+    eval_counts["viz"] = counted({}, "viz")
+    if not viz_s < VIZ_MAX_S:
+        fail(f"viz: {viz_s:.2f} s, over the limit of {VIZ_MAX_S} s")
+    written_files = expected + [m for m in movie if os.path.exists(m)]
+    names = [os.path.relpath(f, viz_root) if f.startswith(viz_root) else os.path.basename(f)
+             for f in written_files]
+    print("  viz files (bytes): " + " ".join(f"{n}={os.path.getsize(f)}"
+                                            for n, f in zip(names, written_files)), flush=True)
+    report("viz", t0, viz_s, B=loc_a.shape[0], N=loc_a.shape[2], T=loc_a.shape[1],
+           files=len(written_files), bytes=sum(os.path.getsize(f) for f in written_files),
+           pdf_pages=pdf_pages, movie=os.path.basename(next(m for m in movie if os.path.exists(m))),
+           matplotlib_or_pil_loaded=False)
+    floor_dirs.cleanup()
 
     # ------------------------------------------------------- 23. inferencer
     t0 = time.perf_counter()

@@ -4,11 +4,12 @@
 Walks ``<run>/checkpoints/<int>/`` (run dirs of either package), recomputes
 each checkpoint's per-macro KS p-values from its macro JSONs (GT against
 predicted), Fisher-combines them, optionally draws the GT-vs-GT floor, and
-reports the best checkpoint: ``ks_results.csv`` and ``ks_summary.json`` in the
-run dir.  :func:`combined_pvalues_report` aggregates several runs into one
-summary CSV, :func:`time_cutoff_report` the checkpoint each run reached within
-a wall-clock budget.  No figure is drawn: the port may not import matplotlib
-(``tests/test_torch_weights.py:39`` forbids it; ROADMAP.md, queue 1 item 10).
+reports the best checkpoint: ``ks_results.csv``, ``ks_results.png`` (the
+p-values against checkpoint) and ``ks_summary.json`` in the run dir.
+:func:`combined_pvalues_report` aggregates several runs into one summary CSV
+and an overlay of their curves (``<csv>_multi.png``), :func:`time_cutoff_report`
+the checkpoint each run reached within a wall-clock budget.  The figures come
+from ``viz/macro_plots.py`` (numpy only).
 
     python -m <package>.cli ks-test RUN [RUN ...] [--baseline] [--multi-out CSV] [--hours H]
 """
@@ -94,8 +95,9 @@ def evaluate_run_checkpoints(
     plot: bool = True,
 ) -> Dict:
     """Rank every checkpoint of a run dir on the published basis (macros
-    only); write ``ks_results.csv`` and ``ks_summary.json``.  ``plot`` draws
-    nothing (see the module's docstring)."""
+    only); write ``ks_results.csv``, ``ks_summary.json`` and with ``plot``
+    ``ks_results.png``: the combined p and each metric's p against checkpoint
+    (a metric a checkpoint lacks is NaN there)."""
     ckpt_root = os.path.join(run_path, "checkpoints")
     if not os.path.isdir(ckpt_root):
         raise FileNotFoundError(f"no checkpoints/ under {run_path}")
@@ -125,6 +127,14 @@ def evaluate_run_checkpoints(
                                restval="")
             w.writeheader()
             w.writerows(rows)
+    if plot and rows:
+        from ..viz.macro_plots import plot_pvalue_series
+
+        plot_pvalue_series(run_path, [r["checkpoint"] for r in rows],
+                           [r["combined_pvalue"] for r in rows],
+                           per_metric={k: [r.get(k, float("nan")) for r in rows]
+                                       for k in all_keys},
+                           filename="ks_results.png")
 
     summary = {
         "run_path": run_path,
@@ -144,21 +154,27 @@ def combined_pvalues_report(
     run_paths: List[str], out_csv: str, plot: bool = True
 ) -> List[Dict]:
     """Each run's best checkpoint, its combined p and its first checkpoint with
-    p >= 0.05, as a summary CSV (runs without ``checkpoints/`` are skipped).
-    ``plot`` draws nothing."""
+    p >= 0.05, as a summary CSV (runs without ``checkpoints/`` are skipped);
+    with ``plot`` the runs' combined-p curves overlaid in ``<csv>_multi.png``,
+    each labelled ``model (run)``."""
     rows = []
+    series = {}
     for rp in run_paths:
         try:
             s = evaluate_run_checkpoints(rp, plot=False)
         except FileNotFoundError:
             continue
+        model = os.path.basename(os.path.dirname(os.path.normpath(rp)))
+        series[f"{model} ({os.path.basename(os.path.normpath(rp))})"] = s["results"]
         rows.append({
-            "model": os.path.basename(os.path.dirname(os.path.normpath(rp))),
+            "model": model,
             "run": rp,
             "best_checkpoint": s["best_checkpoint"],
             "best_combined_pvalue": s["best_combined_pvalue"],
             "first_checkpoint_p_ge_0.05": s["first_checkpoint_p_ge_0.05"],
         })
+    if plot and series:
+        _plot_multi_model(series, os.path.splitext(out_csv)[0] + "_multi.png")
     os.makedirs(os.path.dirname(os.path.abspath(out_csv)), exist_ok=True)
     with open(out_csv, "w", newline="") as f:
         w = csv.DictWriter(f, fieldnames=["model", "run", "best_checkpoint",
@@ -166,6 +182,15 @@ def combined_pvalues_report(
         w.writeheader()
         w.writerows(rows)
     return rows
+
+
+def _plot_multi_model(series: Dict[str, List[Dict]], out_png: str) -> None:
+    """Overlaid combined-p curves, one per run, log y."""
+    from ..viz import raster
+    from ..viz.macro_plots import multi_model_figure
+
+    os.makedirs(os.path.dirname(os.path.abspath(out_png)), exist_ok=True)
+    raster.save(multi_model_figure(series, os.path.basename(out_png)), out_png)
 
 
 def time_cutoff_report(

@@ -8,10 +8,11 @@
   against the base dt, on the same frame grid.
 
 Every GT batch comes from ``data.gravity_otf.GravityDatasetOtf`` on its
-device: on the card, one launch of the integrator K2-leapfrog a batch.  No
-figure is drawn: the port may not import matplotlib
-(``tests/test_torch_weights.py:39`` forbids it; ROADMAP.md, queue 1 item 10);
-every JSON is written with the JAX package's keys.
+device: on the card, one launch of the integrator K2-leapfrog a batch.  Every
+JSON is written with the JAX package's keys, and beside it the JAX package's
+figure (``baseline_metamacros.png``: KL and JS box plots per macro and the
+combined-p floor; ``compare_dt.png``: KS p against dt), drawn by
+``viz/macro_plots.py`` (numpy only).
 
     python -m <package>.evaluation.studies metamacros|compare_dt [--device cpu] ...
 """
@@ -29,6 +30,7 @@ from ..data.gravity_otf import GravityDatasetOtf
 from ..metrics import macros as M
 from ..metrics.artifacts import host
 from ..metrics.ks import SCORED_MACROS, combine_scored, ks_p
+from ..viz.macro_plots import compare_dt_figure, metamacros_figure, save_figures
 
 # the per-macro floor covers com_movement and stuck_cluster_size too; the
 # combined floor is combine_scored's six-macro basis, as a model run is scored
@@ -94,6 +96,7 @@ def baseline_metamacros(
         os.makedirs(save_dir, exist_ok=True)
         with open(os.path.join(save_dir, "baseline_metamacros.json"), "w") as f:
             json.dump(out, f, indent=2)
+        save_figures(save_dir, [metamacros_figure(stats, combined_floor)])
     return out
 
 
@@ -156,6 +159,7 @@ def compare_dt(
         os.makedirs(save_dir, exist_ok=True)
         with open(os.path.join(save_dir, "compare_dt.json"), "w") as f:
             json.dump(out, f, indent=2)
+        save_figures(save_dir, [compare_dt_figure(out, MACRO_KEYS)])
     return out
 
 

@@ -9,17 +9,18 @@ file::
     {"ground truth": {"timestamp": ..., "<field>": [...]},
      "predicted":    {"timestamp": ..., "<field>": [...]}}
 
-Trajectories may be tensors (on any device) or arrays.  ``plot=True`` keeps the
-JAX package's rule that plotting never fails an evaluation, but draws nothing:
-its ``viz/`` (matplotlib) is not ported, since the port may not import
-matplotlib (``tests/test_torch_weights.py:39`` forbids it; ROADMAP.md, queue 1
-item 10).
+Trajectories may be tensors (on any device) or arrays, copied to the host.
+``plot=True`` draws the macro histograms and the projected trajectories
+(``viz/macro_plots.py``, numpy only), and keeps the JAX package's rule that a
+plotting error never fails an evaluation: it is printed and the scoring goes
+on.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import traceback
 from datetime import datetime
 from typing import Dict, Optional
 
@@ -136,7 +137,7 @@ def evaluate_rollout(
 ):
     """Macro and KS scoring of one rollout, writing every artifact; returns
     ``(per_macro_pvalues, combined_p, gt_macros, pred_macros)``.  ``plot`` draws
-    nothing (see the module's docstring)."""
+    the figures (see the module's docstring)."""
     loc_actual, vel_actual = host(loc_actual), host(vel_actual)
     loc_pred, vel_pred = host(loc_pred), host(vel_pred)
     gt = M.compute_all_macros(loc_actual, vel_actual)
@@ -144,6 +145,14 @@ def evaluate_rollout(
     write_macro_jsons(save_dir, gt, pred)
     if save_trajectory_npys:
         save_trajectories(save_dir, loc_actual, loc_pred, vel_actual, vel_pred)
+    if plot:
+        try:
+            from ..viz.macro_plots import plot_macro_histograms, plot_trajectories_2d
+
+            plot_macro_histograms(save_dir, gt, pred)
+            plot_trajectories_2d(save_dir, loc_actual, loc_pred)
+        except Exception:  # a figure never fails an evaluation
+            traceback.print_exc()
     if extended:
         from .extended_artifacts import write_all_extended
 

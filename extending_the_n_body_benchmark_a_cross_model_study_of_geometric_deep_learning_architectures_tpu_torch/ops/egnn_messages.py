@@ -113,14 +113,24 @@ def aligned(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def operand_dtype(operands, f32_inputs) -> torch.dtype:
     """The kernels' operand dtype: float32 or bfloat16, shared by ``operands``
-    (hA, hB and the weights); ``f32_inputs`` (geometry or node data) are float32."""
+    (hA, hB and the weights).  ``f32_inputs`` (geometry or node data) may be
+    any floating dtype: the kernels take them cast to float32."""
     op = operands[0].dtype
     if op not in (torch.float32, torch.bfloat16) or any(t.dtype != op for t in operands):
         raise TypeError("the edge kernels take hA, hB and the weights all in float32 or all "
                         f"in bfloat16, got {sorted({str(t.dtype) for t in operands})}")
-    if any(t.dtype != torch.float32 for t in f32_inputs):
-        raise TypeError("the edge kernels take the geometry in float32")
+    if not all(t.is_floating_point() for t in f32_inputs):
+        raise TypeError("the edge kernels take the geometry as floating point, got "
+                        f"{sorted({str(t.dtype) for t in f32_inputs})}")
     return op
+
+
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """Geometry or node data as the kernels take it: a float narrower than
+    float32 (a bf16 scene's) cast to float32, as the JAX wrappers cast it
+    (``ops/pallas/egnn_messages.py:238``, ``ops/pallas/egnn_stream.py:234-237``);
+    float32 and float64 unchanged here (the CUDA launch casts float64 down)."""
+    return t.float() if t.is_floating_point() and torch.finfo(t.dtype).bits < 32 else t
 
 
 def refuse_grad(name: str, tensors) -> None:
@@ -172,7 +182,9 @@ def fused_egnn_messages(
     tanh: bool = True, activation: str = "silu",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(agg [B, N, He], trans [B, N, 3])``: kernel K1 on a CUDA
-    tensor, :func:`egnn_messages_plain` on a CPU tensor."""
+    tensor, :func:`egnn_messages_plain` on a CPU tensor.  A bf16 ``geom`` is
+    taken as float32 (:func:`at_least_f32`)."""
+    geom = at_least_f32(geom)
     if not _build.wants_kernel(hA):
         return egnn_messages_plain(
             hA, hB, geom, mask, w_geom, W2, b2, Wc1, bc1, wc2, tanh, activation

@@ -70,8 +70,10 @@ def streaming_egnn_messages(
     tensor, :func:`streaming_egnn_messages_plain` on a CPU tensor.
 
     ``tile_i`` and ``tile_j`` are the TPU kernel's tile sizes; they are taken
-    for its signature's sake and change nothing here."""
+    for its signature's sake and change nothing here.  Node inputs of a bf16
+    scene are taken as float32 (``egnn_messages.at_least_f32``)."""
     del tile_i, tile_j
+    pos0, vel, mass, coord = (EM.at_least_f32(t) for t in (pos0, vel, mass, coord))
     if not _build.wants_kernel(hA):
         return streaming_egnn_messages_plain(
             hA, hB, pos0, vel, mass, coord, mask, w_geom, W2, b2, Wc1, bc1, wc2,

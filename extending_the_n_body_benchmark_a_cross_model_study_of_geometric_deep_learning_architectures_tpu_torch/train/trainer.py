@@ -43,9 +43,10 @@ others.  Otherwise every rank trains the whole batch (a line says which).
 Either way only the first rank writes: the run dir, logs, checkpoints,
 evaluation artifacts and the GT cache.
 
-On the card the edge kernel K1 and the GT integrator compute float32 (K1
-also bf16 operands in the mixed model), so a ``double``, ``bfloat16`` or
-``autocast`` run there needs the model's ``edge_impl="dense"``.
+On the card the edge kernels K1 and K3 compute float32 (or bf16 operands),
+taking a bf16 scene's geometry as float32, so a ``bfloat16`` or ``autocast``
+run evaluates through them; a ``double`` run there needs the model's
+``edge_impl="dense"``.
 """
 
 from __future__ import annotations
@@ -320,12 +321,12 @@ class Trainer:
     def _refuse_what_is_not_ported(self) -> None:
         a = self.args
         on_card = _build.wants_kernel(torch.empty(0, device=self.device))
-        if (on_card and self.dtype != torch.float32 and has_edge_stage(self.model)
+        if (on_card and self.dtype == torch.float64 and has_edge_stage(self.model)
                 and self.model.edge_impl != "dense"):
             raise NotImplementedError(
-                f"precision_mode {a.precision_mode!r} on the card: the edge kernel K1 computes "
-                "float32 (or bf16 operands in the mixed model, compute_dtype='bfloat16'), "
-                "ROADMAP.md section 3; configure the model with --model.edge_impl dense")
+                f"precision_mode {a.precision_mode!r} on the card: the edge kernels K1 and K3 "
+                "compute float32 (or bf16 operands), not float64, ROADMAP.md section 3; "
+                "configure the model with --model.edge_impl dense")
 
     # ------------------------------------------------------------------ io
 

@@ -9,10 +9,10 @@ from the same parameters (the JAX ones, cast to float64, carried across with
 step): each step's loss, recomputed in float64 on the batch it drew, agrees
 within 1e-10 relative, and the parameters after the three steps within 1e-9
 of each tensor's largest value.  Then ``run_self_feed_eval`` writes the same
-set of artifact files in both run dirs (the JAX package's plots aside), and
+set of artifact files in both run dirs (the figures included), and
 each package's ``load_run`` reads the other's run dir.
 
-Also here: the refusals of the trainer (a non-float32 run on the card without
+Also here: the refusals of the trainer (a float64 run on the card without
 the dense edge stage, on a stand-in for the card), and the CLI, imported and
 run for a tiny training in a process where JAX cannot be imported.
 """
@@ -170,8 +170,7 @@ def test_parameters_after_three_steps_agree(pair):
 def _files(run_dir):
     out = set()
     for base, _, names in os.walk(run_dir):
-        out |= {os.path.relpath(os.path.join(base, n), run_dir) for n in names
-                if not n.endswith(".png")}
+        out |= {os.path.relpath(os.path.join(base, n), run_dir) for n in names}
     return out
 
 
@@ -227,14 +226,20 @@ class _Dataset:
 
 @pytest.mark.parametrize("mode", ["bfloat16", "double", "autocast"])
 def test_non_float32_on_the_card_needs_the_dense_edge_stage(mode, monkeypatch):
-    """On a stand-in for the card (``wants_kernel`` true), a run in another
-    precision than float32 raises before it launches anything unless the model
-    runs the dense edge stage; float32 passes."""
+    """On a stand-in for the card (``wants_kernel`` true), a float64 run raises
+    before it launches anything unless the model runs the dense edge stage (the
+    edge kernels compute no float64).  A ``bfloat16`` or ``autocast`` run builds
+    with the kernel edge stage: the kernels take a bf16 scene's geometry as
+    float32.  float32 passes."""
     args, _ = TCFG.parse_args(["--trainer.precision_mode", mode])
     monkeypatch.setattr(_build, "wants_kernel", lambda t: True)
     kernel = tmodels.create_model("egnn_mc", device="cpu", num_layers=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.Trainer(kernel, _Dataset(), args, device="cpu")
+    if mode == "double":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TT.Trainer(kernel, _Dataset(), args, device="cpu")
+    else:
+        with pytest.raises(_NoBatch):
+            TT.Trainer(kernel, _Dataset(), args, device="cpu")
     dense = tmodels.create_model("egnn_mc", device="cpu", num_layers=1, edge_impl="dense")
     with pytest.raises(_NoBatch):
         TT.Trainer(dense, _Dataset(), args, device="cpu")
