@@ -23,7 +23,8 @@ body-sharded ring, each rank a process of its own): the bench
 workload (B=64 sims of N=100 bodies, dense edge stage K1) and the big-N path
 (B=8 sims of N=512 bodies, streaming edge stage K3), each in f32 and in the
 mixed-bf16 model (``compute_dtype="bfloat16"``: hidden and message stack in
-bf16, coordinates, geometry and integration in f32):
+bf16, coordinates, geometry and integration in f32).  Phase 24b drives the
+research loop's tools (``tools/``) as a user runs them:
 
   1. device        card name and power limit, torch / CUDA versions, TF32 off,
                    bf16 products reduced in f32
@@ -129,6 +130,21 @@ bf16, coordinates, geometry and integration in f32):
                    reference default (N=5, B=64): one epoch of 10 steps and a
                    20-step evaluation through K1 a trial, finite values, parameter
                    counts within the budget
+ 24b. pipeline     the research loop's tools as a user runs them, each a
+                   process of its own: `python -m <package>.tools.pipeline` on
+                   EGNN-MC at the root config.yaml (6 x 128, N=5, B=64), fresh:
+                   2 epochs of 10 steps with a checkpoint and a 100-frame
+                   evaluation an epoch (`cli train`: 2 x 6 x 99 K1 launches),
+                   `cli ks-test`, a 1-draw battery at the top checkpoint
+                   (`cli self-feed`: 6 x 99 K1, 1 K2-leapfrog), the launches
+                   read from the lines the CLI prints on the card; its best p
+                   the maximum of the run's ks_summary.json and battery; the
+                   same call again prints the same JSON and starts no stage;
+                   `tools.wait_for_backend` exits 0; `tools.archive_row` into a
+                   temporary results dir, `tools.results_report` on it (a CSV
+                   row of the run's numbers, a PNG the port's reader decodes),
+                   `tools.diagnose_macros` names a binding macro; each stage's
+                   and each tool's seconds
  25. ponita        a fresh PONITA at the width of its committed 10M run (width
                    480, 20 orientations) and depth 2 (the run's 5 cut to give the
                    smoke's time to the later families) from a seed: its
@@ -548,6 +564,20 @@ KS_RTOL = 1e-12
 INF_STEPS = 20
 # HPO at the reference default: trials of one epoch of 10 steps, 20-step evaluations
 HPO_TRIALS, HPO_EVAL_STEPS = 2, 20
+# the research loop through `python -m <package>.tools.pipeline` at the root
+# config.yaml (EGNN-MC 6 x 128, N=5, B=64, sim_length 10000), fresh: 2 epochs
+# of PIPE_STEPS steps, a checkpoint and an evaluation of PIPE_EVAL_STEPS frames
+# an epoch (the evaluation's 999 steps cut for the smoke's time), a 1-draw
+# battery at the top checkpoint; each tool a process of its own
+PIPE_STEPS, PIPE_EVAL_STEPS, PIPE_SEED, PIPE_TIMEOUT = 10, 100, 281, 300
+PIPE_ARGV = ["--model", "egnn_mc", "--epochs", "2", "--ckpt-interval", "1",
+             "--min-checkpoints", "2", "--draws", "1", "--top-k", "1",
+             "--draw-seed", str(PIPE_SEED), "--deadline-hours", "0.05", "--poll-s", "5",
+             "-o", f"trainer.steps_per_epoch={PIPE_STEPS}", "-o", "trainer.test_macros_every=1",
+             "-o", "trainer.save_model_every=1",
+             "-o", f"trainer.self_feed_limit_steps={PIPE_EVAL_STEPS}",
+             "-o", "trainer.seed=0", "-o", "dataloader.seed=0"]
+PIPE_ROW = "pipeline_egnn_mc"
 
 # PONITA at the width of its committed 10M run (h480, 20 orientations;
 # scripts/queues/tpu_queue48.sh:63-64 trained it at L5) and depth 2 (cut to
@@ -1284,6 +1314,174 @@ def _phase_modules():
         "models", "weights", "cli", "train.trainer", "train.losses", "utils.config",
         "data.dataloaders", "data.gravity_otf", "rollout.self_feed", "ops.gravity",
         "parallel.launch", "core.scene")}
+
+
+def _tools(*calls, cwd: str) -> list:
+    """Run ``python -m <package>.tools.<name> args`` for each ``(name, args)``
+    side by side, as a user would (each in a process group of its own, killed with
+    everything it started past PIPE_TIMEOUT); a list of calls runs one after
+    another beside the rest.  ``(seconds, stdout, stderr)`` a call, its
+    seconds from the start to its own end.  A tool that fails or overruns
+    fails the phase.
+
+    The tools and their stages share a bytecode cache under ``cwd``: the
+    card's image sets PYTHONDONTWRITEBYTECODE and ships torch without .pyc
+    files, so each process would compile torch's sources as it imports them
+    (10.3 s a process there, 6-7 s from the cache)."""
+    import signal
+    import subprocess
+
+    path = [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(path),
+               PYTHONPYCACHEPREFIX=os.path.join(cwd, "pyc"))
+    env.pop("PYTHONDONTWRITEBYTECODE", None)
+    t0 = time.perf_counter()
+    live = []  # every process started, for the kill on an overrun
+
+    def run(name, args):
+        proc = subprocess.Popen([sys.executable, "-m", f"{PKG}.tools.{name}", *args],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                cwd=cwd, env=env, start_new_session=True)
+        live.append(proc)
+        try:
+            stdout, stderr = proc.communicate(timeout=max(1.0, PIPE_TIMEOUT -
+                                                          (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            stdout, stderr = "", ""
+        return name, proc.returncode, stdout, stderr, time.perf_counter() - t0
+
+    def chain(calls):
+        out = []
+        for name, args in calls:
+            out.append(run(name, args))
+            if out[-1][1] != 0:
+                break
+        return out
+
+    groups = [c if isinstance(c, list) else [c] for c in calls]
+    with ThreadPoolExecutor(max_workers=len(groups)) as pool:
+        done = [r for g in pool.map(chain, groups) for r in g]
+    for name, rc, stdout, stderr, *_ in done:
+        if rc is None:
+            for q in live:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(q.pid, signal.SIGKILL)
+            fail(f"pipeline: tools.{name} ran past {PIPE_TIMEOUT} s")
+        if rc != 0:
+            fail(f"pipeline: tools.{name} exited {rc}:\n{stdout[-3000:]}\n{stderr[-3000:]}")
+    if len(done) != sum(len(g) for g in groups):
+        fail("pipeline: a chain of tools stopped early")
+    return [(seconds, stdout, stderr) for _, _, stdout, stderr, seconds in done]
+
+
+def _launch_line(text: str, command: str) -> dict:
+    """The launches the port's CLI reports at the end of ``command`` on the card
+    (``kernel launches (<command> on cuda): {...}``), or {} for none."""
+    head = f"kernel launches ({command} on cuda): "
+    lines = [ln for ln in text.splitlines() if ln.startswith(head)]
+    if len(lines) > 1:
+        fail(f"pipeline: {len(lines)} launch lines of {command}: {lines}")
+    return json.loads(lines[0][len(head):]) if lines else {}
+
+
+def _pipeline_phase(layers: int) -> dict:
+    """Phase 24b, [pipeline]: the research loop's tools as a user runs them
+    (``tools/``), on the card; returns the phase's fields and the launches
+    the train and battery stages report."""
+    import csv
+    import re
+
+    viz_encode = __import__(f"{PKG}.viz.encode", fromlist=["read_png"])
+    tmp = tempfile.TemporaryDirectory()
+    wd, results = os.path.join(tmp.name, "wd"), os.path.join(tmp.name, "results")
+    argv = ["--workdir", wd, *PIPE_ARGV]
+    t_wall = time.time()
+    (first_s, out1, err1), (wait_s, out_w, _) = _tools(
+        ("pipeline", argv), ("wait_for_backend", ["--max-wait", "60", "--poll", "5"]),
+        cwd=tmp.name)
+    if out_w.strip() != "backend healthy":
+        fail(f"pipeline: wait_for_backend printed {out_w!r}")
+    last1 = out1.strip().splitlines()[-1]
+    result = json.loads(last1)
+    if result.get("status") != "ok":
+        fail(f"pipeline: {last1}\n{err1[-3000:]}")
+    run = result["run"]
+    # each stage's seconds from the files it ends with (wall clock, probes included)
+    log = os.path.join(wd, "train_attempt1.log")
+    summary_path = os.path.join(run, "ks_summary.json")
+    with open(summary_path) as f:
+        summary = json.load(f)
+    best_ck = max(summary["results"], key=lambda r: r["combined_pvalue"])["checkpoint"]
+    battery_path = os.path.join(run, f"draws_ckpt{best_ck}", "self_feed_draws.json")
+    if not os.path.exists(battery_path):
+        fail(f"pipeline: no battery at the top checkpoint {best_ck} of {run}")
+    with open(battery_path) as f:
+        battery = json.load(f)
+    ends = [os.path.getmtime(p) for p in (log, summary_path, battery_path)]
+    stage_s = dict(zip(("train", "score", "draws"),
+                       (b - a for a, b in zip([t_wall] + ends, ends))))
+    ckpts = sorted(os.listdir(os.path.join(run, "checkpoints")), key=int)
+    want_best = max([r["combined_pvalue"] for r in summary["results"]]
+                    + [d["combined_pvalue"] for d in battery["draws"]])
+    if (ckpts != ["1", "2"] or result["best"] != want_best
+            or summary["num_checkpoints"] != 2 or battery["seed"] != PIPE_SEED
+            or len(battery["draws"]) != 1 or not 0.0 < want_best <= 1.0):
+        fail(f"pipeline: checkpoints {ckpts}, best {result['best']} against {want_best} read "
+             f"back from {summary_path} and {battery_path}, battery seed {battery['seed']}")
+    # training and the draw on the card through the kernel edge stage: the
+    # evaluations and the battery roll out through K1, each GT batch one K2-leapfrog
+    with open(log) as f:
+        train_log = f.read()
+    train_launch, draw_launch = _launch_line(train_log, "train"), _launch_line(out1, "self-feed")
+    steps = PIPE_EVAL_STEPS - 1
+    if (train_launch.get("k1") != 2 * layers * steps or train_launch.get("leapfrog", 0) < 1
+            or set(train_launch) - {"k1", "leapfrog"}
+            or draw_launch != {"k1": layers * steps, "leapfrog": 1}):
+        fail(f"pipeline: the train stage launched {train_launch} (want {2 * layers * steps} "
+             f"K1 and K2-leapfrog), the battery {draw_launch} (want {layers * steps} K1 "
+             "and 1 K2-leapfrog)")
+    if "Epoch 1 |" not in train_log or "Training egnn_mc | params:" not in train_log:
+        fail(f"pipeline: the train log lacks its epochs:\n{train_log[-2000:]}")
+
+    # the same call again (nothing to do) beside the binding macro and the
+    # workdir into a row, then the row into the report
+    (again_s, out2, err2), (diag_s, out_d, _), (archive_s, out_a, _), (report_s, _, _) = _tools(
+        ("pipeline", argv), ("diagnose_macros", [run]),
+        [("archive_row", ["--workdir", wd, "--dest", PIPE_ROW, "--results-dir", results]),
+         ("results_report", ["--results-dir", results])], cwd=tmp.name)
+    if (out2.strip() != last1 or "pipeline: reusing run" not in err2
+            or "training attempt" in err2 or "draws at" in err2):
+        fail(f"pipeline: the second call printed {out2!r} / {err2[-2000:]!r}, want only {last1}")
+    archived = json.loads(out_a)
+    with open(os.path.join(results, "combined_pvalues_summary.csv")) as f:
+        rows = list(csv.DictReader(f))
+    png = viz_encode.read_png(os.path.join(results, "combined_pvalues_multi.png"))
+    row = rows[0] if len(rows) == 1 else {}
+    if (row.get("folder") != PIPE_ROW or row.get("model") != "egnn_mc"
+            or row.get("num_checkpoints") != "2"
+            or float(row["best_combined_pvalue"]) != summary["best_combined_pvalue"]
+            or float(row["best_draw_pvalue"]) != battery["best_combined_pvalue"]
+            or float(row["best_overall_pvalue"]) != max(summary["best_combined_pvalue"],
+                                                       battery["best_combined_pvalue"])
+            or archived["kept_ckpt"] is None or png.ndim != 3 or not (png != 255).any()):
+        fail(f"pipeline: report rows {rows}, archive {archived}, figure {png.shape}")
+    m = re.search(r"^verdict: '(\w+)' binds \((\d+)/(\d+) records", out_d, re.MULTILINE)
+    if m is None:
+        fail(f"pipeline: diagnose_macros named no binding macro:\n{out_d}")
+    tmp.cleanup()
+    launches = {k: train_launch.get(k, 0) + draw_launch.get(k, 0)
+                for k in set(train_launch) | set(draw_launch)}
+    fields = dict(
+        model="egnn_mc", layers=layers, B=64, N=5, steps=2 * PIPE_STEPS,
+        eval_steps=steps, best=f"{result['best']:.4g}", best_ckpt=best_ck,
+        first_call_s=f"{first_s:.2f}", train_stage_s=f"{stage_s['train']:.2f}",
+        score_stage_s=f"{stage_s['score']:.2f}", draws_stage_s=f"{stage_s['draws']:.2f}",
+        second_call_s=f"{again_s:.2f}", wait_s=f"{wait_s:.2f}", archive_s=f"{archive_s:.2f}",
+        report_s=f"{report_s:.2f}", diagnose_s=f"{diag_s:.2f}", binding=m.group(1),
+        binding_records=f"{m.group(2)}/{m.group(3)}",
+        k1_launches_train=train_launch["k1"], k1_launches_battery=draw_launch["k1"],
+        leapfrog_launches=launches["leapfrog"])
+    return fields, launches
 
 
 def _dp_train_phase(dev) -> dict:
@@ -3232,6 +3430,15 @@ def main() -> None:
               flush=True)
     report("hpo", t0, trials=len(trials), mode="param_small", best_value=f"{best['value']:.4f}",
            k1_launches=got["k1"], leapfrog_launches=got["leapfrog"])
+
+    # --------------------------------------------------------- 24b. pipeline
+    t0 = time.perf_counter()
+    reset_counts()
+    pipe_fields, pipe_launches = _pipeline_phase(LAYERS)
+    if any(counts().values()):  # every launch of the phase is in its tools' processes
+        fail(f"pipeline: this process launched {counts()}")
+    eval_counts["pipeline"] = {**dict.fromkeys(counters, 0), **pipe_launches}
+    report("pipeline", t0, **pipe_fields)
 
     # ------------------------------------- helpers of the families' paths
     def cpu64(s):
