@@ -96,6 +96,16 @@ research loop's tools (``tools/``) as a user runs them:
                    step on the card against the same step on the CPU in float64;
                    step ms, steps/s and peak memory (CUDA events), the split of a
                    step and its top kernels (torch.profiler)
+ 16b. orbax        the orbax checkpoint backend without orbax: the committed
+                   tensorstore-written fixture (EGNN-MC 2 x 16) bitwise its
+                   model.ckpt; [train]'s run resumed for an epoch of 4 steps with
+                   checkpoint_backend orbax, its model.orbax bitwise its
+                   model.ckpt, one step resumed from each bitwise equal, each
+                   rolled out 20 frames through load_run bitwise equal (6 x 19
+                   K1 launches and one K2-leapfrog each); bytes, seconds, the
+                   fixture's zstd decode MB/s
+ 16c. fc-fast      [train]'s dense training step with and without fc_fast, ms
+                   a step (a measurement, not a gate)
  17. train-n5      the reference default (N=5, B=64, 10000 substeps) from a fresh
                    initialisation, 50 steps, every loss finite
  18. floor-n100    the GT-vs-GT floor (evaluation.studies.baseline_metamacros) at
@@ -522,6 +532,14 @@ N5_ARGV = ["--trainer.steps_per_epoch", "10", "--trainer.train_steps", "5",
            "--trainer.save_model_every", "5", "--trainer.test_macros_every", "1000",
            "--trainer.seed", "0", "--dataloader.seed", "0", "--trainer.run_name", "n5"]
 N5_EPOCHS, N5_STEPS = 5, 10
+# [orbax]: [train]'s study run resumed for one epoch of 4 steps with
+# checkpoint_backend orbax, then rolled out from its model.orbax through
+# load_run for ORBAX_ROLLOUT_STEPS frames
+ORBAX_ARGV = list(STUDY_ARGV) + ["--trainer.checkpoint_backend", "orbax"]
+for _flag, _value in (("--trainer.steps_per_epoch", "4"), ("--trainer.train_steps", "31"),
+                      ("--trainer.run_name", "study_orbax")):
+    ORBAX_ARGV[ORBAX_ARGV.index(_flag) + 1] = _value
+ORBAX_ROLLOUT_STEPS = 20
 # one training step on the card (f32) against the same step on the CPU in
 # float64, from the checkpoint's parameters and AdamW state, on the first
 # TRAIN_CMP_B sims of one batch.  The parameters after the step: each tensor
@@ -1484,6 +1502,186 @@ def _pipeline_phase(layers: int) -> dict:
     return fields, launches
 
 
+def _orbax_phase(dev, counters: dict) -> dict:
+    """Phases 16b, [orbax], and 16c, [fc-fast]: the committed tensorstore-written
+    fixture held bitwise against its model.ckpt; [train]'s study run resumed
+    for an epoch with checkpoint_backend orbax, its model.orbax read back
+    bitwise its model.ckpt, one step resumed from each bitwise equal, and a
+    rollout of each through load_run bitwise equal, counted; then the dense
+    training step at those shapes timed with and without fc_fast.  Returns
+    the rollout's launches.  ``counters`` maps a kernel to its wrapper's
+    launch counter (``main``'s)."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    def mod(name):
+        return importlib.import_module(f"{PKG}.{name}")
+
+    ckpt_mod, ckpt_rate = mod("train.checkpoint"), mod("ckpt_format.rate")
+    config_mod, trainer_mod, models = mod("utils.config"), mod("train.trainer"), mod("models")
+    weights, restore, self_feed = mod("weights"), mod("train.restore"), mod("rollout.self_feed")
+    losses_mod = mod("train.losses")
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def counts() -> dict:
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+    def reset_counts() -> None:
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def cuda_ms(fn, iters: int) -> float:
+        fn()
+        sync()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        sync()
+        return start.elapsed_time(stop) / iters
+
+    def same_payload(a, b) -> bool:
+        """Two checkpoint payloads hold the same state bitwise: the params
+        tree, AdamW's count and moments, apply_if_finite's counters."""
+        def leaves(tree, path=()):
+            if isinstance(tree, dict):
+                return [x for k in sorted(tree) for x in leaves(tree[k], path + (k,))]
+            return [(path, np.asarray(tree))]
+
+        pa, pb = leaves(a["params"]), leaves(b["params"])
+        if [k for k, _ in pa] != [k for k, _ in pb] or not all(
+                x.dtype == y.dtype and np.array_equal(x, y) for (_, x), (_, y) in zip(pa, pb)):
+            return False
+        adam_a = weights.opt_state_from_jax(a["opt_state"])
+        adam_b = weights.opt_state_from_jax(b["opt_state"])
+        return (adam_a[0] == adam_b[0]
+                and all(torch.equal(adam_a[i][k], adam_b[i][k]) for i in (1, 2) for k in adam_a[1])
+                and weights.skip_counts_from_jax(a["opt_state"])
+                == weights.skip_counts_from_jax(b["opt_state"])
+                and a["step_count"] == b["step_count"])
+
+    t0 = time.perf_counter()
+    fixture_dir = os.path.join(REPO, "tests", "torch_fixtures", "orbax_egnn_mc")
+    fixture_rate = ckpt_rate.measure(os.path.join(fixture_dir, "model.orbax"))
+    fixture = ckpt_mod.load_checkpoint(os.path.join(fixture_dir, "model.orbax"))
+    if not same_payload(fixture, weights.read_checkpoint(os.path.join(fixture_dir, "model.ckpt"))):
+        fail("orbax: the committed tensorstore-written model.orbax is not bitwise its model.ckpt")
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        args, resolved = config_mod.parse_args(["--trainer.model_path", shutil.copy(CKPT, tmp)]
+                                               + ORBAX_ARGV)
+        reset_counts()
+        trainer = trainer_mod.create_trainer_from_args(args, resolved_config=resolved, device=dev)
+        trainer.train()
+        sync()
+        run_dir = trainer.save_dir_path
+        orbax_dir = os.path.join(run_dir, "model.orbax")
+        if not os.path.isfile(os.path.join(orbax_dir, "_METADATA")) or os.path.exists(
+                os.path.join(run_dir, "model.ckpt")):
+            fail(f"orbax: training with checkpoint_backend orbax wrote {sorted(os.listdir(run_dir))}")
+        t = time.perf_counter()
+        trainer.save_model()
+        save_s = time.perf_counter() - t
+        written = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, fs in os.walk(orbax_dir) for f in fs)
+        trainer.args.checkpoint_backend = "pickle"
+        pkl = trainer.save_model()
+        t = time.perf_counter()
+        payload_o = ckpt_mod.load_checkpoint(orbax_dir)
+        load_s = time.perf_counter() - t
+        payload_p = weights.read_checkpoint(pkl)
+        if not same_payload(payload_o, payload_p) or payload_o["step_count"] != 31:
+            fail("orbax: the port's model.orbax does not read back bitwise its model.ckpt")
+        # one step resumed from each backend, on one batch: bitwise equal
+        scene, y = trainer.dataset.get_batch()
+        stepped = []
+        for payload in (payload_o, payload_p):
+            m = models.create_model(args.model_type, device=dev, **args.model_kwargs)
+            o = trainer_mod.create_optimizer(m.parameters(), learning_rate=args.learning_rate,
+                                             model_size=m.get_model_size(),
+                                             factor=args.learning_rate_factor,
+                                             warmup=args.learning_rate_warmup_steps)
+            trainer_mod.load_training_state(m, o, payload, args.model_type)
+            step_fn, _ = trainer_mod.make_train_step(m, o, trainer.loss_fn, trainer.targets,
+                                                     trainer.num_neighbors, torch.float32)
+            vec = step_fn(scene, y, None)
+            stepped.append(({k: v.detach().clone() for k, v in m.state_dict().items()},
+                            [[t_.clone() for t_ in ts] for ts in o.moments()], o.count, vec))
+            del m, o
+        (p_o, mom_o, c_o, v_o), (p_p, mom_p, c_p, v_p) = stepped
+        if not (c_o == c_p and torch.equal(v_o, v_p)
+                and all(torch.equal(v, p_p[k]) for k, v in p_o.items())
+                and all(torch.equal(a, b) for xs, ys in zip(mom_o, mom_p) for a, b in zip(xs, ys))):
+            fail("orbax: the step resumed from model.orbax is not bitwise the one from model.ckpt")
+        # the orbax run dir rolled out through load_run, against model.ckpt's
+        rolled = []
+        for ck in ("model.orbax", "model.ckpt"):
+            model_r, ds_r, _ = restore.load_run(run_dir, checkpoint=ck, seed=281, device=dev)
+            reset_counts()
+            t = time.perf_counter()
+            out = self_feed.run_self_feed(model_r, ds_r, num_steps=ORBAX_ROLLOUT_STEPS)
+            sync()
+            rolled.append((out, counts(), time.perf_counter() - t))
+            del model_r, ds_r
+        (out_o, orbax_counts, roll_s), (out_p, _, _) = rolled
+        want = dict.fromkeys(counters, 0)
+        want["k1"], want["leapfrog"] = LAYERS * (ORBAX_ROLLOUT_STEPS - 1), 1
+        if orbax_counts != want:
+            fail(f"orbax: the rollout launched {orbax_counts}, want {want}")
+        if not (all(torch.equal(a, b) for a, b in zip(out_o[:4], out_p[:4]))
+                and out_o[4] == out_p[4] and torch.isfinite(out_o[2]).all()):
+            fail("orbax: the rollout of model.orbax is not bitwise that of model.ckpt")
+        del trainer
+    orbax_s = time.perf_counter() - t0
+    print(f"  orbax: fixture {fixture_rate['file_bytes']} bytes read, "
+          f"{fixture_rate['compressed_bytes']} bytes of tensorstore's zstd chunks decoded to "
+          f"{fixture_rate['decoded_bytes']} in {fixture_rate['decode_s']:.4f} s "
+          f"({fixture_rate['decode_mb_s']:.2f} MB/s); the port's model.orbax {written} bytes "
+          f"written in {save_s:.3f} s, read back in {load_s:.3f} s "
+          f"({written / load_s / 1e6:.1f} MB/s)", flush=True)
+    report("orbax", t0, orbax_s, fixture_bytes=fixture_rate["file_bytes"],
+           fixture_decode_mb_s=f"{fixture_rate['decode_mb_s']:.2f}", written_bytes=written,
+           save_s=f"{save_s:.3f}", load_s=f"{load_s:.3f}", resumed_step="bitwise",
+           rollout_steps=ORBAX_ROLLOUT_STEPS, rollout_s=f"{roll_s:.3f}",
+           k1_launches=orbax_counts["k1"], leapfrog_launches=orbax_counts["leapfrog"],
+           survived=out_o[4])
+
+    # the dense training step at [train]'s shapes with and without fc_fast: a
+    # measurement, not a gate
+    t0 = time.perf_counter()
+    fc_ms, fc_params = {}, {}
+    for fast in (False, True):
+        m = models.create_model(args.model_type, device=dev,
+                                **{**args.model_kwargs, "fc_fast": fast})
+        o = trainer_mod.create_optimizer(m.parameters(), learning_rate=args.learning_rate,
+                                         model_size=m.get_model_size(),
+                                         factor=args.learning_rate_factor,
+                                         warmup=args.learning_rate_warmup_steps)
+        trainer_mod.load_training_state(m, o, payload_p, args.model_type)
+        step_fn, _ = trainer_mod.make_train_step(m, o, losses_mod.build_loss_fn(args),
+                                                 args.target.split("+"),
+                                                 args.num_neighbors or (N - 1), torch.float32)
+        step_fn(scene, y, None)
+        sync()
+        fc_params[fast] = {k: v.detach().double().clone() for k, v in m.state_dict().items()}
+        fc_ms[fast] = cuda_ms(lambda: step_fn(scene, y, None), iters=TIMED_STEPS)
+        del m, o
+    fc_diff = max(((fc_params[True][k] - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
+                  for k, v in fc_params[False].items())
+    print(f"  fc-fast: dense step {fc_ms[False]:.3f} ms masked, {fc_ms[True]:.3f} ms fc_fast "
+          f"(B=16, N={N}, {LAYERS} x {WIDTH}); parameters after one step differ by {fc_diff:.3e} "
+          "of their largest value (not held)", flush=True)
+    report("fc-fast", t0, B=16, N=N, masked_ms=f"{fc_ms[False]:.3f}",
+           fc_fast_ms=f"{fc_ms[True]:.3f}", ratio=f"{fc_ms[True] / fc_ms[False]:.4f}",
+           param_diff=f"{fc_diff:.3e}")
+    del payload_o, payload_p, fixture
+    return orbax_counts
+
+
 def _dp_train_phase(dev) -> dict:
     """Phase 63, [dp-train]; returns each rank's kernel launches."""
     # `cli train` data parallel over DP_RANKS gloo ranks that share the card
@@ -1827,7 +2025,7 @@ def main() -> None:
     try:
         import importlib
 
-        pkg = importlib.import_module(PKG)  # noqa: F841  (sets the TF32 flags)
+        pkg = importlib.import_module(PKG)  # noqa: F841
         _build = importlib.import_module(f"{PKG}.ops._build")
         gravity = importlib.import_module(f"{PKG}.ops.gravity")
         EM = importlib.import_module(f"{PKG}.ops.egnn_messages")
@@ -3110,6 +3308,9 @@ def main() -> None:
            energy_combined_p=f"{energy_p:.3e}", cmp_param_err=f"{p_err:.3e}",
            cmp_update_err=f"{up_err:.3e}")
 
+    # ------------------------------------------------- 16b. orbax, 16c. fc-fast
+    orbax_counts = _orbax_phase(dev, counters)
+
     # ---------------------------------------------------------- 17. train-n5
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
@@ -3136,7 +3337,7 @@ def main() -> None:
     # ------------------------------------------- 18-19. floor-n100, floor-n512
     # the GT-vs-GT floor at the committed protocols, beside the committed
     # six-macro floors: datagen and scoring alone, no model
-    eval_counts = {"rollout-full-bf16": full_bf16_counts}
+    eval_counts = {"rollout-full-bf16": full_bf16_counts, "orbax": orbax_counts}
     floor_dirs = tempfile.TemporaryDirectory()  # the floors' JSON and figure, for [viz]
 
     def counted(want: dict, tag: str) -> dict:

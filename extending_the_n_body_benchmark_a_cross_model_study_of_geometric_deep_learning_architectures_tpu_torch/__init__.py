@@ -5,12 +5,9 @@ against; this package imports nothing of it, and no JAX.  Plain tensor code
 is PyTorch; the JAX package's Pallas kernels are CUDA C++ kernels under
 ``csrc/``, built at first use by ``ops/_build.py``.
 
-Float32 matrix products run in full f32: TF32 is switched off here for
-matmuls and cuDNN.  TF32 is the card's analogue of the TPU's one-pass bf16
-default, which ruins closed-loop rollout fidelity (PARITY.md).
+Float32 matrix products run in full f32: every module that imports torch
+first imports ``_tf32``, which switches TF32 off for matmuls and cuDNN.
+This file imports no torch, so the host-only tools (``tools.pipeline``,
+``tools.archive_row``, ``tools.results_report``, ``tools.diagnose_macros``)
+start without it.
 """
-
-import torch
-
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False

@@ -36,6 +36,7 @@ import subprocess
 import time
 from typing import Dict, List, Tuple
 
+from . import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 from .core.scene import Scene

@@ -33,6 +33,7 @@ import statistics
 import sys
 
 import numpy as np
+from . import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 _SELF_FEED_DOC = """Self-feed rollout and macro evaluation of a run's checkpoint.

@@ -9,6 +9,7 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 

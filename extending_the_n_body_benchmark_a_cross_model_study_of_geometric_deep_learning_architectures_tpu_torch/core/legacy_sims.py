@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional, Tuple
 
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 

@@ -27,6 +27,7 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 from ..ops import _build

@@ -10,6 +10,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 TARGETS = ("pos", "force", "pos_dt+vel_dt", "pos_dt+vel", "pos+vel", "pos_com+vel")

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple, Type
 
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 from ..core import graph as G

@@ -43,6 +43,7 @@ import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 from ..core.physics import GravityParams, sample_trajectory_batch

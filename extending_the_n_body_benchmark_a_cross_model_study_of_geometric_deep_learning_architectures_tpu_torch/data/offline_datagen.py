@@ -42,6 +42,7 @@ import pickle
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 SPLITS = ("train", "valid", "test")

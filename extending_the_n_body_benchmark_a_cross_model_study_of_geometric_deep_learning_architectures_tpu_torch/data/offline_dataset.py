@@ -25,6 +25,7 @@ import pickle
 from typing import Tuple
 
 import numpy as np
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 from ..core.scene import Scene

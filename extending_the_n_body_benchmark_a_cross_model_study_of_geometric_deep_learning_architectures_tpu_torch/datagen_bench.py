@@ -25,6 +25,7 @@ import json
 import sys
 from typing import Dict, Sequence
 
+from . import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 from .bign_bench import card_name

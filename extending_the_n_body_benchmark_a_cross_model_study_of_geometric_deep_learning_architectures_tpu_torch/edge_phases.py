@@ -35,6 +35,7 @@ import functools
 import json
 import sys
 
+from . import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 from .bign_bench import card_name

@@ -21,7 +21,6 @@ import json
 import os
 from typing import Dict, List, Optional, Tuple
 
-from ..metrics import artifacts
 from ..metrics import macros as M
 from ..metrics.ks import SCORED_MACROS, fisher_combine, ks_p, macro_ks_pvalues
 
@@ -43,6 +42,8 @@ def load_checkpoint_pvalues(
     p-values are reported in ``per`` either way."""
     per: Dict[str, float] = {}
     pvals: List[float] = []
+    from ..metrics import artifacts  # torch: imported where a call needs it
+
     data = artifacts.read_macro_jsons(ckpt_dir)
     for key in SCORED_MACROS:
         if key not in data:
@@ -79,6 +80,8 @@ def gt_baseline_pvalues(
 ) -> List[float]:
     """GT-vs-GT combined p-values, the macro noise floor: each compares the
     macros of two independent fresh batches."""
+    from ..metrics import artifacts
+
     out = []
     for _ in range(n_pairs):
         loc1, vel1, *_ = dataset.get_ground_truth_trajectories(batch_size)

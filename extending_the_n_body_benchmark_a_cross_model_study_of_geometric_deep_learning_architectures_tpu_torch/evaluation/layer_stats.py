@@ -20,6 +20,7 @@ import json
 import os
 from typing import Dict, List, Optional
 
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 from ..weights import flax_layer_paths

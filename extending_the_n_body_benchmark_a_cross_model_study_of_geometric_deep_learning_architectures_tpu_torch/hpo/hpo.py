@@ -33,6 +33,7 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 PARAM_TOLERANCE = 0.07

@@ -25,6 +25,7 @@ from datetime import datetime
 from typing import Dict, Optional
 
 import numpy as np
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 from . import ks as KS

@@ -21,6 +21,7 @@ from datetime import datetime
 from typing import Dict, Optional
 
 import numpy as np
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 from ..core.physics import energies as energy_fn

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 from .cgenn import CGENN

@@ -40,6 +40,7 @@ import math
 from typing import Optional
 
 import numpy as np
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 import torch.nn.functional as F
 from torch import nn

@@ -54,13 +54,22 @@ receivers' rows, ``Senders.scene`` every body of their sims, and
 sender's (differentiable); every edge tensor is ``[B, n, N, *]``, on any
 mask.
 
-Not ported, and refused: ``fc_fast``.
+``fc_fast=True`` is the JAX model's fully connected fast path of the dense
+edge stage (``models/egnn_mc.py:178-197``): no mask multiplies, ``trans``
+summed over the senders and divided by N-1 (its diagonal is exactly 0), and
+the diagonal message ``m_ii`` computed at O(B N) and subtracted from the sum
+of messages before the same division.  It is exact only for a fully
+connected mask, which the caller guarantees, as in the JAX package.  The
+kernel, streaming and ring edge stages ignore it, as the JAX model's Pallas,
+streaming and ring branches do, and so does the receiver-rows form
+(``senders=``), whose diagonal is not the square's.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional, Tuple
 
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -80,9 +89,6 @@ from .common import (
 )
 
 EDGE_IMPLS = ("kernel", "dense")
-
-_LATER = {"fc_fast": "ROADMAP.md, queue 1 (fc_fast dense path)"}
-
 
 class Senders(NamedTuple):
     """Every sender of a receiver-rows forward: ``scene`` the whole sims'
@@ -111,6 +117,7 @@ class EGNNBlock(nn.Module):
         streaming: bool = False,
         elem_bf16: bool = False,
         body_ring: bool = False,
+        fc_fast: bool = False,
     ):
         super().__init__()
         H, He, Hc = hidden_node_dim, hidden_edge_dim, hidden_coord_dim
@@ -137,6 +144,7 @@ class EGNNBlock(nn.Module):
         self.streaming = streaming
         self.elem_bf16 = elem_bf16
         self.body_ring = body_ring
+        self.fc_fast = fc_fast
 
     def node_terms(self, h):
         """``hA = h W1[:H] + b1`` (receiver term) and ``hB = h W1[H:2H]`` (sender term),
@@ -173,7 +181,9 @@ class EGNNBlock(nn.Module):
         """The JAX model's XLA edge stage (``models/egnn_mc.py:141-201``) in torch
         ops, differentiable: ``(agg [B,N,He], trans [B,N,3])``, the masked means
         over senders of the messages and of the clipped coordinate terms; with
-        ``gather``, the receivers' rows against every sender."""
+        ``gather``, the receivers' rows against every sender.  Under
+        ``fc_fast`` (whole sims only) the means are those of a fully connected
+        mask, taken without it."""
         act = get_activation(self.activation)
         hA, hB, geom = self.edge_inputs(h, coord, edge_attr, gather)
         w_geom, W2, b2, Wc1, bc1, wc2 = self.edge_weights(h.dtype)
@@ -184,6 +194,12 @@ class EGNNBlock(nn.Module):
             w = torch.tanh(w)
         # the coordinate update stays in the coordinates' dtype
         trans = torch.clamp(w[..., None].to(coord.dtype) * geom[..., 5:], -100.0, 100.0)
+        if self.fc_fast and gather is None:
+            n = h.shape[1]
+            # the self pair: radial 0, the edge attributes' diagonal
+            ea_diag = torch.diagonal(edge_attr, dim1=1, dim2=2).movedim(-1, 1).to(h.dtype)
+            m_diag = act(act(hA + hB + ea_diag @ w_geom[1:]) @ W2 + b2)  # [B,N,He]
+            return (m_ij.sum(dim=2) - m_diag) / (n - 1), trans.sum(dim=2) / (n - 1)
         return G.masked_segment_mean(m_ij, mask), G.masked_segment_mean(trans, mask)
 
     def forward(self, h, coord, velocity, edge_attr, mask, edge_impl: str = "kernel",
@@ -263,9 +279,6 @@ class EGNNMC(nn.Module):
         super().__init__()
         self.init_kwargs = {k: v for k, v in locals().items()
                             if k not in ("self", "__class__")}
-        if fc_fast:
-            raise NotImplementedError(
-                f"EGNNMC(fc_fast=...) is not ported yet: {_LATER['fc_fast']}")
         if body_ring and activation != "silu":
             raise ValueError(f"body_ring computes its edge MLP with silu, not {activation!r}")
         if compute_dtype not in ("", "float32", "bfloat16"):
@@ -281,7 +294,7 @@ class EGNNMC(nn.Module):
         self.layers = nn.ModuleList(
             EGNNBlock(H, hidden_edge_dim, hidden_coord_dim, edge_attr_dim, activation,
                       coords_weight, recurrent, norm_diff, tanh, streaming, stream_elem_bf16,
-                      body_ring)
+                      body_ring, fc_fast)
             for _ in range(num_layers)
         )
         self.heads = nn.ModuleList(

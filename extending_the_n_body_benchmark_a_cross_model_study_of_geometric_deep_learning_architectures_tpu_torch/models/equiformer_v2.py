@@ -42,6 +42,7 @@ import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 import torch.nn.functional as F
 from torch import nn

@@ -32,6 +32,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 import torch.nn.functional as F
 from torch import nn

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint

@@ -30,6 +30,7 @@ import tempfile
 import threading
 from typing import Optional
 
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

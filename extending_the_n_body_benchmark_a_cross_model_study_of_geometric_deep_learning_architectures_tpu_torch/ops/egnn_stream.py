@@ -30,6 +30,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 from . import _build

@@ -25,6 +25,7 @@ import functools
 from typing import Callable, Dict, Tuple
 
 import numpy as np
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 from .steerable import _sh_numpy, wigner_D_numpy

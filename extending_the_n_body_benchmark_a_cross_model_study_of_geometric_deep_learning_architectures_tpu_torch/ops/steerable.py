@@ -31,6 +31,7 @@ import re
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 import torch.nn.functional as F
 from torch import nn

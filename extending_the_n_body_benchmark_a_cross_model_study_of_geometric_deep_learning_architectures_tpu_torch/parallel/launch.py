@@ -33,6 +33,7 @@ import time
 import traceback
 from typing import Any, Callable, List, Optional, Sequence
 
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 LOG_TAIL_BYTES = 4000

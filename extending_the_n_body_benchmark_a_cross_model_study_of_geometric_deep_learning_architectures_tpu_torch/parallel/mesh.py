@@ -36,6 +36,7 @@ import os
 import warnings
 from typing import List, Optional, Sequence
 
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 import torch.distributed as dist
 

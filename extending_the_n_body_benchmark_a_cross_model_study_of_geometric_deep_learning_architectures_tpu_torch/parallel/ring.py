@@ -17,6 +17,7 @@ is plain PyTorch on every device, as the JAX package's ring is plain JAX.
 
 from __future__ import annotations
 
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 from ..core.physics import GravityParams

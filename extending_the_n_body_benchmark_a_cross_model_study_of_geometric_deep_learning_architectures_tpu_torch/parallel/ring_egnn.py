@@ -30,6 +30,7 @@ does not).  Plain PyTorch on every device.
 
 from __future__ import annotations
 
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 import torch.nn.functional as F
 

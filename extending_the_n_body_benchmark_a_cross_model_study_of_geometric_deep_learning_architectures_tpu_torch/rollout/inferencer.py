@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 from ..core import graph as G

@@ -38,6 +38,7 @@ import os
 import sys
 import time
 
+from . import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 from .bign_bench import card_name

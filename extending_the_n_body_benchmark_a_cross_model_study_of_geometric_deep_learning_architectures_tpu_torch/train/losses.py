@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Sequence, Tuple
 
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 from ..core.physics import energies

@@ -35,6 +35,7 @@ from __future__ import annotations
 import functools
 from typing import Iterable, List, Optional, Sequence, Tuple
 
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 BETAS = (0.9, 0.98)

@@ -8,6 +8,7 @@ import os
 from types import SimpleNamespace
 from typing import Optional, Tuple
 
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 from ..data.gravity_otf import GravityDatasetOtf

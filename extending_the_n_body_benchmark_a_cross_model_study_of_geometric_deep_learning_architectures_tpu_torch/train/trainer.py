@@ -60,6 +60,7 @@ import traceback
 from typing import Dict, Optional
 
 import numpy as np
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 from ..core import graph as G

@@ -4,6 +4,10 @@ the JAX package's ``utils/device.py``.
 ``"auto"`` (or None) is the first CUDA card and raises when there is none: no
 entry point of the port moves to the CPU unless asked.  An integer selects a
 card, ``"cpu"`` or -1 the host, and any other string is a torch device name.
+
+The probe runs in a subprocess, so this module imports torch only inside the
+functions that use it: a host tool that waits for the card (``tools.pipeline``,
+``tools.wait_for_backend``) starts without it.
 """
 
 from __future__ import annotations
@@ -13,11 +17,18 @@ import sys
 import time
 from typing import Optional, Union
 
-import torch
 
 
-def get_device(device_id: Union[int, str, None] = "auto") -> torch.device:
+def _torch():
+    from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
+    import torch
+
+    return torch
+
+
+def get_device(device_id: Union[int, str, None] = "auto") -> "torch.device":
     """Resolve a device spec to a ``torch.device``."""
+    torch = _torch()
     if device_id in (-1, "cpu"):
         return torch.device("cpu")
     if isinstance(device_id, str) and device_id.isdigit():
@@ -73,5 +84,6 @@ def wait_for_backend(max_wait_s: float = 3600.0,
 
 def describe_devices() -> str:
     """One line per visible card: ``[index] cuda:<name>``."""
+    torch = _torch()
     return "\n".join(f"[{i}] cuda:{torch.cuda.get_device_name(i)}"
                      for i in range(torch.cuda.device_count()))

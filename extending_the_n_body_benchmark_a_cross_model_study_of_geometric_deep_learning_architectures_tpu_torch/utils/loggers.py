@@ -65,6 +65,7 @@ class TensorBoardLogger(BaseLogger):
     def __init__(self, log_dir: str):
         self._writer = None
         try:  # needs the tensorboard package beside torch
+            from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
             from torch.utils.tensorboard import SummaryWriter
 
             self._writer = SummaryWriter(log_dir)

@@ -14,6 +14,7 @@ import statistics
 import time
 from typing import Callable
 
+from .. import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 

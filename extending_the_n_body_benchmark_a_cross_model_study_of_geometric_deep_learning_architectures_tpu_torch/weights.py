@@ -55,6 +55,7 @@ from collections.abc import Mapping
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+from . import _tf32  # noqa: F401  (TF32 off before torch is used)
 import torch
 
 from .models.cgenn import CGENN
@@ -663,11 +664,14 @@ def _find_adam(node) -> Optional[Tuple[Any, Any, Any]]:
 def skip_counts_from_jax(opt_state) -> Optional[Tuple[int, bool, int]]:
     """``optax.apply_if_finite``'s counters in a checkpoint's ``opt_state``,
     ``(notfinite_count, last_finite, total_notfinite)`` of its
-    ``ApplyIfFiniteState``, or None if it holds none."""
-    found = _find_state(opt_state, lambda n: type(n).__name__ == "ApplyIfFiniteState")
+    ``ApplyIfFiniteState`` (a dict of its fields in an orbax checkpoint read
+    with no template), or None if it holds none."""
+    fields = ("notfinite_count", "last_finite", "total_notfinite")
+    found = _find_state(opt_state, lambda n: type(n).__name__ == "ApplyIfFiniteState"
+                        or (isinstance(n, dict) and set(fields) <= set(n)))
     if found is None:
         return None
-    nf, last, total = found[:3]
+    nf, last, total = [found[f] for f in fields] if isinstance(found, dict) else found[:3]
     return int(np.asarray(nf)), bool(np.asarray(last)), int(np.asarray(total))
 
 

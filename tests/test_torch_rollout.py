@@ -156,12 +156,6 @@ def test_run_self_feed_on_fresh_ground_truth():
         GravityDatasetOtf(target="nope", device="cpu")
 
 
-@pytest.mark.parametrize("option", [dict(fc_fast=True)])
-def test_options_not_in_this_slice_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("egnn_mc", device="cpu", **SMALL, **option)
-
-
 def test_create_model_defaults_and_unknown():
     model = create_model("egnn_mc", device="cpu")
     assert len(model.layers) == 6 and model.get_model_size() == 128

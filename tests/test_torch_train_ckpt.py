@@ -8,7 +8,7 @@ model).  The committed N=100 checkpoint resumes in the port's trainer with its
 optimizer state: parameters equal ``params_from_jax``'s, ``exp_avg`` /
 ``exp_avg_sq`` equal optax's ``mu`` / ``nu``, the step equals optax's
 ``count``, and the next learning rate equals the JAX schedule's at that count.
-The orbax backend is refused.
+The orbax backend round-trips in both packages.
 """
 
 import importlib
@@ -127,11 +127,41 @@ def test_committed_checkpoint_resumes_with_its_optimizer_state(tmp_path, monkeyp
 
 
 def test_orbax_backend_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="orbax"):
-        TCK.save_checkpoint(str(tmp_path), {}, {}, 0, backend="orbax")
-    (tmp_path / "model.orbax").mkdir()
-    with pytest.raises(NotImplementedError, match="orbax"):
-        TCK.load_checkpoint(str(tmp_path / "model.orbax"))
+    """The orbax backend now round-trips: the port's ``model.orbax`` of a
+    JAX-initialised state loads back bitwise in the port and in the JAX
+    package (with its live state as the template, the optax structure
+    rebuilt), and the JAX package's own ``model.orbax`` of it loads in the
+    port as the JAX package's untemplated load gives it.  A directory that
+    holds no orbax checkpoint is still refused."""
+    js = JScene(*(jnp.asarray(a) for a in _scene()))
+    params = jmodels.create_model("egnn_mc", **SMALL).init(
+        jax.random.PRNGKey(0), js, jgraph.knn_mask(js.pos, N - 1))
+    state = JO.create_optimizer(0.5, 16, clip_value=1.0, discard_nan_gradients=True).init(params)
+    host = jax.tree_util.tree_map(np.asarray, (params, state))
+    jpath = JCK.save_checkpoint(str(tmp_path / "jax"), params, state, 5, backend="orbax")
+    ported = TCK.optax_opt_state(TO.NoamAdamW(
+        [torch.zeros(1)], learning_rate=0.5, model_size=16, clip_value=1.0,
+        discard_nan_gradients=True),
+        host[1].inner_state[1][0].mu, host[1].inner_state[1][0].nu)
+    path = TCK.save_checkpoint(str(tmp_path / "port"), host[0], ported, 5, {"p": 0.25},
+                               backend="orbax")
+    assert path.endswith("model.orbax") and os.path.isdir(path)
+    back = JCK.load_checkpoint(path, template={"params": params, "opt_state": state})
+    assert jax.tree_util.tree_structure(back["opt_state"]) == jax.tree_util.tree_structure(state)
+    for got, want in zip(jax.tree_util.tree_leaves((back["params"], back["opt_state"])),
+                         jax.tree_util.tree_leaves(host)):
+        assert np.asarray(got).dtype == want.dtype and np.array_equal(got, want)
+    assert back["step_count"] == 5 and back["best_metrics"] == {"p": 0.25}
+    want = JCK.load_checkpoint(jpath)  # untemplated: dicts, lists and None
+    want = (want["params"], want["opt_state"])
+    for got in (TCK.load_checkpoint(path), TCK.load_checkpoint(jpath)):
+        got = (got["params"], got["opt_state"])
+        assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(want)
+        for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+    (tmp_path / "empty.orbax").mkdir()
+    with pytest.raises(ValueError, match="_METADATA"):
+        TCK.load_checkpoint(str(tmp_path / "empty.orbax"))
 
 
 def test_opt_state_is_found_under_clipping_and_apply_if_finite(tmp_path):
